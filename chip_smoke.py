@@ -1,0 +1,532 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``
+from the repository root.
+
+Phases (each raises on failure; the script exits non-zero and prints no
+result line):
+
+1. build   — compile every CUDA kernel of ``src/repro_torch/csrc`` (one
+             ``nvcc`` per source, in parallel).
+2. kernels — each kernel against its plain PyTorch version on the card, on
+             the JAX package's kernel test cases plus the serving path's
+             shapes, with the error, the kernel's time, the plain version's
+             time, one PyTorch library call's time
+             (``scaled_dot_product_attention``, a yardstick only) and the
+             least time the card could take (bytes at 3.35 TB/s or FLOPs at
+             the peak rate of the input type, whichever is larger); then a
+             seeded sweep of random shapes, masks and types, checked only.
+3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
+             through ``InferenceEngine(device="cuda")``: 8 requests, 32 new
+             tokens each. The kernels' launch counters are zeroed just
+             before and read just after, and both must have run.
+4. check   — the reduced deepseek-7b config served on the card and on the
+             host (plain versions) from the same weights must agree on the
+             greedy tokens, and a full-width prefill must give finite
+             hidden states.
+5. profile — one full-width prefill call and eight decode steps through
+             the model layer: wall time untraced, then the device time of
+             one ``torch.profiler`` trace (busy share, the share of the
+             matrix products and of each port kernel, the top kernels).
+
+Kernel times are CUDA-event times of single calls, each after an L2 flush.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
+the repository's ``src/`` beside this file; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attn.ops import decode_attn  # noqa: E402
+from repro_torch.kernels.decode_attn.ref import decode_attn_ref  # noqa: E402
+from repro_torch.kernels.flash_attn.ops import flash_attn  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import flash_attention_ref  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.serving.engine import InferenceEngine, Request  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
+              torch.float32: 67e12}             # f32 outside the tensor cores
+TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
+KERNELS = {
+    "flash_attn": dict(source="src/repro_torch/csrc/flash.cu",
+                       replaces="src/repro/kernels/flash_attn/flash.py:33"),
+    "decode_attn": dict(source="src/repro_torch/csrc/decode.cu",
+                        replaces="src/repro/kernels/decode_attn/decode.py:24"),
+}
+DEV = "cuda"
+
+
+L2_FLUSH_BYTES = 2 * 50 * 2**20                   # twice the H100's 50 MB L2
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call of ``fn``, each call timed on its own
+    after the L2 cache is flushed: on the serving path every layer finds
+    its K/V cache cold (the other layers' weights stream through L2 in
+    between)."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple:
+    """(least ms, 'bytes' or 'operations')."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops > t_mem
+                                     else "bytes")
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+    """Max abs error; raises past the JAX package's tolerance for the type
+    (|got - want| <= tol + tol * |want|)."""
+    tol = TOL[dtype]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or (err > tol + tol * want.abs()).any():
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max abs err {err.max().item():.3e}, "
+                             f"tol {tol})")
+    return err.max().item()
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"build: {len(libs)} kernel libraries ({', '.join(sorted(libs))}) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---- kernels ------------------------------------------------------------
+
+def _randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+
+def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, **kw):
+    """One flash case on the card; returns the measurement dict."""
+    q = _randn(gen, (B, S, H, hd), dtype)
+    k = _randn(gen, (B, S, K, hd), dtype)
+    v = _randn(gen, (B, S, K, hd), dtype)
+    lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device=DEV)
+    got = flash_attn(q, k, v, lens_t, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, lens_t, **kw)
+    err = compare(f"flash_attn[{name}]", got, want, dtype)
+    # the work these inputs need: the (query, key) pairs the mask keeps
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    pos = torch.arange(S, device=DEV)
+    mask = torch.ones(S, S, dtype=torch.bool, device=DEV)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window:
+        mask &= pos[:, None] - pos[None, :] < window
+    n_valid = torch.tensor(lens if lens is not None else [S] * B, device=DEV)
+    mask = mask[None] & (pos[None, None, :] < n_valid[:, None, None])
+    pairs = mask.sum().item()
+    elem = q.element_size()
+    flops = 4.0 * pairs * H * hd
+    nbytes = elem * (2 * q.numel() + 2 * K * hd * n_valid.sum().item())
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    library_ms = library_err = None
+    if not kw.get("softcap"):       # SDPA has no logit softcap
+        # (B,heads,S,hd) layout, kv heads repeated per group, outside the
+        # timed call
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
+                  .contiguous() for x in (k, v))
+        m4 = mask[:, None]
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+        library_err = (lib_out.transpose(1, 2).float()
+                       - want.float()).abs().max().item()
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=m4))
+    return dict(max_abs_err=err, library_err=library_err,
+                ms=time_ms(lambda: flash_attn(q, k, v, lens_t, **kw)),
+                plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, lens_t,
+                                                             **kw)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def decode_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
+    q = _randn(gen, (B, H, hd), dtype)
+    k = _randn(gen, (B, S, K, hd), dtype)
+    v = _randn(gen, (B, S, K, hd), dtype)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
+    got = decode_attn(q, k, v, pos_t, softcap=softcap)
+    torch.cuda.synchronize()
+    want = decode_attn_ref(q, k, v, pos_t, softcap=softcap)
+    err = compare(f"decode_attn[{name}]", got, want, dtype)
+    keys = sum(min(p, S - 1) + 1 for p in pos)
+    elem = q.element_size()
+    flops = 4.0 * H * hd * keys
+    nbytes = elem * (q.numel() + 2 * K * hd * keys) + 4 * B * H * hd
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    library_ms = library_err = None
+    if not softcap:
+        qt = q[:, :, None].contiguous()                         # (B,H,1,hd)
+        kt, vt = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
+                  .contiguous() for x in (k, v))                # (B,H,S,hd)
+        m4 = (torch.arange(S, device=DEV)[None, :]
+              <= pos_t[:, None])[:, None, None]                 # (B,1,1,S)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+        library_err = (lib_out[:, :, 0].float() - want).abs().max().item()
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=m4))
+    return dict(max_abs_err=err, library_err=library_err,
+                ms=time_ms(lambda: decode_attn(q, k, v, pos_t,
+                                               softcap=softcap)),
+                plain_ms=time_ms(lambda: decode_attn_ref(q, k, v, pos_t,
+                                                         softcap=softcap)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def _show(kernel, name, r):
+    lib = ("n/a (softcap)" if r["library_ms"] is None else
+           f"{r['library_ms']:.4f} (its max_abs_err {r['library_err']:.3e})")
+    print(f"{kernel}[{name}]: max_abs_err={r['max_abs_err']:.3e} "
+          f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"library_ms={lib} bound_us={r['bound_ms'] * 1e3:.2f} "
+          f"({r['bound_by']})", flush=True)
+
+
+def phase_kernels() -> dict:
+    """Every case of both kernels; returns the main-path measurements."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # the JAX package's cases (repro/kernels/flash_attn/ops.py)
+    flash_cases = {
+        "mha_64": (2, 64, 4, 4, 32, f32, None, {}),
+        "gqa_128": (2, 128, 8, 2, 64, f32, None, {}),
+        "mqa_256": (1, 256, 8, 1, 64, f32, None, {}),
+        "local_128": (2, 128, 4, 4, 32, f32, None, {"window": 32}),
+        "softcap": (2, 64, 4, 2, 32, f32, None, {"softcap": 30.0}),
+        "padded_lens": (2, 64, 4, 4, 32, f32, [38, 38], {}),
+        "noncausal": (2, 64, 4, 4, 32, f32, None, {"causal": False}),
+        "odd_seq_96": (1, 96, 4, 4, 32, f32, None, {}),
+        "bf16": (2, 128, 8, 2, 64, bf16, None, {}),
+        # deepseek-7b prefill: 4 prompts of a 512 bucket, right-padded
+        "main_B4_S512_H32_hd128": (4, 512, 32, 32, 128, bf16,
+                                   [512, 300, 77, 1], {}),
+    }
+    main = {}
+    for name, (B, S, H, K, hd, dt, lens, kw) in flash_cases.items():
+        r = flash_case(name, gen, B, S, H, K, hd, dt, lens, **kw)
+        _show("flash_attn", name, r)
+        if name.startswith("main"):
+            main["flash_attn"] = r
+    # the JAX package's cases (repro/kernels/decode_attn/ops.py), scalar
+    # pos broadcast to every row, then deepseek-7b decode at per-row pos
+    decode_cases = {
+        "B2_H8_K8_hd64_S256_p0.5": (2, 8, 8, 64, 256, [128] * 2, f32, 0.0),
+        "B2_H8_K2_hd64_S256_p0.9": (2, 8, 2, 64, 256, [230] * 2, f32, 0.0),
+        "B1_H8_K1_hd128_S512_p0.3": (1, 8, 1, 128, 512, [153], f32, 0.0),
+        "B4_H4_K4_hd32_S64_p0.0": (4, 4, 4, 32, 64, [0] * 4, f32, 0.0),
+        "softcap_B2_H8_K4_hd64_S256": (2, 8, 4, 64, 256, [179] * 2, f32,
+                                       50.0),
+        "main_B4_S1024_H32_hd128": (4, 32, 32, 128, 1024,
+                                    [1023, 600, 31, 0], bf16, 0.0),
+    }
+    for name, (B, H, K, hd, S, pos, dt, cap) in decode_cases.items():
+        r = decode_case(name, gen, B, H, K, hd, S, pos, dt, cap)
+        _show("decode_attn", name, r)
+        if name.startswith("main"):
+            main["decode_attn"] = r
+    sweep(seed=1, n=32)
+    return main
+
+
+def sweep(seed: int, n: int) -> None:
+    """``n`` random cases per kernel, outside the JAX package's cases:
+    T != S, empty rows (lens or pos 0), every head_dim and group size the
+    kernels take, both input types, masks and softcap mixed; each against
+    its plain version. No timing."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def pick(xs):
+        return xs[int(rng.integers(0, len(xs)))]
+
+    worst = {"flash_attn": 0.0, "decode_attn": 0.0}
+    for i in range(n):
+        B, K, G = int(rng.integers(1, 4)), pick([1, 2, 4]), pick([1, 2, 4, 8])
+        hd, dt = pick([16, 32, 64, 128]), pick([torch.float32, torch.bfloat16])
+        cap = pick([0.0, 0.0, 30.0])
+        S, T = int(rng.integers(1, 300)), int(rng.integers(1, 300))
+        kw = dict(causal=bool(rng.integers(0, 2)), window=pick([0, 0, 16, 70]),
+                  softcap=cap)
+        q = _randn(gen, (B, S, K * G, hd), dt)
+        k, v = (_randn(gen, (B, T, K, hd), dt) for _ in range(2))
+        lens = torch.tensor(rng.integers(0, T + 1, B), dtype=torch.int32,
+                            device=DEV)
+        err = compare(f"flash_attn[sweep {i}: B{B} S{S} T{T} K{K} G{G} hd{hd} "
+                      f"{dt} {kw} lens {lens.tolist()}]",
+                      flash_attn(q, k, v, lens, **kw),
+                      flash_attention_ref(q, k, v, lens, **kw), dt)
+        worst["flash_attn"] = max(worst["flash_attn"], err)
+        qd = _randn(gen, (B, K * G, hd), dt)
+        pos = torch.tensor(rng.integers(0, T, B), dtype=torch.int32,
+                           device=DEV)
+        err = compare(f"decode_attn[sweep {i}: B{B} S{T} K{K} G{G} hd{hd} "
+                      f"{dt} softcap {cap} pos {pos.tolist()}]",
+                      decode_attn(qd, k, v, pos, softcap=cap),
+                      decode_attn_ref(qd, k, v, pos, softcap=cap), dt)
+        worst["decode_attn"] = max(worst["decode_attn"], err)
+    torch.cuda.synchronize()
+    print(f"sweep: {n} random cases per kernel agree with the plain versions;"
+          f" max abs err {worst}", flush=True)
+
+
+# ---- serve ----------------------------------------------------------------
+
+def stage_ms(tel, stage: str) -> float:
+    """Mean wall time of one call of an engine stage (each stage ends in a
+    copy of its tokens to the host, so this is its time to completion)."""
+    return 1e3 * tel.stage_dispatch_s[stage] / tel.stage_calls[stage]
+
+
+def _requests(n, lo, hi, new_tokens, vocab, seed):
+    rng = np.random.default_rng(seed)
+    return [Request(i, rng.integers(0, vocab, int(L)).astype(np.int32),
+                    max_new_tokens=new_tokens)
+            for i, L in enumerate(rng.integers(lo, hi + 1, n))]
+
+
+def phase_serve(cfg, params) -> dict:
+    """Full-width deepseek-7b serving through the engine; returns the
+    kernels' launch counts of the measured run."""
+    eng = InferenceEngine(cfg, params, batch_slots=4, max_len=1024,
+                          prefill_buckets=(64, 128, 256, 512), device=DEV)
+    eng.run(_requests(1, 64, 64, 4, cfg.vocab_size, seed=1))    # warm-up
+    eng.telemetry.reset_serving_stats()
+    reqs = _requests(8, 64, 512, 32, cfg.vocab_size, seed=0)
+    flash_attn.launches = 0
+    decode_attn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attn": flash_attn.launches,
+                "decode_attn": decode_attn.launches}
+    tel = eng.telemetry
+    ttft = tel.ttft_percentiles()
+    n_tok = sum(len(r.output) for r in reqs)
+    print(f"serve: deepseek-7b full width bf16, {cfg.num_layers} layers, "
+          f"prompts {sorted(len(r.tokens) for r in reqs)}; served "
+          f"{tel.served}/{len(reqs)} in {wall:.3f} s, {n_tok / wall:.1f} "
+          f"tok/s, TTFT p50 {ttft['p50']:.2f} ms p99 {ttft['p99']:.2f} ms, "
+          f"mean decode step {stage_ms(tel, 'decode'):.3f} ms over "
+          f"{tel.steps} steps, mean prefill call "
+          f"{stage_ms(tel, 'prefill'):.3f} ms over "
+          f"{tel.prefill_batches} calls; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if tel.served != len(reqs):
+        raise AssertionError(f"served {tel.served} of {len(reqs)}")
+    bad = [r.rid for r in reqs if len(r.output) != 32
+           or not all(0 <= t < cfg.vocab_size for t in r.output)]
+    if bad:
+        raise AssertionError(f"requests {bad} did not get 32 tokens in the "
+                             f"vocab")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels {missing} never launched while "
+                             f"serving")
+    print(f"serve: kernel launches {launches}", flush=True)
+    return launches
+
+
+def token_agreement(pairs) -> float:
+    """Greedy-token agreement counted up to and including each pair's first
+    mismatch (the JAX package's core.metrics.token_agreement)."""
+    matched = counted = 0
+    for got, ref in pairs:
+        for a, b in zip(got, ref):
+            counted += 1
+            if a != b:
+                break
+            matched += 1
+    return matched / counted if counted else 1.0
+
+
+def phase_check(cfg, params):
+    small = reduce_for_smoke(get_config("deepseek-7b"))
+    host = model_mod.init_params(small, seed=0, device="cpu")
+    card = model_mod.init_params(small, seed=0, device="cpu").to(DEV)
+    outs = []
+    for p, dev in ((card, DEV), (host, "cpu")):
+        eng = InferenceEngine(small, p, batch_slots=3, max_len=64,
+                              prefill_buckets=(8, 16, 32), device=dev)
+        reqs = _requests(6, 3, 30, 8, small.vocab_size, seed=3)
+        eng.run(reqs)
+        outs.append([r.output for r in reqs])
+    agree = token_agreement(zip(*outs))
+    print(f"check: reduced deepseek-7b, card vs host greedy-token agreement "
+          f"{agree:.4f} over 6 requests", flush=True)
+    if agree < 0.95:
+        raise AssertionError(f"card/host token agreement {agree} < 0.95")
+    prompt = torch.from_numpy(_requests(1, 200, 200, 1, cfg.vocab_size,
+                                        seed=4)[0].tokens)[None]
+    with torch.inference_mode():
+        h, _ = model_mod.prefill(params, cfg, {"tokens": prompt},
+                                 max_len=256)
+    if h.shape != (1, cfg.d_model) or not torch.isfinite(h).all():
+        raise AssertionError(f"full-width prefill hidden {tuple(h.shape)} "
+                             f"is not finite")
+    print(f"check: full-width prefill hidden {tuple(h.shape)} finite, "
+          f"rms {h.float().pow(2).mean().sqrt().item():.4f}", flush=True)
+
+
+# ---- profile ----------------------------------------------------------------
+
+MATMUL_KERNEL_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+
+
+def profile_window(label: str, fn, steps: int) -> None:
+    """Device busy share of ``fn`` (which ends in a host copy): its wall time
+    untraced, then its kernels' device time from one traced run."""
+    fn()                                                     # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # device-side activities only (kernels, copies, memsets): an aten op's
+    # own device time counts the kernels it launched a second time
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    if not events:
+        print(f"profile: {label}: wall {wall_ms / steps:.3f} ms per step; "
+              f"device time not measured (the trace holds no device "
+              f"activity)", flush=True)
+        return
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+
+    def share(names):
+        return sum(e.self_device_time_total for e in events
+                   if any(n in e.key.lower() for n in names)) / 1e3 / dev_ms
+
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    print(f"profile: {label}: wall {wall_ms / steps:.3f} ms per step "
+          f"(untraced), device kernels {dev_ms / steps:.3f} ms per step, "
+          f"device busy {100 * dev_ms / wall_ms:.1f}% of the wall time; "
+          f"matmul kernels {100 * share(MATMUL_KERNEL_NAMES):.1f}%, "
+          f"flash_fwd_kernel {100 * share(('flash_fwd_kernel',)):.1f}%, "
+          f"decode_kernel {100 * share(('decode_kernel',)):.1f}% of device "
+          f"time; {sum(e.count for e in events) // steps} device activities "
+          f"per step", flush=True)
+    for e in top:
+        print(f"profile: {label}:   {e.self_device_time_total / 1e3 / steps:8.3f}"
+              f" ms/step x{e.count // steps:<4d} {e.key[:90]}", flush=True)
+
+
+def phase_profile(cfg, params):
+    """Where one full-width prefill call and one decode step spend their
+    time: the model layer driven directly at the serve phase's shapes."""
+    B, S, max_len = 4, 512, 1024
+    lens = torch.tensor([512, 300, 77, 1], device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    valid = torch.arange(S, device=DEV)[None, :] < lens[:, None]
+    caches = model_mod.init_caches(cfg, B, max_len, DEV)
+
+    @torch.inference_mode()
+    def prefill():
+        x, _ = model_mod.forward(params, cfg, {"tokens": toks},
+                                 mode="prefill", caches=caches,
+                                 kv_valid=valid)
+        last = x[torch.arange(B, device=DEV), lens - 1]
+        return model_mod.greedy_next(params, cfg, last).cpu()
+
+    steps = 8
+
+    @torch.inference_mode()
+    def decode():
+        pos = lens.to(torch.int32)
+        nxt = prefill_tokens[:, None].to(DEV)
+        for i in range(steps):
+            h, _ = model_mod.decode_step(params, cfg, nxt, caches, pos + i)
+            nxt = model_mod.greedy_next(params, cfg, h).cpu()[:, None] \
+                .to(DEV)
+
+    prefill_tokens = prefill()
+    profile_window(f"prefill {B}x{S} (lens {lens.tolist()})", prefill, 1)
+    profile_window(f"decode step, {B} rows at pos {lens.tolist()}+", decode,
+                   steps)
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+                 "False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line(), flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    phase_build()
+    main_path = phase_kernels()
+    cfg = get_config("deepseek-7b")
+    t0 = time.perf_counter()
+    params = model_mod.init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"init: deepseek-7b full width, "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          f"params in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = phase_serve(cfg, params)
+    phase_check(cfg, params)
+    phase_profile(cfg, params)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    line = [dict(name=name, route="cuda", **KERNELS[name],
+                 launches=launches[name],
+                 **{k: main_path[name][k] for k in keys})
+            for name in KERNELS]
+    print(json.dumps({"kernels": line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

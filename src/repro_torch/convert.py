@@ -1,0 +1,98 @@
+"""Carry JAX parameters and KV caches across to the port, and caches back.
+
+The JAX package stacks the parameters of its repeating layer unit along a
+leading ``repeats`` axis (``params["scan"]``, one stacked dict per unit
+position) plus an unrolled ``params["tail"]``; the port has one module per
+layer. Layer ``r * len(unit) + i`` is ``scan[i]`` at index ``r``, then the
+tail. Block dicts use the same names as the port's modules, so a flattened
+JAX path is the port's ``state_dict`` key.
+
+Takes and gives numpy arrays only (``jax.tree.map(np.asarray, tree)`` on
+the caller's side): this module imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as model_mod
+
+
+def _to_torch(a) -> torch.Tensor:
+    """A writable copy (the port updates caches in place; arrays that JAX
+    hands out are read-only)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":             # ml_dtypes bfloat16: exact
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _per_layer(tree: Dict[str, Any], cfg: ModelConfig) -> List[Any]:
+    """{"scan": (stacked unit dicts...), "tail": (dicts...)} -> one tree
+    per layer, in layer order."""
+    unit, repeats, _ = cfg.scan_plan()
+
+    def index(t, r):
+        if isinstance(t, dict):
+            return {k: index(v, r) for k, v in t.items()}
+        return t[r]
+
+    out = [index(tree["scan"][i], r)
+           for r in range(repeats) for i in range(len(unit))]
+    return out + list(tree["tail"])
+
+
+def _flatten(tree, prefix: str, out: Dict[str, Any]) -> Dict[str, Any]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(v, f"{prefix}{k}.", out)
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
+                    device="cuda") -> model_mod.Model:
+    """The JAX package's ``init_params`` tree (as numpy) -> the port's
+    model on ``device``, bit-identical weights."""
+    flat: Dict[str, Any] = {}
+    for key in ("embed", "lm_head"):
+        if key in np_tree:
+            flat[key] = np_tree[key]
+    _flatten(np_tree["final_norm"], "final_norm.", flat)
+    for l, layer in enumerate(_per_layer(np_tree, cfg)):
+        _flatten(layer, f"layers.{l}.", flat)
+    model = model_mod.Model(cfg, torch.Generator(device=device), device)
+    model.load_state_dict({k: _to_torch(v) for k, v in flat.items()})
+    return model
+
+
+def caches_from_jax(np_caches: Dict[str, Any], cfg: ModelConfig,
+                    device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """The JAX package's cache tree (as numpy) -> one K/V dict per layer."""
+    return [{k: _to_torch(v).to(device) for k, v in layer.items()}
+            for layer in _per_layer(np_caches, cfg)]
+
+
+def caches_to_jax(caches: List[Dict[str, torch.Tensor]],
+                  cfg: ModelConfig) -> Dict[str, Any]:
+    """One K/V dict per layer -> the JAX package's cache tree (numpy, f32
+    for bf16 caches)."""
+    unit, repeats, tail = cfg.scan_plan()
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    n_scan = repeats * len(unit)
+    scan = tuple(
+        {name: np.stack([host(caches[r * len(unit) + i][name])
+                         for r in range(repeats)])
+         for name in caches[i]}
+        for i in range(len(unit)))
+    tail_out = tuple({name: host(t) for name, t in c.items()}
+                     for c in caches[n_scan:n_scan + len(tail)])
+    return {"scan": scan, "tail": tail_out}

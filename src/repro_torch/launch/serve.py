@@ -1,0 +1,85 @@
+"""Serving launcher of the port: ``python -m repro_torch.launch.serve --arch
+deepseek-7b --requests 16`` — continuous-batching LM serving with bucketed
+batched prefill on the card (``--device cpu`` runs the plain versions of
+the kernels on the host). ``--smoke`` (the default) serves the reduced
+config; ``--full-config`` the published widths. The request trace is the
+JAX launcher's: the same seeded generator, lengths and priorities.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.kernels import _build
+from repro_torch.models import model as model_mod
+from repro_torch.serving.engine import InferenceEngine, Request
+
+
+def _lm_requests(args, cfg):
+    rng = np.random.default_rng(7)
+    lens = np.clip(rng.lognormal(3.0, 0.7, args.requests).astype(int), 3,
+                   args.max_len // 2)
+    # with the priority policy, tag ~1/4 of traffic latency-critical
+    # (class 0) and the rest batch (class 1)
+    prios = (rng.integers(0, 4, args.requests) == 0).astype(int) ^ 1 \
+        if args.policy == "priority" else np.zeros(args.requests, int)
+    return [Request(i, rng.integers(0, cfg.vocab_size, l).astype(np.int32),
+                    max_new_tokens=args.new_tokens, priority=int(p))
+            for i, (l, p) in enumerate(zip(lens, prios))]
+
+
+def serve_lm(args):
+    cfg = reduce_for_smoke(get_config(args.arch)) if args.smoke \
+        else get_config(args.arch)
+    if torch.device(args.device).type == "cuda":
+        # set-up, not serving: without this the first prefill call would
+        # compile the kernels inside the first requests' TTFT
+        t0 = time.perf_counter()
+        _build.build_all()
+        print(f"CUDA kernels built in {time.perf_counter() - t0:.1f}s")
+    params = model_mod.init_params(cfg, seed=0, device=args.device)
+    eng = InferenceEngine(cfg, params, batch_slots=args.slots,
+                          max_len=args.max_len,
+                          prefill_buckets=(16, 32, 64, 128),
+                          policy=args.policy, slo_ms=args.slo_ms,
+                          max_queue=args.max_queue, device=args.device)
+    reqs = _lm_requests(args, cfg)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    wall = time.perf_counter() - t0
+    tel = eng.telemetry
+    print(f"served {tel.served} requests in {wall:.2f}s on {args.device} "
+          f"({tel.total_tokens / wall:.0f} tok/s, {tel.steps} decode steps, "
+          f"{tel.prefills} prefills in {tel.prefill_batches} batched "
+          f"dispatches)")
+    print(tel.report())
+    return tel
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--policy", default="fifo",
+                    choices=("fifo", "edf", "sizetime", "priority"))
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="per-request latency SLA for EDF + miss accounting")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded queue: shed submits past this depth")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full-config", dest="smoke", action="store_false")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (cuda, or cpu for the "
+                         "kernels' plain versions)")
+    return serve_lm(ap.parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,134 @@
+"""The port's copies of the JAX package's jax-free serving modules
+(scheduler, telemetry, slot-state manager) stay copies: the same code,
+and the same decisions on the same seeded operation sequences."""
+import ast
+import inspect
+import textwrap
+
+import numpy as np
+import pytest
+
+from repro.serving import scheduler as jax_sched
+from repro.serving import state as jax_state
+from repro.serving import telemetry as jax_tel
+from repro_torch.serving import scheduler as sched
+from repro_torch.serving import state
+from repro_torch.serving import telemetry as tel
+
+COPIED = [
+    (jax_tel, tel, "percentile"), (jax_tel, tel, "Telemetry"),
+    (jax_sched, sched, "Ticket"), (jax_sched, sched, "FIFOPolicy"),
+    (jax_sched, sched, "EDFPolicy"), (jax_sched, sched, "SizeTimePolicy"),
+    (jax_sched, sched, "PriorityAgingPolicy"),
+    (jax_sched, sched, "ServiceEstimator"), (jax_sched, sched, "Scheduler"),
+    (jax_state, state, "SequenceStateManager"),
+    (jax_state, state, "slot_kinds_for"),
+]
+
+
+def _code(obj) -> str:
+    """The object's source as an AST dump without docstrings (comments
+    are not in the AST): the code, not its prose."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(obj)))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body \
+                and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("orig,copy,name", COPIED,
+                         ids=[c[2] for c in COPIED])
+def test_copy_has_the_original_code(orig, copy, name):
+    assert _code(getattr(copy, name)) == _code(getattr(orig, name))
+
+
+def _drive_scheduler(mod, policy, seed):
+    """Seeded submits / admits / completes at explicit clock values; returns
+    everything the scheduler decided."""
+    rng = np.random.default_rng(seed)
+    s = mod.Scheduler(policy, max_queue=12, service_ms_est="auto",
+                      service_ms_fallback=5.0, default_slo_ms=400.0)
+    now, log, live = 0.0, [], []
+    for _ in range(60):
+        now += float(rng.uniform(0.0, 0.05))
+        op = rng.integers(0, 3)
+        if op == 0:
+            t = s.submit(f"r{len(log)}", size=int(rng.integers(1, 200)),
+                         priority=int(rng.integers(0, 3)), now=now)
+            log.append(("submit", t.tid, t.shed))
+        elif op == 1:
+            got = s.admit(int(rng.integers(1, 4)), now=now)
+            live += got
+            log.append(("admit", [t.tid for t in got]))
+        elif live:
+            t = live.pop(int(rng.integers(0, len(live))))
+            s.complete(t, now=now)
+            log.append(("complete", t.tid))
+    summary = s.telemetry.summary()
+    summary.pop("qps")                       # wall-clock dependent
+    return log, summary
+
+
+@pytest.mark.parametrize("policy", ["fifo", "edf", "sizetime", "priority"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scheduler_decides_like_the_original(policy, seed):
+    assert _drive_scheduler(sched, policy, seed) \
+        == _drive_scheduler(jax_sched, policy, seed)
+
+
+def _drive_states(mod, seed, slots=4):
+    """Seeded slot lifecycle (acquire / park / activate / release /
+    page_out / evict_all) with the partition checked after every move."""
+    rng = np.random.default_rng(seed)
+    m = mod.SequenceStateManager(slots)
+    parked, log = [], []
+    for _ in range(80):
+        op = rng.integers(0, 3)
+        t = None
+        if op == 0 and m.free_count:           # a fresh ticket
+            t = object()
+        elif op == 1 and parked:               # a chunked continuation
+            t = parked.pop(0)
+        elif op == 2 and m.active:
+            slot = sorted(m.active)[int(rng.integers(0, len(m.active)))]
+            (m.release(slot) if rng.integers(0, 2) else m.page_out(slot))
+        if t is not None:
+            slot = m.acquire(t)
+            if rng.integers(0, 2):
+                m.activate(t, slot, int(rng.integers(1, 50)))
+            else:
+                m.park(t, slot)
+                parked.append(t)
+        m.check_partition()
+        log.append((sorted(m.free), sorted(m.active), m.inflight,
+                    m.active_mask().tolist(), m.decode_positions(99).tolist(),
+                    [m.steal_eligible(p) for p in parked]))
+    log.append(len(m.evict_all()))
+    m.check_partition()
+    return log
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_state_manager_moves_like_the_original(seed):
+    assert _drive_states(state, seed) == _drive_states(jax_state, seed)
+
+
+def test_percentile_and_report_like_the_original():
+    rng = np.random.default_rng(3)
+    vals = sorted(rng.uniform(0, 100, 37).tolist())
+    for p in (0.0, 0.25, 0.5, 0.95, 0.99, 1.0):
+        assert tel.percentile(vals, p) == jax_tel.percentile(vals, p)
+    a, b = tel.Telemetry(), jax_tel.Telemetry()
+    for t in (a, b):
+        t.wall_start = 0.0
+        t.record_serving_window(2.0)
+        for x in vals:
+            t.record_latency(x, deadline_missed=x > 90)
+            t.record_ttft(x / 4)
+        t.record_compile("prefill")
+        t.served, t.steps = 37, 12
+    assert a.report() == b.report() and a.summary() == b.summary()
