@@ -6,27 +6,39 @@ Phases (each raises on failure; the script exits non-zero and prints no
 result line):
 
 1. build   — compile every CUDA kernel of ``src/repro_torch/csrc`` (one
-             ``nvcc`` per source, in parallel).
+             ``nvcc`` per source, in parallel): flash prefill, flash
+             decode, int8-KV decode and the w8a8 GEMM.
 2. kernels — each kernel against its plain PyTorch version on the card, on
              the JAX package's kernel test cases plus the serving path's
              shapes, with the error, the kernel's time, the plain version's
-             time, one PyTorch library call's time
-             (``scaled_dot_product_attention``, a yardstick only) and the
-             least time the card could take (bytes at 3.35 TB/s or FLOPs at
-             the peak rate of the input type, whichever is larger); then a
-             seeded sweep of random shapes, masks and types, checked only.
+             time, one PyTorch library call's time where one computes the
+             same function (``scaled_dot_product_attention`` for the
+             attention kernels, ``torch._int_mm`` and the two scale
+             multiplies for w8a8; a yardstick only) and the least time the
+             card could take (bytes at 3.35 TB/s or operations at the peak
+             rate of the input type, whichever is larger); then a seeded
+             sweep of random shapes, masks and types, checked only. The
+             w8a8 GEMM must equal its plain version bit for bit.
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``: 8 requests, 32 new
              tokens each. The kernels' launch counters are zeroed just
-             before and read just after, and both must have run.
-4. check   — the reduced deepseek-7b config served on the card and on the
+             before and read just after, and both attention kernels must
+             have run.
+4. serve (quantized) — the same weights and requests through a second
+             engine with ``precision="w8a8"`` and an int8 KV cache: the §V
+             build step on the card, then serving. The w8a8 and int8-KV
+             decode kernels must have run and the bf16 decode kernel not;
+             the greedy agreement with phase 3 is printed, not held (the
+             logits of random full-width weights are near-flat).
+5. check   — the reduced deepseek-7b config served on the card and on the
              host (plain versions) from the same weights must agree on the
-             greedy tokens, and a full-width prefill must give finite
-             hidden states.
-5. profile — one full-width prefill call and eight decode steps through
-             the model layer: wall time untraced, then the device time of
-             one ``torch.profiler`` trace (busy share, the share of the
-             matrix products and of each port kernel, the top kernels).
+             greedy tokens, in bf16-config fp and in w8a8 with an int8 KV
+             cache, and a full-width prefill must give finite hidden states.
+6. profile — one full-width prefill call and eight decode steps through
+             the model layer, fp and then w8a8 with the int8 KV cache: wall
+             time untraced, then the device time of one ``torch.profiler``
+             trace (busy share, the share of the matrix products and of each
+             port kernel, the top kernels).
 
 Kernel times are CUDA-event times of single calls, each after an L2 flush.
 
@@ -36,6 +48,8 @@ the repository's ``src/`` beside this file; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -50,24 +64,40 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
+from repro_torch.core.metrics import token_agreement  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.decode_attn.ops import decode_attn  # noqa: E402
-from repro_torch.kernels.decode_attn.ref import decode_attn_ref  # noqa: E402
+from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
+    decode_attn, decode_attn_int8)
+from repro_torch.kernels.decode_attn.ref import (  # noqa: E402
+    decode_attn_int8_ref, decode_attn_ref)
 from repro_torch.kernels.flash_attn.ops import flash_attn  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.w8a8.ops import w8a8_matmul  # noqa: E402
+from repro_torch.kernels.w8a8.ref import w8a8_ref  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models.quantize import (  # noqa: E402
+    QuantizedParams, build_quantized_params)
 from repro_torch.serving.engine import InferenceEngine, Request  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
-              torch.float32: 67e12}             # f32 outside the tensor cores
+              torch.float32: 67e12,             # f32 outside the tensor cores
+              torch.int8: 1979e12}              # dense tensor-core int8
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 KERNELS = {
     "flash_attn": dict(source="src/repro_torch/csrc/flash.cu",
                        replaces="src/repro/kernels/flash_attn/flash.py:33"),
     "decode_attn": dict(source="src/repro_torch/csrc/decode.cu",
                         replaces="src/repro/kernels/decode_attn/decode.py:24"),
+    "decode_attn_int8": dict(
+        source="src/repro_torch/csrc/decode_int8.cu",
+        replaces="src/repro/kernels/decode_attn/decode.py:100"),
+    "w8a8_matmul": dict(source="src/repro_torch/csrc/w8a8.cu",
+                        replaces="src/repro/kernels/w8a8/matmul.py:27"),
 }
+LAUNCHERS = {"flash_attn": flash_attn, "decode_attn": decode_attn,
+             "decode_attn_int8": decode_attn_int8,
+             "w8a8_matmul": w8a8_matmul}
 DEV = "cuda"
 
 
@@ -213,8 +243,111 @@ def decode_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def _int8(gen, shape):
+    return torch.randint(-127, 128, shape, generator=gen, device=DEV,
+                         dtype=torch.int8)
+
+
+def _w8a8_inputs(gen, M, K, N, row_scale):
+    """xq (M,K), wq (K,N) stored column-major (the kernel's layout), per-row
+    or scalar activation scales, per-column weight scales."""
+    xq = _int8(gen, (M, K))
+    wq = _int8(gen, (N, K)).t()
+    xs = (torch.rand(M, generator=gen, device=DEV) * 0.049 + 0.001
+          if row_scale else torch.tensor(0.02, device=DEV))
+    ws = torch.rand(N, generator=gen, device=DEV) * 0.019 + 0.001
+    return xq, wq, xs, ws
+
+
+def check_w8a8(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error, which must be 0: the int32 sum is exact, so the
+    kernel equals its plain version bit for bit."""
+    if got.shape != want.shape:
+        raise AssertionError(f"w8a8_matmul[{name}]: shape {tuple(got.shape)}"
+                             f" != {tuple(want.shape)}")
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"w8a8_matmul[{name}]: kernel differs from its "
+                             f"plain version (max abs err {err:.3e}); it "
+                             f"must equal it bit for bit")
+    return err
+
+
+def _int_mm_yardstick(xq, wq, xs, ws):
+    """``torch._int_mm`` (int8 x int8 -> int32 in cuBLASLt) followed by the
+    two scale multiplies. It takes more than 16 rows, so a decode-sized xq
+    is padded with zero rows outside the timed call. Returns (the timed
+    callable, its (M,N) result)."""
+    M = xq.shape[0]
+    rows = max(M, 32)
+    xp = torch.zeros(rows, xq.shape[1], dtype=torch.int8, device=DEV)
+    xp[:M] = xq
+    xs_col = torch.zeros(rows, 1, device=DEV)
+    xs_col[:M] = xs.reshape(-1, 1)
+
+    def fn():
+        return torch._int_mm(xp, wq).float() * xs_col * ws
+
+    return fn, fn()[:M]
+
+
+def w8a8_case(name, gen, M, K, N, row_scale=True):
+    xq, wq, xs, ws = _w8a8_inputs(gen, M, K, N, row_scale)
+    got = w8a8_matmul(xq, wq, xs, ws)
+    torch.cuda.synchronize()
+    want = w8a8_ref(xq, wq, xs, ws)
+    err = check_w8a8(name, got, want)
+    flops = 2.0 * M * K * N
+    nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
+    bound_ms, bound_by = bound(flops, nbytes, torch.int8)
+    library_ms = library_err = None
+    try:
+        lib_fn, lib_out = _int_mm_yardstick(xq, wq, xs, ws)
+    except RuntimeError as e:           # a yardstick only: note and go on
+        print(f"w8a8_matmul[{name}]: torch._int_mm yardstick not measured: "
+              f"{str(e).splitlines()[0]}", flush=True)
+    else:
+        library_err = (lib_out - want).abs().max().item()
+        library_ms = time_ms(lib_fn)
+    return dict(max_abs_err=err, library_err=library_err,
+                ms=time_ms(lambda: w8a8_matmul(xq, wq, xs, ws)),
+                plain_ms=time_ms(lambda: w8a8_ref(xq, wq, xs, ws)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def _int8_cache(gen, B, S, K, hd):
+    """kq, k_scale, vq, v_scale: int8 values, fp16 scales in [0.001,
+    0.021) (the JAX package's int8 decode cases)."""
+    kq, vq = (_int8(gen, (B, S, K, hd)) for _ in range(2))
+    ks, vs = ((torch.rand((B, S, K), generator=gen, device=DEV) * 0.02
+               + 0.001).half() for _ in range(2))
+    return kq, ks, vq, vs
+
+
+def decode_int8_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
+    q = _randn(gen, (B, H, hd), dtype)
+    cache = _int8_cache(gen, B, S, K, hd)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
+    got = decode_attn_int8(q, *cache, pos_t, softcap=softcap)
+    torch.cuda.synchronize()
+    want = decode_attn_int8_ref(q, *cache, pos_t, softcap=softcap)
+    err = compare(f"decode_attn_int8[{name}]", got, want, dtype)
+    keys = sum(min(p, S - 1) + 1 for p in pos)
+    flops = 4.0 * H * hd * keys
+    # q once, int8 K and V plus their two fp16 scales up to pos, f32 out
+    nbytes = q.numel() * q.element_size() + K * keys * (2 * hd + 4) \
+        + 4 * B * H * hd
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    return dict(max_abs_err=err, library_err=None,
+                ms=time_ms(lambda: decode_attn_int8(q, *cache, pos_t,
+                                                    softcap=softcap)),
+                plain_ms=time_ms(lambda: decode_attn_int8_ref(
+                    q, *cache, pos_t, softcap=softcap)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
 def _show(kernel, name, r):
-    lib = ("n/a (softcap)" if r["library_ms"] is None else
+    lib = ("n/a" if r["library_ms"] is None else
            f"{r['library_ms']:.4f} (its max_abs_err {r['library_err']:.3e})")
     print(f"{kernel}[{name}]: max_abs_err={r['max_abs_err']:.3e} "
           f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -264,7 +397,41 @@ def phase_kernels() -> dict:
         _show("decode_attn", name, r)
         if name.startswith("main"):
             main["decode_attn"] = r
+    # the JAX package's cases (repro/kernels/w8a8/ops.py), then deepseek-7b's
+    # dense projections at decode (4 rows) and prefill (4 x 512 rows)
+    w8a8_cases = {
+        "128x128x128": (128, 128, 128, False),
+        "256x512x128": (256, 512, 128, False),
+        "128x256x384": (128, 256, 384, False),
+        "512x128x256": (512, 128, 256, False),
+        "96x192x320_padded": (96, 192, 320, False),
+        "48x160x288_rowscale_padded": (48, 160, 288, True),
+        "128x128x128_rowscale": (128, 128, 128, True),
+    }
+    for M in (4, 2048):
+        for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
+            w8a8_cases[f"main_M{M}_K{K}_N{N}"] = (M, K, N, True)
+    for name, (M, K, N, row) in w8a8_cases.items():
+        r = w8a8_case(name, gen, M, K, N, row)
+        _show("w8a8_matmul", name, r)
+        if name == "main_M4_K4096_N11008":
+            main["w8a8_matmul"] = r
+    # the JAX package's int8 cases (repro/kernels/decode_attn/ops.py),
+    # scalar pos broadcast, then deepseek-7b decode over an int8 cache
+    decode_int8_cases = {
+        "B2_H8_K8_hd64_S256_p0.5": (2, 8, 8, 64, 256, [128] * 2, f32, 0.0),
+        "B2_H8_K2_hd64_S256_p0.9": (2, 8, 2, 64, 256, [230] * 2, f32, 0.0),
+        "B1_H8_K1_hd128_S512_p0.3": (1, 8, 1, 128, 512, [153], f32, 0.0),
+        "main_B4_S1024_H32_hd128": (4, 32, 32, 128, 1024,
+                                    [1023, 600, 31, 0], bf16, 0.0),
+    }
+    for name, (B, H, K, hd, S, pos, dt, cap) in decode_int8_cases.items():
+        r = decode_int8_case(name, gen, B, H, K, hd, S, pos, dt, cap)
+        _show("decode_attn_int8", name, r)
+        if name.startswith("main"):
+            main["decode_attn_int8"] = r
     sweep(seed=1, n=32)
+    sweep_int8(seed=2, n=32)
     return main
 
 
@@ -309,6 +476,46 @@ def sweep(seed: int, n: int) -> None:
           f" max abs err {worst}", flush=True)
 
 
+def sweep_int8(seed: int, n: int) -> None:
+    """``n`` random cases per int8 kernel: w8a8 at ragged M, K and N (K
+    not a multiple of 16 takes the kernel's byte-wise loader), scalar and
+    per-row scales, checked bit for bit; int8-KV decode at every head_dim
+    and group size, both query types, empty rows and softcap mixed. No
+    timing."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def pick(xs):
+        return xs[int(rng.integers(0, len(xs)))]
+
+    worst = {"w8a8_matmul": 0.0, "decode_attn_int8": 0.0}
+    for i in range(n):
+        M = pick([1, 3, 4, 16, 17, 64, int(rng.integers(1, 600))])
+        K = (int(rng.integers(1, 40)) * 16 if rng.integers(0, 2)
+             else int(rng.integers(1, 700)))
+        N, row = int(rng.integers(1, 400)), bool(rng.integers(0, 2))
+        xq, wq, xs, ws = _w8a8_inputs(gen, M, K, N, row)
+        err = check_w8a8(f"sweep {i}: M{M} K{K} N{N} per-row {row}",
+                         w8a8_matmul(xq, wq, xs, ws),
+                         w8a8_ref(xq, wq, xs, ws))
+        worst["w8a8_matmul"] = max(worst["w8a8_matmul"], err)
+        B, K, G = int(rng.integers(1, 4)), pick([1, 2, 4]), pick([1, 2, 4, 8])
+        hd, dt = pick([16, 32, 64, 128]), pick([torch.float32, torch.bfloat16])
+        cap, T = pick([0.0, 0.0, 30.0]), int(rng.integers(1, 300))
+        q = _randn(gen, (B, K * G, hd), dt)
+        cache = _int8_cache(gen, B, T, K, hd)
+        pos = torch.tensor(rng.integers(0, T, B), dtype=torch.int32,
+                           device=DEV)
+        err = compare(f"decode_attn_int8[sweep {i}: B{B} S{T} K{K} G{G} "
+                      f"hd{hd} {dt} softcap {cap} pos {pos.tolist()}]",
+                      decode_attn_int8(q, *cache, pos, softcap=cap),
+                      decode_attn_int8_ref(q, *cache, pos, softcap=cap), dt)
+        worst["decode_attn_int8"] = max(worst["decode_attn_int8"], err)
+    torch.cuda.synchronize()
+    print(f"sweep: {n} random cases per int8 kernel agree with the plain "
+          f"versions; max abs err {worst}", flush=True)
+
+
 # ---- serve ----------------------------------------------------------------
 
 def stage_ms(tel, stage: str) -> float:
@@ -324,27 +531,31 @@ def _requests(n, lo, hi, new_tokens, vocab, seed):
             for i, L in enumerate(rng.integers(lo, hi + 1, n))]
 
 
-def phase_serve(cfg, params) -> dict:
-    """Full-width deepseek-7b serving through the engine; returns the
-    kernels' launch counts of the measured run."""
-    eng = InferenceEngine(cfg, params, batch_slots=4, max_len=1024,
-                          prefill_buckets=(64, 128, 256, 512), device=DEV)
+def _int8_kv(cfg):
+    return dataclasses.replace(
+        cfg, quant=dataclasses.replace(cfg.quant, kv_cache_dtype="int8"))
+
+
+def _serve(eng, cfg, label: str):
+    """Warm the engine on one request, then serve 8 requests x 32 tokens
+    with every launch counter zeroed just before and read just after.
+    Raises unless all 8 got 32 tokens in the vocab. Returns (launches,
+    the requests' outputs)."""
     eng.run(_requests(1, 64, 64, 4, cfg.vocab_size, seed=1))    # warm-up
     eng.telemetry.reset_serving_stats()
     reqs = _requests(8, 64, 512, 32, cfg.vocab_size, seed=0)
-    flash_attn.launches = 0
-    decode_attn.launches = 0
+    for fn in LAUNCHERS.values():
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attn": flash_attn.launches,
-                "decode_attn": decode_attn.launches}
+    launches = {name: fn.launches for name, fn in LAUNCHERS.items()}
     tel = eng.telemetry
     ttft = tel.ttft_percentiles()
     n_tok = sum(len(r.output) for r in reqs)
-    print(f"serve: deepseek-7b full width bf16, {cfg.num_layers} layers, "
+    print(f"{label}: deepseek-7b full width bf16, {cfg.num_layers} layers, "
           f"prompts {sorted(len(r.tokens) for r in reqs)}; served "
           f"{tel.served}/{len(reqs)} in {wall:.3f} s, {n_tok / wall:.1f} "
           f"tok/s, TTFT p50 {ttft['p50']:.2f} ms p99 {ttft['p99']:.2f} ms, "
@@ -360,25 +571,55 @@ def phase_serve(cfg, params) -> dict:
     if bad:
         raise AssertionError(f"requests {bad} did not get 32 tokens in the "
                              f"vocab")
-    missing = [k for k, n in launches.items() if n == 0]
+    print(f"{label}: kernel launches {launches}", flush=True)
+    return launches, [r.output for r in reqs]
+
+
+def _require_launched(label: str, launches: dict, names) -> None:
+    missing = [k for k in names if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels {missing} never launched while "
-                             f"serving")
-    print(f"serve: kernel launches {launches}", flush=True)
-    return launches
+        raise AssertionError(f"{label}: kernels {missing} never launched "
+                             f"while serving")
 
 
-def token_agreement(pairs) -> float:
-    """Greedy-token agreement counted up to and including each pair's first
-    mismatch (the JAX package's core.metrics.token_agreement)."""
-    matched = counted = 0
-    for got, ref in pairs:
-        for a, b in zip(got, ref):
-            counted += 1
-            if a != b:
-                break
-            matched += 1
-    return matched / counted if counted else 1.0
+def phase_serve(cfg, params):
+    """Full-width deepseek-7b serving through the engine in bf16; returns
+    the kernels' launch counts of the measured run and its outputs."""
+    eng = InferenceEngine(cfg, params, batch_slots=4, max_len=1024,
+                          prefill_buckets=(64, 128, 256, 512), device=DEV)
+    launches, outputs = _serve(eng, cfg, "serve")
+    _require_launched("serve", launches, ("flash_attn", "decode_attn"))
+    return launches, outputs
+
+
+def phase_serve_quant(cfg, params, ref_outputs):
+    """The same weights and requests through ``precision="w8a8"`` with an
+    int8 KV cache; returns the launch counts and the quantized model."""
+    cfg_q = _int8_kv(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg_q, params, precision="w8a8", batch_slots=4,
+                          max_len=1024, prefill_buckets=(64, 128, 256, 512),
+                          device=DEV)
+    torch.cuda.synchronize()
+    q = eng.quant
+    print(f"serve-w8a8: build step {time.perf_counter() - t0:.1f} s: "
+          f"{q.quantized_sites} sites int8, {q.fallback_sites} fall back to "
+          f"bf16 (calibration disagreement {q.result.metric_delta:.4f}, "
+          f"budget 0.05, {q.result.iterations} fall-backs); {q.schemes}",
+          flush=True)
+    launches, outputs = _serve(eng, cfg_q, "serve-w8a8")
+    _require_launched("serve-w8a8", launches,
+                      ("flash_attn", "w8a8_matmul", "decode_attn_int8"))
+    if launches["decode_attn"]:
+        raise AssertionError(f"serve-w8a8: the bf16 decode kernel ran "
+                             f"{launches['decode_attn']} times over an int8 "
+                             f"cache")
+    agree = token_agreement(zip(outputs, ref_outputs))
+    print(f"serve-w8a8: greedy-token agreement with the bf16 engine "
+          f"{agree:.4f} (printed, not held: random full-width weights give "
+          f"near-flat logits)", flush=True)
+    return launches, eng.run_params
 
 
 def phase_check(cfg, params):
@@ -397,6 +638,28 @@ def phase_check(cfg, params):
           f"{agree:.4f} over 6 requests", flush=True)
     if agree < 0.95:
         raise AssertionError(f"card/host token agreement {agree} < 0.95")
+    # w8a8 with an int8 KV cache: one build step on the host, its
+    # quantized model copied to the card, the same engine on both
+    small_q = _int8_kv(small)
+    qp = build_quantized_params(small_q, host)
+    card_qp = QuantizedParams(copy.deepcopy(qp.params).to(DEV), qp.result,
+                              qp.quantized_sites, qp.fallback_sites)
+    outs = []
+    for p, quant, dev in ((card, card_qp, DEV), (host, qp, "cpu")):
+        eng = InferenceEngine(small_q, p, precision="w8a8",
+                              quantized_params=quant, batch_slots=3,
+                              max_len=64, prefill_buckets=(8, 16, 32),
+                              device=dev)
+        reqs = _requests(6, 3, 30, 8, small.vocab_size, seed=3)
+        eng.run(reqs)
+        outs.append([r.output for r in reqs])
+    agree = token_agreement(zip(*outs))
+    print(f"check: reduced deepseek-7b w8a8 + int8 KV ({qp.quantized_sites} "
+          f"sites int8), card vs host greedy-token agreement {agree:.4f} "
+          f"over 6 requests", flush=True)
+    if agree < 0.95:
+        raise AssertionError(f"w8a8 card/host token agreement {agree} < "
+                             f"0.95")
     prompt = torch.from_numpy(_requests(1, 200, 200, 1, cfg.vocab_size,
                                         seed=4)[0].tokens)[None]
     with torch.inference_mode():
@@ -451,7 +714,9 @@ def profile_window(label: str, fn, steps: int) -> None:
           f"device busy {100 * dev_ms / wall_ms:.1f}% of the wall time; "
           f"matmul kernels {100 * share(MATMUL_KERNEL_NAMES):.1f}%, "
           f"flash_fwd_kernel {100 * share(('flash_fwd_kernel',)):.1f}%, "
-          f"decode_kernel {100 * share(('decode_kernel',)):.1f}% of device "
+          f"decode_kernel {100 * share(('decode_kernel',)):.1f}%, "
+          f"decode_int8_kernel {100 * share(('decode_int8_kernel',)):.1f}%, "
+          f"w8a8_kernel {100 * share(('w8a8_kernel',)):.1f}% of device "
           f"time; {sum(e.count for e in events) // steps} device activities "
           f"per step", flush=True)
     for e in top:
@@ -459,9 +724,10 @@ def profile_window(label: str, fn, steps: int) -> None:
               f" ms/step x{e.count // steps:<4d} {e.key[:90]}", flush=True)
 
 
-def phase_profile(cfg, params):
+def phase_profile(cfg, params, tag: str = ""):
     """Where one full-width prefill call and one decode step spend their
-    time: the model layer driven directly at the serve phase's shapes."""
+    time: the model layer driven directly at the serve phase's shapes
+    (``params`` may be a quantized model, ``cfg`` an int8-KV config)."""
     B, S, max_len = 4, 512, 1024
     lens = torch.tensor([512, 300, 77, 1], device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(5)
@@ -490,9 +756,9 @@ def phase_profile(cfg, params):
                 .to(DEV)
 
     prefill_tokens = prefill()
-    profile_window(f"prefill {B}x{S} (lens {lens.tolist()})", prefill, 1)
-    profile_window(f"decode step, {B} rows at pos {lens.tolist()}+", decode,
-                   steps)
+    profile_window(f"{tag}prefill {B}x{S} (lens {lens.tolist()})", prefill, 1)
+    profile_window(f"{tag}decode step, {B} rows at pos {lens.tolist()}+",
+                   decode, steps)
 
 
 def main():
@@ -513,9 +779,14 @@ def main():
     print(f"init: deepseek-7b full width, "
           f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
           f"params in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches = phase_serve(cfg, params)
+    launches, bf16_outputs = phase_serve(cfg, params)
+    launches_q, quant_params = phase_serve_quant(cfg, params, bf16_outputs)
     phase_check(cfg, params)
     phase_profile(cfg, params)
+    phase_profile(_int8_kv(cfg), quant_params, tag="w8a8+int8kv ")
+    # each kernel's launches are those of the serve phase that runs it
+    launches.update({k: launches_q[k] for k in ("w8a8_matmul",
+                                                "decode_attn_int8")})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     line = [dict(name=name, route="cuda", **KERNELS[name],

@@ -1,0 +1,247 @@
+// w8a8 GEMM: int8 activations times int8 weights with exact int32 accumulation and
+// the dequantizing epilogue fused, written for Hopper (sm_90a) in plain CUDA C++.
+//
+// Replaces the TPU kernel `_w8a8_kernel` in src/repro/kernels/w8a8/matmul.py (entry
+// `w8a8_matmul`). Same function: out[m, n] = float(sum_k xq[m, k] * wq[k, n]) * xs[m]
+// * ws[n], xq (M,K) int8, wq (K,N) int8, xs (M,) f32 per-row activation scales, ws
+// (N,) f32 per-column weight scales, out (M,N) f32. The int32 sum is exact, so the
+// result equals the plain version bit for bit. One layout difference: the weight is
+// passed as its (N,K) row-major storage (the logical (K,N) weight stored
+// column-major), so that both operands are K-contiguous, the layout the tensor
+// cores' `row.col` product takes. The TPU wrapper zero-pads ragged M, N and K to its
+// tile grid; this kernel masks the edges itself (zero-filled loads, guarded stores).
+//
+// Design. Each block of 4 warps owns a BM x BN output tile and walks K in BK-byte
+// tiles through a STAGES-deep ring in shared memory filled by `cp.async` (16-byte
+// copies, zero-fill past the edges; a plain byte-wise loader when K is not a
+// multiple of 16). Warps issue `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`
+// on the int8 tensor cores with fragments read from shared memory as 32-bit words
+// (rows padded by 16 bytes, so the 8 rows a fragment load touches hit 8 distinct
+// bank groups). Two shapes of block:
+//   - M <= 16 (decode rows): a 16 x 16 tile, the 4 warps split each 128-byte K tile
+//     between them and their int32 partial sums are added in shared memory (exact,
+//     so the order does not matter). Small tiles give N/16 blocks, enough to keep
+//     the weight stream in flight on every SM.
+//   - M > 16 (prefill): a 64 x 128 tile, 2 x 2 warps of 32 x 64 each.
+// The epilogue goes through shared memory so that the f32 stores are coalesced.
+//
+// Bound on this card. Decode (M = 4): memory. The weight is read once, K*N bytes,
+// against 2*M*K*N int operations: 8 operations per byte, far below the ~590 a byte
+// at which the int8 tensor cores (1,979 TOP/s) would bound it at 3.35 TB/s; the
+// least time is K*N / 3.35 TB/s. Prefill (M = 2048): operations, 2*M*K*N at
+// 1,979 TOP/s. Left for later: `wgmma` with TMA loads for the prefill shape, and
+// split-K across blocks for decode.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;  // 4 warps
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; copies 0 bytes (zero-fills the destination) when !pred
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Copy rows [r0, r0 + ROWS) x bytes [k0, k0 + BK) of a (rows, K) row-major int8
+// matrix into a shared tile with row stride LDS; out-of-range bytes become 0.
+template <int ROWS, int BK, int LDS, bool VEC>
+__device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* __restrict__ src,
+                                          int r0, int rows, int k0, int K) {
+  if constexpr (VEC) {  // K % 16 == 0: a 16-byte chunk is all in or all out
+    constexpr int CH = BK / 16;
+    for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
+      const int r = i / CH, c = i % CH;
+      const int gr = r0 + r, gk = k0 + c * 16;
+      const bool in = gr < rows && gk < K;
+      cp_async16(dst + r * LDS + c * 16, in ? src + (size_t)gr * K + gk : src, in);
+    }
+  } else {
+    constexpr int W = BK / 4;
+    for (int i = threadIdx.x; i < ROWS * W; i += kThreads) {
+      const int r = i / W, c = i % W;
+      const int gr = r0 + r, gk = k0 + c * 4;
+      uint32_t word = 0;
+      if (gr < rows) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (gk + e < K)
+            word |= (uint32_t)(uint8_t)src[(size_t)gr * K + gk + e] << (8 * e);
+      }
+      *reinterpret_cast<uint32_t*>(dst + r * LDS + c * 4) = word;
+    }
+  }
+}
+
+// Block tile BM x BN, K tile BK bytes; warps WM x WN x WK (WK warps split each K
+// tile and add their partial sums at the end).
+template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
+            const float* __restrict__ xs, const float* __restrict__ ws,
+            float* __restrict__ out, int M, int N, int K) {
+  static_assert(WM * WN * WK * 32 == kThreads, "4 warps");
+  constexpr int LDS = BK + 16;  // padded shared row, bytes
+  constexpr int TM = BM / WM, TN = BN / WN;
+  constexpr int MI = TM / 16, NI = TN / 8;
+  constexpr int KSUB = BK / 32;
+  static_assert(TM % 16 == 0 && TN % 8 == 0 && KSUB % WK == 0, "tile shapes");
+  constexpr int A_STAGE = BM * LDS, B_STAGE = BN * LDS;
+  constexpr int PIPE = STAGES * (A_STAGE + B_STAGE);
+  constexpr int RED = WK * BM * BN * 4;
+  __shared__ __align__(16) int8_t smem[PIPE > RED ? PIPE : RED];
+  int8_t* sA = smem;
+  int8_t* sB = smem + STAGES * A_STAGE;
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wk = warp % WK, wn = (warp / WK) % WN, wm = warp / (WK * WN);
+  const int g = lane >> 2, t = lane & 3;
+  const int nk = (K + BK - 1) / BK;
+
+  int acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) {
+      load_tile<BM, BK, LDS, VEC>(sA + s * A_STAGE, x, m0, M, s * BK, K);
+      load_tile<BN, BK, LDS, VEC>(sB + s * B_STAGE, wt, n0, N, s * BK, K);
+    }
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
+    const int pf = kt + STAGES - 1;
+    if (pf < nk) {
+      const int st = pf % STAGES;
+      load_tile<BM, BK, LDS, VEC>(sA + st * A_STAGE, x, m0, M, pf * BK, K);
+      load_tile<BN, BK, LDS, VEC>(sB + st * B_STAGE, wt, n0, N, pf * BK, K);
+    }
+    cp_async_commit();
+
+    const int8_t* a_s = sA + (kt % STAGES) * A_STAGE;
+    const int8_t* b_s = sB + (kt % STAGES) * B_STAGE;
+#pragma unroll
+    for (int ks = wk; ks < KSUB; ks += WK) {
+      const int kk = ks * 32 + t * 4;
+      uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int8_t* p = a_s + (wm * TM + i * 16 + g) * LDS + kk;
+        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int8_t* p = b_s + (wn * TN + j * 8 + g) * LDS + kk;
+        b[j][0] = *reinterpret_cast<const uint32_t*>(p);
+        b[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], a[i], b[j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: reuse it for the partial sums
+
+  int* red = reinterpret_cast<int*>(smem);  // [WK][BM][BN]
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int r = wm * TM + i * 16 + g, c = wn * TN + j * 8 + t * 2;
+      int* p = red + (wk * BM + r) * BN + c;
+      p[0] = acc[i][j][0];
+      p[1] = acc[i][j][1];
+      p[8 * BN] = acc[i][j][2];
+      p[8 * BN + 1] = acc[i][j][3];
+    }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BM * BN; idx += kThreads) {
+    const int r = idx / BN, c = idx % BN;
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    int sum = 0;
+#pragma unroll
+    for (int s = 0; s < WK; ++s) sum += red[(s * BM + r) * BN + c];
+    // (float(acc) * xs) * ws, in the plain version's order
+    out[(size_t)m * N + n] = __int2float_rn(sum) * xs[m] * ws[n];
+  }
+}
+
+template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES>
+cudaError_t launch(bool vec, const int8_t* x, const int8_t* wt, const float* xs,
+                   const float* ws, float* out, int M, int N, int K, cudaStream_t st) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (vec)
+    w8a8_kernel<BM, BN, BK, WM, WN, WK, STAGES, true>
+        <<<grid, kThreads, 0, st>>>(x, wt, xs, ws, out, M, N, K);
+  else
+    w8a8_kernel<BM, BN, BK, WM, WN, WK, STAGES, false>
+        <<<grid, kThreads, 0, st>>>(x, wt, xs, ws, out, M, N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// xq (M,K) int8 row-major; wq_t (N,K) int8 row-major (the (K,N) weight stored
+// column-major); xs (M,) f32; ws (N,) f32; out (M,N) f32. All on the device,
+// contiguous. Launches on `stream` and returns cudaGetLastError() (0 = launched).
+int w8a8_matmul_fwd(const void* xq, const void* wq_t, const void* xs, const void* ws,
+                    void* out, int M, int N, int K, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const int8_t* x = (const int8_t*)xq;
+  const int8_t* wt = (const int8_t*)wq_t;
+  const bool vec = K % 16 == 0 && ((uintptr_t)x % 16 == 0) && ((uintptr_t)wt % 16 == 0);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* a = (const float*)xs;
+  const float* b = (const float*)ws;
+  float* o = (float*)out;
+  cudaError_t e;
+  if (M <= 16)
+    e = launch<16, 16, 128, 1, 1, 4, 4>(vec, x, wt, a, b, o, M, N, K, st);
+  else
+    e = launch<64, 128, 64, 2, 2, 1, 3>(vec, x, wt, a, b, o, M, N, K, st);
+  return (int)e;
+}
+
+const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+}  // extern "C"

@@ -1,9 +1,12 @@
-"""Wrapper of the flash decode kernel (``csrc/decode.cu``).
+"""Wrappers of the flash decode kernels: ``decode_attn`` over an fp cache
+(``csrc/decode.cu``) and ``decode_attn_int8`` over an int8 cache with fp16
+scales (``csrc/decode_int8.cu``).
 
-``decode_attn`` checks its inputs, then launches the CUDA kernel for CUDA
-tensors, or runs the plain version (``ref.py``) for CPU tensors. There is no
-fallback: a CUDA input the kernel cannot take raises. ``decode_attn.launches``
-counts kernel launches (plain-version calls do not count).
+Each checks its inputs, then launches its CUDA kernel for CUDA tensors, or
+runs its plain version (``ref.py``) for CPU tensors. There is no fallback:
+a CUDA input the kernel cannot take raises. ``decode_attn.launches`` and
+``decode_attn_int8.launches`` count kernel launches (plain-version calls do
+not count).
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from typing import Union
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+from repro_torch.kernels.decode_attn.ref import (decode_attn_int8_ref,
+                                                 decode_attn_ref)
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8          # query heads per kv head held in registers
@@ -27,12 +31,38 @@ ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
+# decode_attn_int8_fwd(q, kq, k_scale, vq, v_scale, pos, o, B, S, H, K, hd,
+#                      softcap, dtype, stream) in csrc/decode_int8.cu
+ARGTYPES_INT8 = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode")
     lib.decode_attn_fwd.argtypes = ARGTYPES
     lib.decode_attn_fwd.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib_int8() -> ctypes.CDLL:
+    lib = _build.load("decode_int8")
+    lib.decode_attn_int8_fwd.argtypes = ARGTYPES_INT8
+    lib.decode_attn_int8_fwd.restype = ctypes.c_int
+    return lib
+
+
+def _row_pos(pos, B: int, device, name: str) -> torch.Tensor:
+    """``pos`` as a (B,) int32 tensor on ``device`` (a scalar broadcasts)."""
+    if not isinstance(pos, torch.Tensor) or pos.dim() == 0:
+        pos = torch.full((B,), int(pos), dtype=torch.int32, device=device)
+    if pos.shape != (B,) or pos.dtype != torch.int32 \
+            or pos.device != device:
+        raise ValueError(f"{name}: pos must be ({B},) int32 on {device}; "
+                         f"got {tuple(pos.shape)} {pos.dtype} on "
+                         f"{pos.device}")
+    return pos.contiguous()
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,13 +81,7 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"q {tuple(q.shape)} (H must be a multiple of K)")
     if not (q.device == k.device == v.device):
         raise ValueError("decode_attn: q, k and v must be on one device")
-    if not isinstance(pos, torch.Tensor) or pos.dim() == 0:
-        pos = torch.full((B,), int(pos), dtype=torch.int32, device=q.device)
-    if pos.shape != (B,) or pos.dtype != torch.int32 \
-            or pos.device != q.device:
-        raise ValueError(f"decode_attn: pos must be ({B},) int32 on "
-                         f"{q.device}; got {tuple(pos.shape)} {pos.dtype} "
-                         f"on {pos.device}")
+    pos = _row_pos(pos, B, q.device, "decode_attn")
     if q.device.type == "cpu":
         return decode_attn_ref(q, k, v, pos, softcap=softcap)
     if q.device.type != "cuda":
@@ -72,7 +96,6 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got head_dim {hd}, group {H // K}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attn kernel needs contiguous q, k, v")
-    pos = pos.contiguous()
     o = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     lib = _lib()
     err = lib.decode_attn_fwd(
@@ -85,3 +108,64 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attn.launches = 0
+
+
+def decode_attn_int8(q: torch.Tensor, kq: torch.Tensor, k_scale: torch.Tensor,
+                     vq: torch.Tensor, v_scale: torch.Tensor,
+                     pos: Union[int, torch.Tensor], *,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """q (B,H,hd); kq, vq (B,S,K,hd) int8; k_scale, v_scale (B,S,K) fp16;
+    pos (B,) int32 or a scalar (row b attends keys [0, pos[b]]) -> (B,H,hd)
+    f32."""
+    if q.dim() != 3 or kq.dim() != 4 or kq.shape != vq.shape \
+            or k_scale.shape != kq.shape[:3] \
+            or v_scale.shape != kq.shape[:3]:
+        raise ValueError(f"decode_attn_int8 wants q (B,H,hd), kq, vq "
+                         f"(B,S,K,hd) and scales (B,S,K); got "
+                         f"{tuple(q.shape)}, {tuple(kq.shape)}, "
+                         f"{tuple(vq.shape)}, {tuple(k_scale.shape)}, "
+                         f"{tuple(v_scale.shape)}")
+    B, H, hd = q.shape
+    S, K = kq.shape[1], kq.shape[2]
+    if kq.shape[0] != B or kq.shape[3] != hd or H % K:
+        raise ValueError(f"decode_attn_int8: kq {tuple(kq.shape)} does not "
+                         f"match q {tuple(q.shape)} (H must be a multiple of "
+                         f"K)")
+    if len({t.device for t in (q, kq, k_scale, vq, v_scale)}) != 1:
+        raise ValueError("decode_attn_int8: q, the cache and its scales must "
+                         "be on one device")
+    if kq.dtype != torch.int8 or vq.dtype != torch.int8 \
+            or k_scale.dtype != torch.float16 \
+            or v_scale.dtype != torch.float16:
+        raise ValueError(f"decode_attn_int8 takes int8 kq, vq and float16 "
+                         f"scales; got {kq.dtype}, {vq.dtype}, "
+                         f"{k_scale.dtype}, {v_scale.dtype}")
+    pos = _row_pos(pos, B, q.device, "decode_attn_int8")
+    if q.device.type == "cpu":
+        return decode_attn_int8_ref(q, kq, k_scale, vq, v_scale, pos,
+                                    softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attn_int8: no kernel for device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"decode_attn_int8 kernel takes a float32 or "
+                         f"bfloat16 q; got {q.dtype}")
+    if hd not in HEAD_DIMS or H // K > MAX_GROUP:
+        raise ValueError(f"decode_attn_int8 kernel takes head_dim in "
+                         f"{HEAD_DIMS} and at most {MAX_GROUP} query heads "
+                         f"per kv head; got head_dim {hd}, group {H // K}")
+    if not all(t.is_contiguous() for t in (q, kq, k_scale, vq, v_scale)):
+        raise ValueError("decode_attn_int8 kernel needs contiguous q, cache "
+                         "and scales")
+    o = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    lib = _lib_int8()
+    err = lib.decode_attn_int8_fwd(
+        q.data_ptr(), kq.data_ptr(), k_scale.data_ptr(), vq.data_ptr(),
+        v_scale.data_ptr(), pos.data_ptr(), o.data_ptr(), B, S, H, K, hd,
+        float(softcap), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "decode_attn_int8")
+    decode_attn_int8.launches += 1
+    return o
+
+
+decode_attn_int8.launches = 0

@@ -23,3 +23,15 @@ def decode_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1).nan_to_num(0.0)   # no valid key -> 0
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     return o.reshape(B, H, hd)
+
+
+def decode_attn_int8_ref(q: torch.Tensor, kq: torch.Tensor,
+                         k_scale: torch.Tensor, vq: torch.Tensor,
+                         v_scale: torch.Tensor, pos: torch.Tensor,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """The same over an int8 cache: kq, vq (B,S,K,hd) int8, k_scale,
+    v_scale (B,S,K) fp16, dequantized in f32, then ``decode_attn_ref``
+    (the kernel in ``csrc/decode_int8.cu``)."""
+    k = kq.float() * k_scale.float()[..., None]
+    v = vq.float() * v_scale.float()[..., None]
+    return decode_attn_ref(q, k, v, pos, softcap=softcap)

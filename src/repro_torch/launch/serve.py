@@ -4,6 +4,10 @@ batched prefill on the card (``--device cpu`` runs the plain versions of
 the kernels on the host). ``--smoke`` (the default) serves the reduced
 config; ``--full-config`` the published widths. The request trace is the
 JAX launcher's: the same seeded generator, lengths and priorities.
+``--precision w8a8`` serves the calibrated int8 path (the §V build step,
+then the w8a8 kernel for every int8 site); ``--verify-quant`` replays the
+trace on an unquantized engine and exits non-zero when the greedy-token
+agreement falls below the 0.90 guardrail.
 """
 from __future__ import annotations
 
@@ -14,9 +18,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.core.metrics import token_agreement
 from repro_torch.kernels import _build
 from repro_torch.models import model as model_mod
 from repro_torch.serving.engine import InferenceEngine, Request
+
+# the JAX launcher's greedy-token-agreement guardrail for w8a8 serving
+QUANT_AGREEMENT_THRESHOLD = 0.90
 
 
 def _lm_requests(args, cfg):
@@ -41,12 +49,14 @@ def serve_lm(args):
         t0 = time.perf_counter()
         _build.build_all()
         print(f"CUDA kernels built in {time.perf_counter() - t0:.1f}s")
+    if args.verify_quant and args.precision != "w8a8":
+        raise SystemExit("--verify-quant needs --precision w8a8")
     params = model_mod.init_params(cfg, seed=0, device=args.device)
-    eng = InferenceEngine(cfg, params, batch_slots=args.slots,
-                          max_len=args.max_len,
-                          prefill_buckets=(16, 32, 64, 128),
-                          policy=args.policy, slo_ms=args.slo_ms,
-                          max_queue=args.max_queue, device=args.device)
+    kw = dict(batch_slots=args.slots, max_len=args.max_len,
+              prefill_buckets=(16, 32, 64, 128), policy=args.policy,
+              slo_ms=args.slo_ms, max_queue=args.max_queue,
+              device=args.device)
+    eng = InferenceEngine(cfg, params, precision=args.precision, **kw)
     reqs = _lm_requests(args, cfg)
     t0 = time.perf_counter()
     eng.run(reqs)
@@ -57,6 +67,22 @@ def serve_lm(args):
           f"{tel.prefills} prefills in {tel.prefill_batches} batched "
           f"dispatches)")
     print(tel.report())
+    if args.verify_quant:
+        ref = InferenceEngine(cfg, params, precision="fp32", **kw)
+        ref_reqs = _lm_requests(args, cfg)
+        ref.run(ref_reqs)
+        agreement = token_agreement([(r.output, m.output)
+                                     for r, m in zip(reqs, ref_reqs)])
+        if agreement < QUANT_AGREEMENT_THRESHOLD:
+            raise SystemExit(
+                f"FAIL: w8a8 greedy-token agreement {agreement:.3f} below "
+                f"the {QUANT_AGREEMENT_THRESHOLD} guardrail")
+        q = eng.quant
+        print(f"verify-quant OK: {len(reqs)} requests, token agreement "
+              f"{agreement:.3f} >= {QUANT_AGREEMENT_THRESHOLD} vs fp "
+              f"({q.quantized_sites} sites int8, {q.fallback_sites} "
+              f"fp fallbacks, calib disagreement "
+              f"{q.result.metric_delta:.4f})")
     return tel
 
 
@@ -73,6 +99,11 @@ def main(argv=None):
                     help="per-request latency SLA for EDF + miss accounting")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bounded queue: shed submits past this depth")
+    ap.add_argument("--precision", default="fp32", choices=("fp32", "w8a8"),
+                    help="w8a8: serve the calibrated int8 weights")
+    ap.add_argument("--verify-quant", action="store_true",
+                    help="replay on an unquantized engine and check the "
+                         "greedy-token agreement guardrail")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full-config", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda",

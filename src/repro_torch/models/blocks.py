@@ -28,16 +28,19 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 pos: Optional[torch.Tensor] = None,
                 kv_valid: Optional[torch.Tensor] = None,
                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """mode 'prefill': causal attention over x, K/V written into cache rows
-    ``rows``; mode 'decode': one token per row at ``pos``, K/V written for
-    the active ``rows``. The cache is updated in place."""
+    """mode 'full': causal attention over x, no cache; mode 'prefill': the
+    same, K/V written into cache rows ``rows``; mode 'decode': one token
+    per row at ``pos``, K/V written for the active ``rows``. The cache is
+    updated in place."""
     h = p.pre_norm(x, cfg.norm_eps)
     if mode == "decode":
         y, _ = attn.decode_attention(p.attn, h, cache, pos, cfg, rows)
-    elif mode == "prefill":
+    elif mode in ("full", "prefill"):
         y, (k, v) = attn.full_attention(p.attn, h, cfg, positions, kv_valid)
-        attn.fill_cache_from_prefill(cache, k, v, rows)
+        if mode == "prefill":
+            attn.fill_cache_from_prefill(cache, k, v, rows)
     else:
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+        raise ValueError(f"mode must be 'full', 'prefill' or 'decode', got "
+                         f"{mode!r}")
     x = x + y
     return x + apply_mlp(p.mlp, p.pre_mlp_norm(x, cfg.norm_eps), cfg)

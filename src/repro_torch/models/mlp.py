@@ -1,11 +1,13 @@
-"""Dense gated MLP (SwiGLU/GeGLU), fp path (counterpart of
-``repro/models/mlp.py``)."""
+"""Dense gated MLP (SwiGLU/GeGLU) (counterpart of ``repro/models/mlp.py``);
+a projection whose weight the build step quantized goes through the w8a8
+kernel."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quantization import dense_w8a8, is_quantized_dense
 from repro_torch.models.common import activation_fn, dtype_of, mk_param
 
 
@@ -21,7 +23,14 @@ class MLP(nn.Module):
         self.w_down = mk_param((f, d), dt, device, gen)
 
 
+def _dense(x: torch.Tensor, w) -> torch.Tensor:
+    """One projection: an fp matmul, or w8a8 for a ``QuantDense``."""
+    if is_quantized_dense(w):
+        return dense_w8a8(x, w)
+    return x @ w
+
+
 def apply_mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = activation_fn(cfg.activation)
-    h = act(x @ p.w_gate) * (x @ p.w_up)
-    return h @ p.w_down
+    h = act(_dense(x, p.w_gate)) * _dense(x, p.w_up)
+    return _dense(h, p.w_down)

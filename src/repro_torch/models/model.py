@@ -37,7 +37,8 @@ def check_supported(cfg: ModelConfig) -> None:
         "logit softcaps": cfg.attn_logit_softcap is not None
         or cfg.final_logit_softcap is not None,
         "embedding multiplier": cfg.embedding_multiplier is not None,
-        "int8 KV cache": cfg.quant.kv_cache_dtype == "int8",
+        "int8 KV cache on local rings": cfg.quant.kv_cache_dtype == "int8"
+        and set(cfg.block_pattern) != {ATTN_GLOBAL},
         "embedding inputs": cfg.input_kind != "tokens",
     }
     missing = [name for name, used in unsupported.items() if used]
@@ -75,19 +76,22 @@ def model_device(params: Model) -> torch.device:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cuda") -> List[attn_mod.Cache]:
-    """One preallocated K/V cache dict per layer."""
+    """One preallocated K/V cache dict per layer (int8 values and fp16
+    scales when ``cfg.quant.kv_cache_dtype == "int8"``)."""
     return [attn_mod.init_kv_cache(cfg, batch, max_len, device)
             for _ in range(cfg.num_layers)]
 
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, mode: str, caches: List[attn_mod.Cache],
+            *, mode: str, caches: Optional[List[attn_mod.Cache]],
             pos: Optional[torch.Tensor] = None,
             kv_valid: Optional[torch.Tensor] = None,
             cache_rows: Optional[torch.Tensor] = None,
             active=None) -> Tuple[torch.Tensor, List[attn_mod.Cache]]:
     """Returns (hidden (B,S,d), caches); the caches are updated in place.
 
+    mode 'full': batch {'tokens' (B,S)}, causal over every position, no
+    caches (pass None; the build step's calibration forward).
     mode 'prefill': batch {'tokens' (B,S)} right-padded, ``kv_valid`` (B,S)
     marks real tokens; batch row j's K/V goes to cache row
     ``cache_rows[j]`` (default row j), for the first ``len(cache_rows)``
@@ -101,8 +105,11 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x = vocab_mod.embed_lookup(params.embed, tokens, cfg)
     B, S = tokens.shape
     positions = rows = None
-    if mode == "prefill":
+    if mode in ("full", "prefill"):
         positions = torch.arange(S, device=device).expand(B, S)
+    if mode == "full":
+        caches = [None] * cfg.num_layers
+    elif mode == "prefill":
         rows = (torch.arange(B, device=device) if cache_rows is None
                 else cache_rows.to(device))
         if kv_valid is not None:
@@ -119,7 +126,8 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         x = blk.apply_block(layer, x, cfg, mode=mode, cache=cache,
                             positions=positions, pos=pos, kv_valid=kv_valid,
                             rows=rows)
-    return params.final_norm(x, cfg.norm_eps), caches
+    return params.final_norm(x, cfg.norm_eps), \
+        (None if mode == "full" else caches)
 
 
 def head_table(params: Model, cfg: ModelConfig) -> torch.Tensor:

@@ -11,6 +11,11 @@ the acquired cache rows, and a decode step writes only the active rows.
 the slot rows, and donates the cache to every step.) The cache's batch and
 sequence axes are fixed by construction (dims 0 and 1 of every tensor), so
 no shape probing is needed.
+
+``precision="w8a8"`` serves through the §V build step's quantized model
+(``models/quantize.py``): every int8-decided projection runs the w8a8
+kernel, and ``run_params`` is what the stages run on. The KV cache format
+follows the config (``cfg.quant.kv_cache_dtype``).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bucketing import pick_bucket
 from repro_torch.models import model as model_mod
+from repro_torch.models.quantize import QuantizedParams, build_quantized_params
 from repro_torch.serving.executor import StageExecutor
 from repro_torch.serving.scheduler import Scheduler, SizeTimePolicy, Ticket
 from repro_torch.serving.state import SequenceStateManager
@@ -60,7 +66,13 @@ class InferenceEngine:
                  max_prefill_batch: Optional[int] = None,
                  max_queue: Optional[int] = None,
                  service_ms_est: Optional[float | str] = None,
+                 precision: str = "fp32",
+                 quantized_params: Optional[QuantizedParams] = None,
+                 quant_budget: float = 0.05,
                  device="cuda"):
+        if precision not in ("fp32", "w8a8"):
+            raise ValueError(f"precision must be 'fp32' or 'w8a8', "
+                             f"got {precision!r}")
         self.cfg = cfg
         want = torch.device(device)
         self.device = model_mod.model_device(params)    # e.g. cuda:0
@@ -68,7 +80,23 @@ class InferenceEngine:
                 want.index is not None and self.device.index != want.index):
             raise ValueError(f"params live on {self.device}, the engine was "
                              f"asked for {want}")
-        self.params = params
+        self.params = params               # fp reference weights
+        self.precision = precision
+        self.quant = None                  # QuantizedParams build record
+        if precision == "w8a8":
+            # §V build step: every dense projection goes per-channel int8
+            # (over-budget sites stay fp via the workflow's skip-list)
+            if quantized_params is None:
+                quantized_params = build_quantized_params(
+                    cfg, params, budget=quant_budget)
+            qdev = model_mod.model_device(quantized_params.params)
+            if qdev != self.device:
+                raise ValueError(f"quantized params live on {qdev}, the "
+                                 f"engine serves on {self.device}")
+            self.quant = quantized_params
+            self.run_params = quantized_params.params
+        else:
+            self.run_params = params
         self.max_len = max_len
         self.batch_slots = batch_slots
         self.buckets = tuple(b for b in prefill_buckets if b <= max_len)
@@ -201,9 +229,9 @@ class InferenceEngine:
             lens[j] = L
         slots = [self.states.acquire(t) for t in group]
         nxt = self.executor.dispatch(
-            "prefill", (bucket, P), lambda: self._build_prefill(bucket),
-            self.params, self.caches, self._to_device(toks),
-            self._to_device(lens),
+            "prefill", (bucket, P, self.precision),
+            lambda: self._build_prefill(bucket), self.run_params,
+            self.caches, self._to_device(toks), self._to_device(lens),
             self._to_device(np.asarray(slots, np.int64)))
         now = time.perf_counter()
         for j, (t, slot, L) in enumerate(zip(group, slots, lengths)):
@@ -226,7 +254,8 @@ class InferenceEngine:
         for s, t in self.active.items():
             toks[s, 0] = t.payload.output[-1]
         nxt = self.executor.dispatch(
-            "decode", (), self._build_decode, self.params, self.caches,
+            "decode", (self.precision,), self._build_decode,
+            self.run_params, self.caches,
             self._to_device(toks), self._to_device(pos_vec), active_mask)
         self.telemetry.steps += 1
         for s in list(self.active):

@@ -63,10 +63,11 @@ def test_engine_telemetry_matches_jax(served):
                  "total_tokens"):
         assert getattr(eng.telemetry, name) == getattr(jeng.telemetry, name),\
             name
-    # one stage per (bucket, padded group size) plus the decode step, as
-    # the JAX engine compiles them
-    assert sorted(k for k in eng.executor.cached_keys("prefill")) == sorted(
-        (s, key[:2]) for s, key in jeng.executor.cached_keys("prefill"))
+    # one stage per (bucket, padded group size, precision) plus the decode
+    # step per precision, keyed as the JAX engine keys its compiles
+    for stage in ("prefill", "decode"):
+        assert sorted(eng.executor.cached_keys(stage)) == sorted(
+            jeng.executor.cached_keys(stage))
 
 
 def test_engine_slots_partition_and_release(served):
@@ -100,3 +101,27 @@ def test_serve_launcher_runs_on_cpu():
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "served 4 requests" in out.stdout
+
+
+def test_serve_launcher_w8a8_verify_quant_on_cpu():
+    """The §V build step and the w8a8 plain path, then the replay on an
+    unquantized engine: agreement at or above the 0.90 guardrail."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--precision", "w8a8", "--verify-quant", "--requests", "16",
+         "--new-tokens", "8"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    assert "served 16 requests" in out.stdout
+    assert "verify-quant OK" in out.stdout
+
+
+def test_serve_launcher_verify_quant_needs_w8a8():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--verify-quant", "--requests", "2"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert out.returncode != 0
+    assert "--verify-quant needs --precision w8a8" in out.stderr

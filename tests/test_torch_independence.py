@@ -43,6 +43,15 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert out.returncode == 0, out.stderr[-3000:]
 
 
+def test_module_list_covers_the_quantized_path():
+    """The blocked-import check above walks the package, the w8a8 and
+    int8-KV modules included."""
+    assert {"repro_torch.core.quantization", "repro_torch.core.metrics",
+            "repro_torch.kernels.w8a8.ops", "repro_torch.kernels.w8a8.ref",
+            "repro_torch.kernels.decode_attn.ops",
+            "repro_torch.models.quantize"} <= set(_modules())
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_neither_jax_nor_repro(path):

@@ -28,10 +28,14 @@ from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
-from repro_torch.kernels.decode_attn.ops import decode_attn
-from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+from repro_torch.kernels.w8a8 import ops as w8a8_ops
+from repro_torch.kernels.decode_attn.ops import decode_attn, decode_attn_int8
+from repro_torch.kernels.decode_attn.ref import (decode_attn_int8_ref,
+                                                 decode_attn_ref)
 from repro_torch.kernels.flash_attn.ops import flash_attn
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+from repro_torch.kernels.w8a8.ops import w8a8_matmul
+from repro_torch.kernels.w8a8.ref import w8a8_ref
 from repro_torch.models import attention as attn
 
 
@@ -156,11 +160,31 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
     assert torch.equal(decode_attn(q[:, 0], k, k, pos),
                        decode_attn_ref(q[:, 0], k, k, pos))
     assert (flash_attn.launches, decode_attn.launches) == (f0, d0) == (0, 0)
+    kq = torch.from_numpy(rng.integers(-127, 128, (2, 16, 2, 32),
+                                       dtype=np.int8))
+    sc = torch.from_numpy(rng.uniform(0.001, 0.02, (2, 16, 2))
+                          .astype(np.float16))
+    i0, w0 = decode_attn_int8.launches, w8a8_matmul.launches
+    assert torch.equal(decode_attn_int8(q[:, 0], kq, sc, kq, sc, pos),
+                       decode_attn_int8_ref(q[:, 0], kq, sc, kq, sc, pos))
+    xs = torch.from_numpy(rng.uniform(0.001, 0.05, 16).astype(np.float32))
+    xq, wq = kq[0, :, 0], kq[1, 0].t()                    # (16,32), (32,2)
+    assert torch.equal(w8a8_matmul(xq, wq, xs, xs[:2]),
+                       w8a8_ref(xq, wq, xs, xs[:2]))
+    assert (decode_attn_int8.launches, w8a8_matmul.launches) == (i0, w0) \
+        == (0, 0)
+
+
+# the entry points whose wrapper module declares them under another name
+# than ARGTYPES
+OTHER_ARGTYPES = {"decode_attn_int8_fwd": "ARGTYPES_INT8"}
 
 
 @pytest.mark.parametrize("ops,entry,source", [
     (flash_ops, "flash_attn_fwd", "flash.cu"),
     (decode_ops, "decode_attn_fwd", "decode.cu"),
+    (decode_ops, "decode_attn_int8_fwd", "decode_int8.cu"),
+    (w8a8_ops, "w8a8_matmul_fwd", "w8a8.cu"),
 ])
 def test_ctypes_signature_matches_c_entry(ops, entry, source):
     """The wrapper declares one ctypes type per parameter of the C entry
@@ -173,7 +197,13 @@ def test_ctypes_signature_matches_c_entry(ops, entry, source):
     declared = [c_types["".join(re.sub(r"\bconst\b|\w+$", "",
                                        p.strip()).split())]
                 for p in params.split(",")]
-    assert declared == ops.ARGTYPES
+    assert declared == getattr(ops, OTHER_ARGTYPES.get(entry, "ARGTYPES"))
+
+
+def test_every_csrc_source_is_covered():
+    """Every kernel source has a parse check above and builds on its own."""
+    assert sorted(_build.sources()) == ["decode", "decode_int8", "flash",
+                                        "w8a8"]
 
 
 def test_wrappers_reject_bad_inputs():

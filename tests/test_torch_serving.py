@@ -1,16 +1,22 @@
 """The port's copies of the JAX package's jax-free serving modules
-(scheduler, telemetry, slot-state manager) stay copies: the same code,
-and the same decisions on the same seeded operation sequences."""
+(scheduler, telemetry, slot-state manager) and of the quantization
+workflow and token agreement stay copies: the same code, and the same
+decisions on the same seeded operation sequences."""
 import ast
 import inspect
 import textwrap
 
 import numpy as np
 import pytest
+import torch
 
+from repro.core import metrics as jax_metrics
+from repro.core import quantization as jax_quant
 from repro.serving import scheduler as jax_sched
 from repro.serving import state as jax_state
 from repro.serving import telemetry as jax_tel
+from repro_torch.core import metrics
+from repro_torch.core import quantization as quant
 from repro_torch.serving import scheduler as sched
 from repro_torch.serving import state
 from repro_torch.serving import telemetry as tel
@@ -23,13 +29,36 @@ COPIED = [
     (jax_sched, sched, "ServiceEstimator"), (jax_sched, sched, "Scheduler"),
     (jax_state, state, "SequenceStateManager"),
     (jax_state, state, "slot_kinds_for"),
+    (jax_quant, quant, "LayerQuantDecision"),
+    (jax_quant, quant, "QuantWorkflowResult"),
+    (jax_quant, quant, "quantization_workflow"),
+    (jax_metrics, metrics, "token_agreement"),
 ]
+# nested functions written in torch in the copy (the workflow's default
+# per-layer error); test_quantization_workflow_decides_like_the_original
+# holds its numbers to the original's
+TORCH_REWRITTEN = {"default_err"}
+# the array type of an annotation in the original, and in the copy
+ARRAY_TYPES = (("jax", "Array"), ("torch", "Tensor"))
 
 
 def _code(obj) -> str:
     """The object's source as an AST dump without docstrings (comments
-    are not in the AST): the code, not its prose."""
+    are not in the AST), without the nested functions the copy rewrites
+    in torch, and with ``jax.Array`` read as ``torch.Tensor``: the code,
+    not its prose."""
     tree = ast.parse(textwrap.dedent(inspect.getsource(obj)))
+    (jax_mod, jax_attr), (torch_mod, torch_attr) = ARRAY_TYPES
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr == jax_attr \
+                and isinstance(node.value, ast.Name) \
+                and node.value.id == jax_mod:
+            node.attr, node.value.id = torch_attr, torch_mod
+        body = getattr(node, "body", None)
+        if isinstance(body, list):
+            node.body = [n for n in body
+                         if not (isinstance(n, ast.FunctionDef)
+                                 and n.name in TORCH_REWRITTEN)]
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if isinstance(body, list) and body \
@@ -132,3 +161,31 @@ def test_percentile_and_report_like_the_original():
         t.record_compile("prefill")
         t.served, t.steps = 37, 12
     assert a.report() == b.report() and a.summary() == b.summary()
+
+
+@pytest.mark.parametrize("budget", [0.0, 0.05, 1.0])
+def test_quantization_workflow_decides_like_the_original(budget):
+    """The default per-layer error (the part written in torch) and the
+    fall-back loop: the same errors, order and decisions on the same
+    weights and the same metric."""
+    rng = np.random.default_rng(4)
+    ws = {f"site{i}": rng.standard_normal((32, 48)).astype(np.float32)
+          * rng.uniform(0.5, 2.0, 48).astype(np.float32) for i in range(5)}
+    ws["site0"][3, 7] = 40.0                     # one badly scaled column
+
+    def metric(schemes):
+        return 0.02 * sum(s == "int8" for s in schemes.values())
+
+    import jax.numpy as jnp
+    got = quant.quantization_workflow(
+        {n: torch.from_numpy(w) for n, w in ws.items()}, metric,
+        budget=budget, max_iters=3)
+    want = jax_quant.quantization_workflow(
+        {n: jnp.asarray(w) for n, w in ws.items()}, metric, budget=budget,
+        max_iters=3)
+    assert [(d.name, d.scheme) for d in got.decisions] == \
+        [(d.name, d.scheme) for d in want.decisions]
+    for d, e in zip(got.decisions, want.decisions):
+        assert d.error == pytest.approx(e.error, rel=1e-5)
+    assert (got.passed, got.metric_delta, got.iterations) == \
+        (want.passed, want.metric_delta, want.iterations)
