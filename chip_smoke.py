@@ -7,7 +7,8 @@ result line):
 
 1. build   — compile every CUDA kernel of ``src/repro_torch/csrc`` (one
              ``nvcc`` per source, in parallel): flash prefill, flash
-             decode, int8-KV decode and the w8a8 GEMM.
+             decode, int8-KV decode, the w8a8 GEMM and the SLS kernels
+             (fp32, int8, int4).
 2. kernels — each kernel against its plain PyTorch version on the card, on
              the JAX package's kernel test cases plus the serving path's
              shapes, with the error, the kernel's time, the plain version's
@@ -18,7 +19,10 @@ result line):
              card could take (bytes at 3.35 TB/s or operations at the peak
              rate of the input type, whichever is larger); then a seeded
              sweep of random shapes, masks and types, checked only. The
-             w8a8 GEMM must equal its plain version bit for bit.
+             w8a8 GEMM must equal its plain version bit for bit. The SLS
+             kernels' main shape is the DLRM batch (6144 bags of at most
+             128 lookups, D 96, lengths from ``dlrm_batches``) on a table
+             far larger than L2; ``embedding_bag`` is the fp32 yardstick.
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``: 8 requests, 32 new
              tokens each. The kernels' launch counters are zeroed just
@@ -39,17 +43,35 @@ result line):
              time untraced, then the device time of one ``torch.profiler``
              trace (busy share, the share of the matrix products and of each
              port kernel, the top kernels).
+7. serve-dlrm — with the deepseek-7b weights freed: DLRM ``PAPER_COMPLEX``
+             at its published widths with every table halved (one shard,
+             a 58.6 GB row-wise int8 slab made on the card from a seed)
+             through ``DLRMEngine(device="cuda")``: a full-trace warm-up,
+             then 64 requests of batch 64 with the launch counters zeroed
+             just before and read just after; the int8 SLS kernel must
+             have run once a request and the other two not; one request's
+             pooled output is held against the plain version on the same
+             slab, and its logits against the dense stage on that output.
+8. profile-dlrm — one traced pipeline pass of a batch: device busy share,
+             the SLS kernel's share, device activities.
+9. check-dlrm — reduced ``PAPER_COMPLEX`` with an fp32, an int8 and an
+             int4 slab, the same weights served on the card and on the
+             host (plain versions): pooled outputs within the SLS
+             tolerances, logits within 2e-3; each card run must launch its
+             slab's SLS kernel once a request and the other two not.
 
 Kernel times are CUDA-event times of single calls, each after an L2 flush.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
+The line before the last is a JSON object with one entry per kernel (its
+``launches`` are those of the phase whose path runs it: serve, serve-w8a8,
+serve-dlrm, or check-dlrm for the fp32 and int4 SLS kernels); the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
 the repository's ``src/`` beside this file; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -63,8 +85,10 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.configs import dlrm_paper  # noqa: E402
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
 from repro_torch.core.metrics import token_agreement  # noqa: E402
+from repro_torch.data.synthetic import dlrm_batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
     decode_attn, decode_attn_int8)
@@ -72,11 +96,16 @@ from repro_torch.kernels.decode_attn.ref import (  # noqa: E402
     decode_attn_int8_ref, decode_attn_ref)
 from repro_torch.kernels.flash_attn.ops import flash_attn  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.sls.ops import sls, sls_int4, sls_int8  # noqa: E402
+from repro_torch.kernels.sls.ref import (  # noqa: E402
+    sls_int4_ref, sls_int8_ref, sls_ref)
 from repro_torch.kernels.w8a8.ops import w8a8_matmul  # noqa: E402
 from repro_torch.kernels.w8a8.ref import w8a8_ref  # noqa: E402
+from repro_torch.models import dlrm as dlrm_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.quantize import (  # noqa: E402
     QuantizedParams, build_quantized_params)
+from repro_torch.serving.dlrm_engine import DLRMEngine  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine, Request  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, NVIDIA data sheet
@@ -94,10 +123,21 @@ KERNELS = {
         replaces="src/repro/kernels/decode_attn/decode.py:100"),
     "w8a8_matmul": dict(source="src/repro_torch/csrc/w8a8.cu",
                         replaces="src/repro/kernels/w8a8/matmul.py:27"),
+    "sls_fp": dict(source="src/repro_torch/csrc/sls.cu",
+                   replaces="src/repro/kernels/sls/sls.py:21"),
+    "sls_int8": dict(source="src/repro_torch/csrc/sls.cu",
+                     replaces="src/repro/kernels/sls/sls.py:34"),
+    "sls_int4": dict(source="src/repro_torch/csrc/sls.cu",
+                     replaces="src/repro/kernels/sls/sls.py:50"),
 }
 LAUNCHERS = {"flash_attn": flash_attn, "decode_attn": decode_attn,
              "decode_attn_int8": decode_attn_int8,
-             "w8a8_matmul": w8a8_matmul}
+             "w8a8_matmul": w8a8_matmul, "sls_fp": sls, "sls_int8": sls_int8,
+             "sls_int4": sls_int4}
+# each SLS kernel's plain version and tolerance (repro/kernels/sls/ops.py)
+SLS_PLAIN = {"sls_fp": sls_ref, "sls_int8": sls_int8_ref,
+             "sls_int4": sls_int4_ref}
+SLS_TOL = {"sls_fp": 1e-5, "sls_int8": 1e-4, "sls_int4": 1e-4}
 DEV = "cuda"
 
 
@@ -131,17 +171,25 @@ def bound(flops: float, nbytes: float, dtype) -> tuple:
                                      else "bytes")
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
-    """Max abs error; raises past the JAX package's tolerance for the type
-    (|got - want| <= tol + tol * |want|)."""
-    tol = TOL[dtype]
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
+            tol: float = None, nan_ok: bool = False) -> float:
+    """Max abs error; raises past ``tol``, by default the JAX package's
+    tolerance for the type (|got - want| <= tol + tol * |want|), and
+    unless ``got`` is finite or, with ``nan_ok``, NaN exactly where
+    ``want`` is and finite elsewhere."""
+    tol = TOL[dtype] if tol is None else tol
     got, want = got.float(), want.float()
-    err = (got - want).abs()
-    if not torch.isfinite(got).all() or (err > tol + tol * want.abs()).any():
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    nan = torch.isnan(want) if nan_ok else torch.zeros_like(want, dtype=bool)
+    err = torch.where(nan, 0.0, got - want).abs()
+    if (torch.isnan(got) != nan).any() or not torch.isfinite(got[~nan]).all() \
+            or (err > tol + tol * want.abs()).any():
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {err.max().item():.3e}, "
                              f"tol {tol})")
-    return err.max().item()
+    return err.max().item() if err.numel() else 0.0
 
 
 def card_line() -> str:
@@ -355,6 +403,157 @@ def _show(kernel, name, r):
           f"({r['bound_by']})", flush=True)
 
 
+def _sls_table(gen, kind, R, D):
+    """The table of SLS kernel ``kind``: (R,D) f32, or uint8 values ((R,D)
+    int8, (R,D/2) packed int4) with fp16 scale in [0.01, 0.11) and bias
+    N(0, 0.1^2) per row (the JAX package's SLS cases)."""
+    if kind == "sls_fp":
+        return (torch.randn((R, D), generator=gen, device=DEV),)
+    cols = D if kind == "sls_int8" else D // 2
+    q = torch.randint(0, 256, (R, cols), generator=gen, device=DEV,
+                      dtype=torch.uint8)
+    scale = (torch.rand(R, generator=gen, device=DEV) * 0.1 + 0.01).half()
+    bias = (torch.randn(R, generator=gen, device=DEV) * 0.1).half()
+    return q, scale, bias
+
+
+def _bags(gen, R, NB, L):
+    idx = torch.randint(0, R, (NB, L), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    lens = torch.randint(0, L + 1, (NB,), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    return idx, lens
+
+
+def sls_check(kind, name, tables, idx, lens) -> float:
+    """One SLS kernel call against its plain version; max abs error."""
+    got = LAUNCHERS[kind](*tables, idx, lens)
+    torch.cuda.synchronize()
+    want = SLS_PLAIN[kind](*tables, idx, lens)
+    return compare(f"{kind}[{name}]", got, want, torch.float32,
+                   tol=SLS_TOL[kind], nan_ok=True)
+
+
+def sls_measure(kind, tables, idx, lens, err) -> dict:
+    """Times of the kernel, its plain version and (fp32) ``embedding_bag``
+    on one input, with the bound these bags need: each lookup reads its
+    row (and 4 bytes of fp16 scale and bias when quantized) and its index
+    once; the lengths are read and the (NB,D) f32 output written once."""
+    fn, plain = LAUNCHERS[kind], SLS_PLAIN[kind]
+    NB, L = idx.shape
+    lookups = lens.clamp(0, L).sum().item()
+    t = tables[0]
+    D = t.shape[1] * (2 if kind == "sls_int4" else 1)
+    row_bytes = t.shape[1] * t.element_size() + (0 if kind == "sls_fp" else 4)
+    nbytes = lookups * (row_bytes + 4) + 4 * NB + 4 * NB * D
+    flops = lookups * D * (1 if kind == "sls_fp" else 2)
+    bound_ms, bound_by = bound(flops, nbytes, torch.float32)
+    library_ms = library_err = None
+    if kind == "sls_fp":
+        # embedding_bag over the same bags: the valid indices flattened,
+        # one offset per bag (made outside the timed call)
+        keep = torch.arange(L, device=DEV)[None, :] < lens[:, None]
+        flat = idx[keep].long()
+        offsets = (torch.cumsum(lens.clamp(0, L), 0) - lens.clamp(0, L)).long()
+        lib_out = F.embedding_bag(flat, t, offsets, mode="sum")
+        library_err = (lib_out - plain(*tables, idx, lens)).abs().max().item()
+        library_ms = time_ms(lambda: F.embedding_bag(flat, t, offsets,
+                                                     mode="sum"))
+    return dict(max_abs_err=err, library_err=library_err,
+                ms=time_ms(lambda: fn(*tables, idx, lens)),
+                plain_ms=time_ms(lambda: plain(*tables, idx, lens)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def dlrm_main_bags(R: int):
+    """The DLRM serving path's SLS input: the bags of one batch of 64
+    (``dlrm_batches(PAPER_COMPLEX, 64, seed=0)``), 96 tables -> 6144 bags
+    of at most 128 lookups, each table's power-law indices placed in its
+    own R/96 rows of an R-row table."""
+    cfg = dlrm_paper.PAPER_COMPLEX
+    b = next(dlrm_batches(cfg, 64, seed=0))
+    per = R // cfg.num_tables
+    idx = b["indices"] % per \
+        + (np.arange(cfg.num_tables) * per)[None, :, None]
+    L = cfg.max_lookups_per_table
+    return (torch.from_numpy(idx.reshape(-1, L).astype(np.int32)).to(DEV),
+            torch.from_numpy(b["lengths"].reshape(-1)).to(DEV))
+
+
+SLS_MAIN_ROWS = 1 << 23
+
+
+def sls_cases(gen) -> dict:
+    """The JAX package's SLS cases (repro/kernels/sls/ops.py), empty bags,
+    then the main shape on a 2^23-row table (3.2 GB in fp32, 805 MB in
+    int8, 403 MB in int4: far past the 50 MB L2); returns the main
+    shape's measurements."""
+    cases = {"sls_fp": [(64, 16, 8, 4), (1000, 64, 32, 8), (4096, 128, 16, 64),
+                        (128, 256, 4, 1)],
+             "sls_int8": [(64, 16, 8, 4), (1000, 64, 32, 8), (512, 128, 16, 32)],
+             "sls_int4": [(64, 16, 8, 4), (1000, 64, 32, 8)]}
+    main = {}
+    main_idx, main_lens = dlrm_main_bags(SLS_MAIN_ROWS)
+    for kind, shapes in cases.items():
+        worst = 0.0
+        for R, D, NB, L in shapes:
+            tables = _sls_table(gen, kind, R, D)
+            worst = max(worst, sls_check(kind, f"R{R}_D{D}_NB{NB}_L{L}",
+                                         tables, *_bags(gen, R, NB, L)))
+            idx, _ = _bags(gen, R, NB, L)
+            worst = max(worst, sls_check(
+                kind, f"R{R}_D{D}_NB{NB}_L{L} empty", tables, idx,
+                torch.zeros(NB, dtype=torch.int32, device=DEV)))
+        print(f"{kind}: the JAX package's {len(shapes)} cases and their "
+              f"all-empty bags agree with the plain version; max abs err "
+              f"{worst:.3e}", flush=True)
+        tables = _sls_table(gen, kind, SLS_MAIN_ROWS, 96)
+        err = sls_check(kind, "main", tables, main_idx, main_lens)
+        r = main[kind] = sls_measure(kind, tables, main_idx, main_lens, err)
+        _show(kind, f"main_NB6144_L128_D96_R{SLS_MAIN_ROWS} "
+              f"({main_lens.sum().item()} lookups)", r)
+        del tables
+    return main
+
+
+def sweep_sls(seed: int, n: int) -> None:
+    """``n`` random cases per SLS kernel: D not a multiple of 4 and odd D
+    (fp32, int8), L = 1, empty and all-empty bags, lengths past L and
+    below 0, indices outside the table (NaN bags), and a table view that
+    starts off 16-byte alignment; each against its plain version. No
+    timing."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    worst = {k: 0.0 for k in SLS_PLAIN}
+    for i in range(n):
+        for kind in SLS_PLAIN:
+            step = 2 if kind == "sls_int4" else 1
+            D = step * int(rng.integers(1, 160 // step))
+            R, NB = int(rng.integers(1, 3000)), int(rng.integers(1, 300))
+            L = int(rng.choice([1, int(rng.integers(1, 200))]))
+            tables = _sls_table(gen, kind, R + 1, D)
+            if rng.integers(0, 3) == 0:          # drop row 0: a shifted start
+                tables = tuple(t[1:] for t in tables)
+            else:
+                tables = tuple(t[:R] for t in tables)
+            idx, _ = _bags(gen, R, NB, L)
+            if rng.integers(0, 4) == 0:          # a few indices off the table
+                flat = idx.view(-1)
+                at = torch.from_numpy(rng.integers(0, flat.numel(), 3)).to(DEV)
+                flat[at] = torch.tensor([R, -1, 2**31 - 1], dtype=torch.int32,
+                                        device=DEV)
+            lens = torch.from_numpy(rng.integers(-2, L + 3, NB)
+                                    .astype(np.int32)).to(DEV)
+            if rng.integers(0, 4) == 0:
+                lens.zero_()
+            err = sls_check(kind, f"sweep {i}: R{R} D{D} NB{NB} L{L}",
+                            tables, idx, lens)
+            worst[kind] = max(worst[kind], err)
+    torch.cuda.synchronize()
+    print(f"sweep: {n} random cases per SLS kernel agree with the plain "
+          f"versions; max abs err {worst}", flush=True)
+
+
 def phase_kernels() -> dict:
     """Every case of both kernels; returns the main-path measurements."""
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -430,8 +629,10 @@ def phase_kernels() -> dict:
         _show("decode_attn_int8", name, r)
         if name.startswith("main"):
             main["decode_attn_int8"] = r
+    main.update(sls_cases(gen))
     sweep(seed=1, n=32)
     sweep_int8(seed=2, n=32)
+    sweep_sls(seed=3, n=32)
     return main
 
 
@@ -677,9 +878,17 @@ def phase_check(cfg, params):
 MATMUL_KERNEL_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
 
 
-def profile_window(label: str, fn, steps: int) -> None:
-    """Device busy share of ``fn`` (which ends in a host copy): its wall time
-    untraced, then its kernels' device time from one traced run."""
+LM_SHARES = {"matmul kernels": MATMUL_KERNEL_NAMES,
+             "flash_fwd_kernel": ("flash_fwd_kernel",),
+             "decode_kernel": ("decode_kernel",),
+             "decode_int8_kernel": ("decode_int8_kernel",),
+             "w8a8_kernel": ("w8a8_kernel",)}
+
+
+def profile_window(label: str, fn, steps: int, shares=LM_SHARES) -> None:
+    """Device busy share of ``fn`` (which ends in a host copy or a wait): its
+    wall time untraced, then its kernels' device time from one traced run,
+    with the share of each group of kernel names in ``shares``."""
     fn()                                                     # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -709,15 +918,13 @@ def profile_window(label: str, fn, steps: int) -> None:
 
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
+    groups = ", ".join(f"{name} {100 * share(names):.1f}%"
+                       for name, names in shares.items())
     print(f"profile: {label}: wall {wall_ms / steps:.3f} ms per step "
           f"(untraced), device kernels {dev_ms / steps:.3f} ms per step, "
           f"device busy {100 * dev_ms / wall_ms:.1f}% of the wall time; "
-          f"matmul kernels {100 * share(MATMUL_KERNEL_NAMES):.1f}%, "
-          f"flash_fwd_kernel {100 * share(('flash_fwd_kernel',)):.1f}%, "
-          f"decode_kernel {100 * share(('decode_kernel',)):.1f}%, "
-          f"decode_int8_kernel {100 * share(('decode_int8_kernel',)):.1f}%, "
-          f"w8a8_kernel {100 * share(('w8a8_kernel',)):.1f}% of device "
-          f"time; {sum(e.count for e in events) // steps} device activities "
+          f"{groups} of device time; "
+          f"{sum(e.count for e in events) // steps} device activities "
           f"per step", flush=True)
     for e in top:
         print(f"profile: {label}:   {e.self_device_time_total / 1e3 / steps:8.3f}"
@@ -761,6 +968,157 @@ def phase_profile(cfg, params, tag: str = ""):
                    decode, steps)
 
 
+# ---- DLRM -------------------------------------------------------------------
+
+DLRM_REQUESTS, DLRM_BATCH = 64, 64
+DLRM_SHARES = {"matmul kernels": MATMUL_KERNEL_NAMES,
+               "sls_kernel": ("sls_kernel",)}
+
+
+def _zero_launches() -> None:
+    for fn in LAUNCHERS.values():
+        fn.launches = 0
+
+
+def _require_sls(label: str, launches: dict, kind: str, n: int) -> None:
+    """``kind`` ran once a request and the other SLS kernels not at all."""
+    want = {k: (n if k == kind else 0) for k in SLS_PLAIN}
+    got = {k: launches[k] for k in SLS_PLAIN}
+    if got != want:
+        raise AssertionError(f"{label}: SLS launches {got}, expected {want}")
+
+
+def phase_serve_dlrm():
+    """DLRM serving at PAPER_COMPLEX's published widths on one card (every
+    table halved: the int8 slab of the full table set, 117 GB, does not fit
+    80 GB). Returns (int8 SLS launches, the engine, one batch)."""
+    cfg = dlrm_paper.PAPER_COMPLEX_ONE_CARD
+    asn = dlrm_mod.make_assignment(cfg, 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = dlrm_mod.init_dlrm(cfg, asn,
+                                torch.Generator(device=DEV).manual_seed(0),
+                                DEV, quantize=True)
+    torch.cuda.synchronize()
+    slab = params["slab_q"]
+    slab_gb = sum(t.numel() * t.element_size() for t in slab.values()) / 1e9
+    print(f"init-dlrm: {cfg.name}, {cfg.num_tables} tables, "
+          f"{asn.total_rows} slab rows x {cfg.embed_dim} in int8 "
+          f"({slab_gb:.2f} GB with fp16 scale and bias) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    eng = DLRMEngine(cfg, asn, params, device=DEV)
+    t0 = time.perf_counter()
+    batches = [next(dlrm_batches(cfg, DLRM_BATCH, seed=s))
+               for s in range(DLRM_REQUESTS)]
+    print(f"serve-dlrm: {DLRM_REQUESTS} batches of {DLRM_BATCH} made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # full-trace warm-up, excluded from latency and transfer stats, as the
+    # JAX launcher does
+    eng.serve(batches, pipelined=True, warm=True)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, stats = eng.serve(batches, pipelined=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in LAUNCHERS.items()}
+    tel = eng.telemetry
+    lat = tel.latency_percentiles()
+    print(f"serve-dlrm: served {tel.served}/{DLRM_REQUESTS} requests of "
+          f"{DLRM_BATCH} in {wall:.3f} s, "
+          f"{DLRM_REQUESTS * DLRM_BATCH / wall:.0f} items/s, latency p50 "
+          f"{lat['p50']:.3f} ms p99 {lat['p99']:.3f} ms (all submitted at "
+          f"once), transfer bytes saved "
+          f"{100 * eng.transfer_stats.bytes_saved_frac:.1f}%, slab "
+          f"{slab_gb:.2f} GB, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"serve-dlrm: kernel launches {launches}", flush=True)
+    if tel.served != DLRM_REQUESTS:
+        raise AssertionError(f"served {tel.served} of {DLRM_REQUESTS}")
+    bad = [i for i, o in enumerate(outs)
+           if o.shape != (DLRM_BATCH,) or not torch.isfinite(o).all()]
+    if bad:
+        raise AssertionError(f"serve-dlrm: requests {bad} gave no finite "
+                             f"({DLRM_BATCH},) logits")
+    _require_sls("serve-dlrm", launches, "sls_int8", DLRM_REQUESTS)
+    # per-stage times: a measured re-run outside the counted window
+    _, mstats = eng.serve(batches, pipelined=True, warm=True, measure=True)
+    print("serve-dlrm: stage times (sequential, per request) " + ", ".join(
+        f"{k} {1e3 * v / DLRM_REQUESTS:.3f} ms"
+        for k, v in mstats.stage_time_s.items()), flush=True)
+    # one request against the plain version on the same 58.6 GB slab
+    x = eng.ingest(batches[0])
+    idx, lens = x["sls"]
+    with torch.inference_mode():
+        pooled = dlrm_mod.sls_forward(params, cfg, asn, idx, lens)
+        B, T, L = idx.shape
+        gidx = idx + torch.tensor(asn.table_offset, dtype=torch.int32,
+                                  device=DEV)[None, :, None]
+        want = sls_int8_ref(slab["q8"], slab["scale"], slab["bias"],
+                            gidx.reshape(B * T, L),
+                            lens.reshape(-1)).reshape(B, T, -1)
+        err = compare("serve-dlrm pooled", pooled, want, torch.float32,
+                      tol=SLS_TOL["sls_int8"])
+        logits = dlrm_mod.dense_forward(params, cfg, x["dense"], want)
+        lerr = compare("serve-dlrm logits", outs[0], logits, torch.float32)
+    keep = torch.arange(L, device=DEV)[None, None, :] < lens[..., None]
+    top = gidx[keep].max().item()
+    print(f"serve-dlrm: request 0 pooled {tuple(pooled.shape)} within "
+          f"{err:.3e} of the plain version on the same slab, logits within "
+          f"{lerr:.3e} of the dense stage on it; highest row read {top} "
+          f"(byte offset {top * cfg.embed_dim}; 2^32 is {2**32})",
+          flush=True)
+    return launches["sls_int8"], eng, batches[0]
+
+
+def phase_profile_dlrm(eng, batch) -> None:
+    """One traced pipeline pass (ingest, sparse, dense, post) of a batch."""
+    profile_window(f"dlrm pipeline pass, batch {DLRM_BATCH}",
+                   lambda: eng.serve([batch], pipelined=True, warm=True), 1,
+                   shares=DLRM_SHARES)
+
+
+def phase_check_dlrm() -> dict:
+    """Reduced PAPER_COMPLEX with an fp32, an int8 and an int4 slab: the
+    same weights served on the card and on the host. Returns each SLS
+    kernel's launches on its card run."""
+    base = dlrm_paper.reduce_for_smoke(dlrm_paper.PAPER_COMPLEX)
+    batches = [next(dlrm_batches(base, 16, seed=s)) for s in range(4)]
+    launches = {}
+    for bits, kind in ((None, "sls_fp"), (8, "sls_int8"), (4, "sls_int4")):
+        cfg = dataclasses.replace(base, quant=dataclasses.replace(
+            base.quant, embedding_bits=bits or 8))
+        asn = dlrm_mod.make_assignment(cfg, 1)
+        host = dlrm_mod.init_dlrm(cfg, asn, torch.Generator().manual_seed(0),
+                                  "cpu", quantize=bits is not None)
+        card = dlrm_mod.params_to(host, DEV)
+        eng = DLRMEngine(cfg, asn, card, device=DEV)
+        _zero_launches()
+        outs, _ = eng.serve(batches)
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in LAUNCHERS.items()}
+        _require_sls(f"check-dlrm {kind}", counts, kind, len(batches))
+        launches[kind] = counts[kind]
+        ref, _ = DLRMEngine(cfg, asn, host, device="cpu").serve(batches)
+        lerr = max(compare(f"check-dlrm {kind} logits", o.cpu(), r,
+                           torch.float32) for o, r in zip(outs, ref))
+        perr = 0.0
+        for b in batches:
+            pooled = [dlrm_mod.sls_forward(
+                p, cfg, asn, torch.from_numpy(b["indices"]).to(d),
+                torch.from_numpy(b["lengths"]).to(d)).cpu()
+                for p, d in ((card, DEV), (host, "cpu"))]
+            perr = max(perr, compare(f"check-dlrm {kind} pooled", *pooled,
+                                     torch.float32, tol=SLS_TOL[kind]))
+        print(f"check-dlrm: reduced PAPER_COMPLEX, "
+              f"{'fp32' if bits is None else f'int{bits}'} slab: card vs "
+              f"host pooled max abs err {perr:.3e} (tol {SLS_TOL[kind]}), "
+              f"logits {lerr:.3e} (tol {TOL[torch.float32]}) over "
+              f"{len(batches)} requests; {kind} launched {counts[kind]} "
+              f"times", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -787,6 +1145,19 @@ def main():
     # each kernel's launches are those of the serve phase that runs it
     launches.update({k: launches_q[k] for k in ("w8a8_matmul",
                                                 "decode_attn_int8")})
+    # the DLRM slab needs the card: drop every deepseek-7b tensor first
+    del params, quant_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"freed deepseek-7b: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB still allocated", flush=True)
+    launches["sls_int8"], eng, batch = phase_serve_dlrm()
+    phase_profile_dlrm(eng, batch)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update({k: n for k, n in phase_check_dlrm().items()
+                     if k != "sls_int8"})
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     line = [dict(name=name, route="cuda", **KERNELS[name],

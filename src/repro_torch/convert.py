@@ -10,6 +10,7 @@ weights too: the JAX leaf ``{"q8": (K,N) int8, "scale": (N,) f32}`` is the
 port's ``QuantDense`` module with buffers ``q8`` and ``scale`` (``q8``
 keeps its logical (K,N) shape; the port stores it column-major). The
 int8 KV cache's ``k_scale``/``v_scale`` carry across like ``k``/``v``.
+DLRM parameters are a plain dict on both sides (``dlrm_params_from_jax``).
 
 Takes and gives numpy arrays only (``jax.tree.map(np.asarray, tree)`` on
 the caller's side): this module imports nothing of the JAX package.
@@ -146,3 +147,26 @@ def caches_to_jax(caches: List[Dict[str, torch.Tensor]],
     for bf16 caches)."""
     return _stack_layers([{name: _host(t) for name, t in c.items()}
                           for c in caches], cfg)
+
+
+def dlrm_params_from_jax(np_tree: Dict[str, Any],
+                         device="cuda") -> Dict[str, Any]:
+    """The JAX package's ``init_dlrm`` tree (as numpy) -> the port's DLRM
+    parameters on ``device``: ``slab`` (R,D) f32, or ``slab_q`` with
+    ``q8`` (R,D) or ``q4`` (R,D/2) uint8 and fp16 ``scale``/``bias``
+    (R,), plus the ``bottom`` and ``top`` MLP layers (``w``, ``b``).
+    Bit-identical values."""
+    if ("slab" in np_tree) == ("slab_q" in np_tree):
+        raise ValueError("a DLRM tree holds exactly one of slab, slab_q")
+    out: Dict[str, Any] = {}
+    if "slab" in np_tree:
+        out["slab"] = _to_torch(np_tree["slab"]).to(device)
+    else:
+        sq = np_tree["slab_q"]
+        qkey = "q8" if "q8" in sq else "q4"
+        out["slab_q"] = {k: _to_torch(sq[k]).to(device)
+                         for k in (qkey, "scale", "bias")}
+    for side in ("bottom", "top"):
+        out[side] = [{k: _to_torch(layer[k]).to(device) for k in ("w", "b")}
+                     for layer in np_tree[side]]
+    return out

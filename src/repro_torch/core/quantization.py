@@ -1,9 +1,8 @@
-"""Paper §V dense quantization on torch (counterpart of the dense w8a8
-and workflow parts of ``repro/core/quantization.py``): per-channel int8
-weights, dynamic per-row int8 activations, the quantized dense apply, and
-the iterative accuracy-driven workflow (quantize every site; fall the
-worst back while the end metric is over budget). The row-wise embedding
-quantizers come with the DLRM slice.
+"""Paper §V quantization on torch (counterpart of
+``repro/core/quantization.py``): row-wise int8/int4 embedding tables,
+per-channel int8 weights, dynamic per-row int8 activations, the quantized
+dense apply, and the iterative accuracy-driven workflow (quantize every
+site; fall the worst back while the end metric is over budget).
 
 A quantized dense weight is a ``QuantDense`` module holding the JAX
 leaf's two arrays as buffers: ``q8`` (in, out) int8 and ``scale`` (out,)
@@ -21,6 +20,68 @@ from torch import nn
 
 from repro_torch.kernels.w8a8.ops import kernel_layout, w8a8_matmul
 
+
+# --------------------------------------------------------------------------
+# Row-wise embedding-table quantization (paper: int8 + int4 mixed [18]), in
+# the JAX package's order: the f32 scale divides, then scale and bias are
+# stored in fp16.
+# --------------------------------------------------------------------------
+
+def _row_range(table: torch.Tensor, levels: float):
+    t = table.to(torch.float32)
+    mn = t.amin(dim=1, keepdim=True)
+    mx = t.amax(dim=1, keepdim=True)
+    scale = torch.clamp(mx - mn, min=1e-8) / levels
+    q = torch.clamp(torch.round((t - mn) / scale), 0, levels)
+    return q.to(torch.uint8), scale[:, 0].to(torch.float16), \
+        mn[:, 0].to(torch.float16)
+
+
+def quantize_rows_int8(table: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Asymmetric row-wise int8: q = round((x - min) / scale), scale/bias
+    fp16 per row (FBGEMM fused-rowwise layout)."""
+    q, scale, bias = _row_range(table, 255.0)
+    return {"q8": q, "scale": scale, "bias": bias}
+
+
+def dequantize_rows_int8(qt: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return (qt["q8"].to(torch.float32)
+            * qt["scale"].to(torch.float32)[:, None]
+            + qt["bias"].to(torch.float32)[:, None])
+
+
+def quantize_rows_int4(table: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Row-wise int4, two values packed per uint8 (even dim required): the
+    low nibble holds the even column."""
+    if table.shape[1] % 2:
+        raise ValueError("int4 packing needs even embed dim")
+    q, scale, bias = _row_range(table, 15.0)
+    return {"q4": q[:, 0::2] | (q[:, 1::2] << 4), "scale": scale,
+            "bias": bias}
+
+
+def dequantize_rows_int4(qt: Dict[str, torch.Tensor]) -> torch.Tensor:
+    q4 = qt["q4"]
+    q = torch.stack([q4 & 0xF, q4 >> 4], dim=-1).reshape(q4.shape[0], -1)
+    return (q.to(torch.float32) * qt["scale"].to(torch.float32)[:, None]
+            + qt["bias"].to(torch.float32)[:, None])
+
+
+def quantize_rows(table: torch.Tensor, bits: int) -> Dict[str, torch.Tensor]:
+    if bits == 8:
+        return quantize_rows_int8(table)
+    if bits == 4:
+        return quantize_rows_int4(table)
+    raise ValueError(f"unsupported embedding bits {bits}")
+
+
+def dequantize_rows(qt: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return (dequantize_rows_int8 if "q8" in qt else dequantize_rows_int4)(qt)
+
+
+# --------------------------------------------------------------------------
+# Dense w8a8
+# --------------------------------------------------------------------------
 
 class QuantDense(nn.Module):
     """A dense projection replaced by its w8a8 form."""

@@ -4,6 +4,10 @@ batched prefill on the card (``--device cpu`` runs the plain versions of
 the kernels on the host). ``--smoke`` (the default) serves the reduced
 config; ``--full-config`` the published widths. The request trace is the
 JAX launcher's: the same seeded generator, lengths and priorities.
+``--arch dlrm`` serves the 4-stage DLRM pipeline on a row-wise int8 slab
+(batches of 64 from ``dlrm_batches``, a full-trace warm-up first);
+``--full-config`` is ``PAPER_COMPLEX`` with halved tables on one shard, the
+size one 80 GB card holds.
 ``--precision w8a8`` serves the calibrated int8 path (the §V build step,
 then the w8a8 kernel for every int8 site); ``--verify-quant`` replays the
 trace on an unquantized engine and exits non-zero when the greedy-token
@@ -17,10 +21,13 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.configs import dlrm_paper, get_config, reduce_for_smoke
 from repro_torch.core.metrics import token_agreement
+from repro_torch.data.synthetic import dlrm_batches
 from repro_torch.kernels import _build
+from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import model as model_mod
+from repro_torch.serving.dlrm_engine import DLRMEngine
 from repro_torch.serving.engine import InferenceEngine, Request
 
 # the JAX launcher's greedy-token-agreement guardrail for w8a8 serving
@@ -86,9 +93,38 @@ def serve_lm(args):
     return tel
 
 
+def serve_dlrm(args):
+    cfg = dlrm_paper.reduce_for_smoke(dlrm_paper.PAPER_COMPLEX) if args.smoke \
+        else dlrm_paper.PAPER_COMPLEX_ONE_CARD
+    if torch.device(args.device).type == "cuda":
+        t0 = time.perf_counter()
+        _build.build_all()
+        print(f"CUDA kernels built in {time.perf_counter() - t0:.1f}s")
+    asn = dlrm_mod.make_assignment(cfg, 1)
+    gen = torch.Generator(device=args.device).manual_seed(0)
+    params = dlrm_mod.init_dlrm(cfg, asn, gen, args.device, quantize=True)
+    eng = DLRMEngine(cfg, asn, params, policy=args.policy,
+                     slo_ms=args.slo_ms, max_queue=args.max_queue,
+                     device=args.device)
+    batches = [next(dlrm_batches(cfg, 64, seed=s))
+               for s in range(args.requests)]
+    # full-trace warm-up (first calls of every stage), excluded from
+    # latency + transfer stats, as the JAX launcher does
+    eng.serve(batches, pipelined=True, warm=True)
+    _, stats = eng.serve(batches, pipelined=True)
+    tel = eng.telemetry
+    print(f"served {stats.num_requests} batches x64 on {args.device} "
+          f"({stats.qps * 64:.0f} items/s); transfers saved "
+          f"{eng.transfer_stats.bytes_saved_frac*100:.0f}% bytes")
+    print(tel.report())
+    return tel
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("--arch", default="deepseek-7b",
+                    help="deepseek-7b, or dlrm for the recommendation "
+                         "pipeline")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
@@ -109,7 +145,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, or cpu for the "
                          "kernels' plain versions)")
-    return serve_lm(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    if args.arch == "dlrm":
+        return serve_dlrm(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

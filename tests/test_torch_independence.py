@@ -52,6 +52,15 @@ def test_module_list_covers_the_quantized_path():
             "repro_torch.models.quantize"} <= set(_modules())
 
 
+def test_module_list_covers_the_dlrm_path():
+    """The blocked-import check walks the DLRM slice's modules too."""
+    assert {"repro_torch.configs.dlrm_paper", "repro_torch.core.partitioner",
+            "repro_torch.core.transfer", "repro_torch.core.pipeline",
+            "repro_torch.data.synthetic", "repro_torch.kernels.sls.ops",
+            "repro_torch.kernels.sls.ref", "repro_torch.models.dlrm",
+            "repro_torch.serving.dlrm_engine"} <= set(_modules())
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_neither_jax_nor_repro(path):

@@ -28,6 +28,7 @@ from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.kernels.sls import ops as sls_ops
 from repro_torch.kernels.w8a8 import ops as w8a8_ops
 from repro_torch.kernels.decode_attn.ops import decode_attn, decode_attn_int8
 from repro_torch.kernels.decode_attn.ref import (decode_attn_int8_ref,
@@ -177,7 +178,9 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
 
 # the entry points whose wrapper module declares them under another name
 # than ARGTYPES
-OTHER_ARGTYPES = {"decode_attn_int8_fwd": "ARGTYPES_INT8"}
+OTHER_ARGTYPES = {"decode_attn_int8_fwd": "ARGTYPES_INT8",
+                  "sls_fp_fwd": "ARGTYPES_FP", "sls_int8_fwd": "ARGTYPES_Q",
+                  "sls_int4_fwd": "ARGTYPES_Q"}
 
 
 @pytest.mark.parametrize("ops,entry,source", [
@@ -185,6 +188,9 @@ OTHER_ARGTYPES = {"decode_attn_int8_fwd": "ARGTYPES_INT8"}
     (decode_ops, "decode_attn_fwd", "decode.cu"),
     (decode_ops, "decode_attn_int8_fwd", "decode_int8.cu"),
     (w8a8_ops, "w8a8_matmul_fwd", "w8a8.cu"),
+    (sls_ops, "sls_fp_fwd", "sls.cu"),
+    (sls_ops, "sls_int8_fwd", "sls.cu"),
+    (sls_ops, "sls_int4_fwd", "sls.cu"),
 ])
 def test_ctypes_signature_matches_c_entry(ops, entry, source):
     """The wrapper declares one ctypes type per parameter of the C entry
@@ -203,7 +209,7 @@ def test_ctypes_signature_matches_c_entry(ops, entry, source):
 def test_every_csrc_source_is_covered():
     """Every kernel source has a parse check above and builds on its own."""
     assert sorted(_build.sources()) == ["decode", "decode_int8", "flash",
-                                        "w8a8"]
+                                        "sls", "w8a8"]
 
 
 def test_wrappers_reject_bad_inputs():

@@ -1,7 +1,9 @@
 """The port's copies of the JAX package's jax-free serving modules
-(scheduler, telemetry, slot-state manager) and of the quantization
-workflow and token agreement stay copies: the same code, and the same
-decisions on the same seeded operation sequences."""
+(scheduler, telemetry, slot-state manager), of the quantization workflow
+and token agreement, and of the DLRM slice's jax-free parts (config,
+partitioner, click-log batches, transfer bookkeeping, pipeline helpers)
+stay copies: the same code, and the same decisions on the same seeded
+operation sequences."""
 import ast
 import inspect
 import textwrap
@@ -10,13 +12,23 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import dlrm_paper as jax_dlrm_cfg
 from repro.core import metrics as jax_metrics
+from repro.core import partitioner as jax_part
+from repro.core import pipeline as jax_pipe
 from repro.core import quantization as jax_quant
+from repro.core import transfer as jax_transfer
+from repro.data import synthetic as jax_synth
 from repro.serving import scheduler as jax_sched
 from repro.serving import state as jax_state
 from repro.serving import telemetry as jax_tel
+from repro_torch.configs import dlrm_paper as dlrm_cfg
 from repro_torch.core import metrics
+from repro_torch.core import partitioner as part
+from repro_torch.core import pipeline as pipe
 from repro_torch.core import quantization as quant
+from repro_torch.core import transfer
+from repro_torch.data import synthetic as synth
 from repro_torch.serving import scheduler as sched
 from repro_torch.serving import state
 from repro_torch.serving import telemetry as tel
@@ -33,6 +45,17 @@ COPIED = [
     (jax_quant, quant, "QuantWorkflowResult"),
     (jax_quant, quant, "quantization_workflow"),
     (jax_metrics, metrics, "token_agreement"),
+    (jax_dlrm_cfg, dlrm_cfg, "DLRMConfig"),
+    (jax_dlrm_cfg, dlrm_cfg, "_powerlaw_rows"),
+    (jax_dlrm_cfg, dlrm_cfg, "reduce_for_smoke"),
+    (jax_part, part, "TableAssignment"), (jax_part, part, "_greedy_assign"),
+    (jax_part, part, "partition_tables"),
+    (jax_synth, synth, "zipf_indices"), (jax_synth, synth, "dlrm_batches"),
+    (jax_transfer, transfer, "TransferStats"),
+    (jax_transfer, transfer, "SparseBatch"),
+    (jax_transfer, transfer, "pack_sparse_inputs"),
+    (jax_pipe, pipe, "PipelineStats"), (jax_pipe, pipe, "TwoStagePipeline"),
+    (jax_pipe, pipe, "steady_state_speedup"),
 ]
 # nested functions written in torch in the copy (the workflow's default
 # per-layer error); test_quantization_workflow_decides_like_the_original
