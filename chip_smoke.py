@@ -8,7 +8,9 @@ result line):
 1. build   — compile every CUDA kernel of ``src/repro_torch/csrc`` (one
              ``nvcc`` per source, in parallel): flash prefill, flash
              decode, int8-KV decode, the w8a8 GEMM and the SLS kernels
-             (fp32, int8, int4).
+             (fp32, int8, int4); then ``cuobjdump -sass`` of the flash and
+             w8a8 libraries must show ``wgmma`` (GMMA) and TMA load
+             (UTMALDG) instructions.
 2. kernels — each kernel against its plain PyTorch version on the card, on
              the JAX package's kernel test cases plus the serving path's
              shapes, with the error, the kernel's time, the plain version's
@@ -23,6 +25,14 @@ result line):
              kernels' main shape is the DLRM batch (6144 bags of at most
              128 lookups, D 96, lengths from ``dlrm_batches``) on a table
              far larger than L2; ``embedding_bag`` is the fp32 yardstick.
+             The tensor-core paths are held at their edges: bf16 flash
+             with GQA at hd 128, S not a multiple of the 128-row tile, an
+             empty row, a window and a softcap; w8a8 at M = 17, 65 and
+             2047, a partial K and a partial N tile, and the decode
+             (M <= 16) and fallback (K % 16 != 0) routes; the sweeps add
+             tile-edge sizes. One ``torch.profiler`` window then reads the
+             device time of flash, SDPA, the three M=2048 w8a8 shapes and
+             ``torch._int_mm`` at the main shapes.
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``: 8 requests, 32 new
              tokens each. The kernels' launch counters are zeroed just
@@ -199,11 +209,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sass_counts(lib) -> dict:
+    """Lines of ``cuobjdump -sass`` of a built library that hold a
+    ``wgmma`` (GMMA) or a TMA tile load (UTMALDG)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    lines = sass.splitlines()
+    return {op: sum(op in line for line in lines) for op in ("GMMA", "UTMALDG")}
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {len(libs)} kernel libraries ({', '.join(sorted(libs))}) "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in ("flash", "w8a8"):
+        counts = sass_counts(libs[name])
+        print(f"build: {name} SASS holds {counts['GMMA']} GMMA and "
+              f"{counts['UTMALDG']} UTMALDG instructions", flush=True)
+        if not all(counts.values()):
+            raise AssertionError(f"{name}: no wgmma or no TMA load in its "
+                                 f"library ({counts})")
 
 
 # ---- kernels ------------------------------------------------------------
@@ -251,11 +278,18 @@ def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, **kw):
                        - want.float()).abs().max().item()
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=m4))
-    return dict(max_abs_err=err, library_err=library_err,
-                ms=time_ms(lambda: flash_attn(q, k, v, lens_t, **kw)),
+    def call():
+        return flash_attn(q, k, v, lens_t, **kw)
+
+    def library_call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+
+    return dict(max_abs_err=err, library_err=library_err, ms=time_ms(call),
                 plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, lens_t,
                                                              **kw)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                call=call,
+                library_call=None if library_ms is None else library_call)
 
 
 def decode_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
@@ -348,7 +382,7 @@ def w8a8_case(name, gen, M, K, N, row_scale=True):
     flops = 2.0 * M * K * N
     nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
     bound_ms, bound_by = bound(flops, nbytes, torch.int8)
-    library_ms = library_err = None
+    library_ms = library_err = lib_fn = None
     try:
         lib_fn, lib_out = _int_mm_yardstick(xq, wq, xs, ws)
     except RuntimeError as e:           # a yardstick only: note and go on
@@ -357,10 +391,13 @@ def w8a8_case(name, gen, M, K, N, row_scale=True):
     else:
         library_err = (lib_out - want).abs().max().item()
         library_ms = time_ms(lib_fn)
-    return dict(max_abs_err=err, library_err=library_err,
-                ms=time_ms(lambda: w8a8_matmul(xq, wq, xs, ws)),
+    def call():
+        return w8a8_matmul(xq, wq, xs, ws)
+
+    return dict(max_abs_err=err, library_err=library_err, ms=time_ms(call),
                 plain_ms=time_ms(lambda: w8a8_ref(xq, wq, xs, ws)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                call=call, library_call=lib_fn)
 
 
 def _int8_cache(gen, B, S, K, hd):
@@ -569,16 +606,30 @@ def phase_kernels() -> dict:
         "noncausal": (2, 64, 4, 4, 32, f32, None, {"causal": False}),
         "odd_seq_96": (1, 96, 4, 4, 32, f32, None, {}),
         "bf16": (2, 128, 8, 2, 64, bf16, None, {}),
+        # the tensor-core kernel's edges: GQA at hd 128, S past the 128-row
+        # tile, an empty row, a window, a softcap, hd 64, 32 heads to a kv head
+        "bf16_gqa_B2_S256_H32_K8_hd128": (2, 256, 32, 8, 128, bf16, None, {}),
+        "bf16_S300_hd128": (2, 300, 8, 8, 128, bf16, None, {}),
+        "bf16_lens0_hd128": (2, 300, 8, 8, 128, bf16, [0, 211], {}),
+        "bf16_window128_hd128": (2, 300, 8, 8, 128, bf16, None,
+                                 {"window": 128}),
+        "bf16_softcap30_hd128": (2, 300, 8, 4, 128, bf16, None,
+                                 {"softcap": 30.0}),
+        "bf16_hd64_S300_lens": (2, 300, 8, 2, 64, bf16, [300, 129], {}),
+        "bf16_mqa_G32_hd128": (1, 256, 32, 1, 128, bf16, None, {}),
         # deepseek-7b prefill: 4 prompts of a 512 bucket, right-padded
         "main_B4_S512_H32_hd128": (4, 512, 32, 32, 128, bf16,
                                    [512, 300, 77, 1], {}),
     }
+    device_fns = {}
     main = {}
     for name, (B, S, H, K, hd, dt, lens, kw) in flash_cases.items():
         r = flash_case(name, gen, B, S, H, K, hd, dt, lens, **kw)
         _show("flash_attn", name, r)
         if name.startswith("main"):
             main["flash_attn"] = r
+            device_fns["flash_attn " + name] = r["call"]
+            device_fns["SDPA " + name] = r["library_call"]
     # the JAX package's cases (repro/kernels/decode_attn/ops.py), scalar
     # pos broadcast to every row, then deepseek-7b decode at per-row pos
     decode_cases = {
@@ -610,11 +661,23 @@ def phase_kernels() -> dict:
     for M in (4, 2048):
         for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
             w8a8_cases[f"main_M{M}_K{K}_N{N}"] = (M, K, N, True)
+    # the tensor-core kernel's edges (ragged M, a partial K tile, a partial
+    # N tile) and the other two routes (M <= 16; K % 16 != 0)
+    for M in (17, 65, 2047):
+        w8a8_cases[f"M{M}_K4096_N11008"] = (M, 4096, 11008, True)
+    w8a8_cases.update({"M300_K4112_N4096": (300, 4112, 4096, True),
+                       "M300_K4096_N4104": (300, 4096, 4104, True),
+                       "decode_M4_K4112_N4104": (4, 4112, 4104, True),
+                       "fallback_M300_K4100_N4104": (300, 4100, 4104, True)})
     for name, (M, K, N, row) in w8a8_cases.items():
         r = w8a8_case(name, gen, M, K, N, row)
         _show("w8a8_matmul", name, r)
         if name == "main_M4_K4096_N11008":
             main["w8a8_matmul"] = r
+        if name.startswith("main_M2048"):
+            device_fns["w8a8_matmul " + name] = r["call"]
+            device_fns["torch._int_mm + scales " + name] = r["library_call"]
+    device_window(device_fns)
     # the JAX package's int8 cases (repro/kernels/decode_attn/ops.py),
     # scalar pos broadcast, then deepseek-7b decode over an int8 cache
     decode_int8_cases = {
@@ -636,11 +699,53 @@ def phase_kernels() -> dict:
     return main
 
 
+def device_window(fns: dict, iters: int = 10) -> None:
+    """Device time of one call of each of ``fns`` (a name -> callable; None
+    is skipped), from one ``torch.profiler`` window. Each call follows an
+    L2 flush and sits between two marker kernels (``torch.cuda._sleep``'s
+    ``spin_kernel``); its time is the sum of the device activities between
+    its two markers. (Kernels launched through ctypes carry no PyTorch op
+    to attribute them to, so the markers, not ``record_function``, say
+    which call a kernel belongs to.)"""
+    fns = {k: f for k, f in fns.items() if f is not None}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in fns.values():
+            for _ in range(iters):
+                flush.zero_()
+                torch.cuda._sleep(100)
+                fn()
+                torch.cuda._sleep(100)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    if len(marks) != 2 * iters * len(fns):
+        print(f"device time per call: not measured ({len(marks)} marker "
+              f"kernels in the trace, {2 * iters * len(fns)} launched)",
+              flush=True)
+        return
+    times = [sum(e.time_range.elapsed_us() for e in events[a + 1:b]) / 1e3
+             for a, b in zip(marks[::2], marks[1::2])]
+    print("device time per call (one torch.profiler window, after an L2 "
+          "flush each): " + "; ".join(
+              f"{name} {sum(times[i * iters:(i + 1) * iters]) / iters:.4f} ms"
+              for i, name in enumerate(fns)), flush=True)
+
+
 def sweep(seed: int, n: int) -> None:
     """``n`` random cases per kernel, outside the JAX package's cases:
     T != S, empty rows (lens or pos 0), every head_dim and group size the
-    kernels take, both input types, masks and softcap mixed; each against
-    its plain version. No timing."""
+    kernels take, both input types (bf16 at hd 64 and 128 most often: the
+    tensor-core path), S and T at its tile edges half the time, masks and
+    softcap mixed; each against its plain version. No timing."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=DEV).manual_seed(seed)
 
@@ -650,9 +755,12 @@ def sweep(seed: int, n: int) -> None:
     worst = {"flash_attn": 0.0, "decode_attn": 0.0}
     for i in range(n):
         B, K, G = int(rng.integers(1, 4)), pick([1, 2, 4]), pick([1, 2, 4, 8])
-        hd, dt = pick([16, 32, 64, 128]), pick([torch.float32, torch.bfloat16])
+        hd = pick([16, 32, 64, 128, 64, 128])
+        dt = pick([torch.float32, torch.bfloat16, torch.bfloat16])
         cap = pick([0.0, 0.0, 30.0])
-        S, T = int(rng.integers(1, 300)), int(rng.integers(1, 300))
+        # half the sizes at the tensor-core kernel's 128-row / 128-key edges
+        S, T = (pick([int(rng.integers(1, 300)),
+                      pick([127, 128, 129, 255, 256, 257])]) for _ in range(2))
         kw = dict(causal=bool(rng.integers(0, 2)), window=pick([0, 0, 16, 70]),
                   softcap=cap)
         q = _randn(gen, (B, S, K * G, hd), dt)
@@ -678,9 +786,10 @@ def sweep(seed: int, n: int) -> None:
 
 
 def sweep_int8(seed: int, n: int) -> None:
-    """``n`` random cases per int8 kernel: w8a8 at ragged M, K and N (K
-    not a multiple of 16 takes the kernel's byte-wise loader), scalar and
-    per-row scales, checked bit for bit; int8-KV decode at every head_dim
+    """``n`` random cases per int8 kernel: w8a8 at ragged M, K and N, at
+    the tensor-core kernel's 128-row, 256-column and 128-byte K tile edges
+    (K not a multiple of 16 takes the fallback's byte-wise loader), scalar
+    and per-row scales, checked bit for bit; int8-KV decode at every head_dim
     and group size, both query types, empty rows and softcap mixed. No
     timing."""
     rng = np.random.default_rng(seed)
@@ -691,10 +800,12 @@ def sweep_int8(seed: int, n: int) -> None:
 
     worst = {"w8a8_matmul": 0.0, "decode_attn_int8": 0.0}
     for i in range(n):
-        M = pick([1, 3, 4, 16, 17, 64, int(rng.integers(1, 600))])
-        K = (int(rng.integers(1, 40)) * 16 if rng.integers(0, 2)
-             else int(rng.integers(1, 700)))
-        N, row = int(rng.integers(1, 400)), bool(rng.integers(0, 2))
+        M = pick([1, 3, 4, 16, 17, 64, 127, 128, 129, 257,
+                  int(rng.integers(1, 600))])
+        K = pick([int(rng.integers(1, 40)) * 16,
+                  pick([112, 128, 144, 256, 272]), int(rng.integers(1, 700))])
+        N = pick([int(rng.integers(1, 400)), pick([255, 256, 257, 511, 513])])
+        row = bool(rng.integers(0, 2))
         xq, wq, xs, ws = _w8a8_inputs(gen, M, K, N, row)
         err = check_w8a8(f"sweep {i}: M{M} K{K} N{N} per-row {row}",
                          w8a8_matmul(xq, wq, xs, ws),

@@ -7,33 +7,43 @@
 // (N,) f32 per-column weight scales, out (M,N) f32. The int32 sum is exact, so the
 // result equals the plain version bit for bit. One layout difference: the weight is
 // passed as its (N,K) row-major storage (the logical (K,N) weight stored
-// column-major), so that both operands are K-contiguous, the layout the tensor
-// cores' `row.col` product takes. The TPU wrapper zero-pads ragged M, N and K to its
-// tile grid; this kernel masks the edges itself (zero-filled loads, guarded stores).
+// column-major), so that both operands are K-contiguous, the only layout the int8
+// tensor-core products take. The TPU wrapper zero-pads ragged M, N and K to its tile
+// grid; this kernel masks the edges itself (zero-filled loads, guarded stores).
 //
-// Design. Each block of 4 warps owns a BM x BN output tile and walks K in BK-byte
-// tiles through a STAGES-deep ring in shared memory filled by `cp.async` (16-byte
-// copies, zero-fill past the edges; a plain byte-wise loader when K is not a
-// multiple of 16). Warps issue `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`
-// on the int8 tensor cores with fragments read from shared memory as 32-bit words
-// (rows padded by 16 bytes, so the 8 rows a fragment load touches hit 8 distinct
-// bank groups). Two shapes of block:
-//   - M <= 16 (decode rows): a 16 x 16 tile, the 4 warps split each 128-byte K tile
-//     between them and their int32 partial sums are added in shared memory (exact,
-//     so the order does not matter). Small tiles give N/16 blocks, enough to keep
-//     the weight stream in flight on every SM.
-//   - M > 16 (prefill): a 64 x 128 tile, 2 x 2 warps of 32 x 64 each.
-// The epilogue goes through shared memory so that the f32 stores are coalesced.
+// Three kernels, chosen up front by shape in `w8a8_matmul_fwd` (never a retry):
+//   - M > 16 and K % 16 == 0 with 16-byte aligned operands (prefill): `w8a8_kernel_tma`.
+//     A 128 x 256 output tile per block of three warpgroups. Warpgroup 0 is the
+//     producer: one thread keeps a 4-stage ring of 128-byte K tiles (128 rows of xq,
+//     256 rows of the weight) filled by TMA loads into 128B-swizzled shared memory, each
+//     stage completing on its "full" mbarrier; the warpgroup gives its registers back
+//     (`setmaxnreg`). Warpgroups 1 and 2 each own 64 rows: per stage they issue four
+//     `wgmma.m64n256k32.s32.s8.s8` from shared memory (int32 sums in 128 registers a
+//     thread), keep one stage's products in flight, and release a stage on its "empty"
+//     mbarrier when its products are done. Ragged M, N and K read zeros (TMA fills
+//     outside the tensor). The epilogue stages the int32 tile in the freed ring and
+//     stores f32 rows with 16-byte stores.
+//   - M <= 16 (decode rows): `w8a8_kernel` with a 16 x 16 tile: the 4 warps split each
+//     128-byte K tile between them (`mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`,
+//     4-stage `cp.async` ring) and add their int32 partial sums in shared memory (exact,
+//     so the order does not matter). Small tiles give N/16 blocks, enough to keep the
+//     weight stream in flight on every SM.
+//   - M > 16 with a K or an alignment TMA cannot describe: `w8a8_kernel` with a 64 x 128
+//     tile (2 x 2 warps of 32 x 64) and a byte-wise loader.
+// Every path computes (float(acc) * xs[m]) * ws[n] in that order.
 //
 // Bound on this card. Decode (M = 4): memory. The weight is read once, K*N bytes,
 // against 2*M*K*N int operations: 8 operations per byte, far below the ~590 a byte
 // at which the int8 tensor cores (1,979 TOP/s) would bound it at 3.35 TB/s; the
 // least time is K*N / 3.35 TB/s. Prefill (M = 2048): operations, 2*M*K*N at
-// 1,979 TOP/s. Left for later: `wgmma` with TMA loads for the prefill shape, and
-// split-K across blocks for decode.
+// 1,979 TOP/s, which only `wgmma` reaches (`mma.sync` runs well below it on Hopper).
+// Left for later: split-K across blocks for decode; a persistent prefill kernel whose
+// epilogue overlaps the next tile's loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -204,16 +214,143 @@ w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
   }
 }
 
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES>
-cudaError_t launch(bool vec, const int8_t* x, const int8_t* wt, const float* xs,
-                   const float* ws, float* out, int M, int N, int K, cudaStream_t st) {
+template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES, bool VEC>
+cudaError_t launch(const int8_t* x, const int8_t* wt, const float* xs, const float* ws,
+                   float* out, int M, int N, int K, cudaStream_t st) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (vec)
-    w8a8_kernel<BM, BN, BK, WM, WN, WK, STAGES, true>
-        <<<grid, kThreads, 0, st>>>(x, wt, xs, ws, out, M, N, K);
-  else
-    w8a8_kernel<BM, BN, BK, WM, WN, WK, STAGES, false>
-        <<<grid, kThreads, 0, st>>>(x, wt, xs, ws, out, M, N, K);
+  w8a8_kernel<BM, BN, BK, WM, WN, WK, STAGES, VEC>
+      <<<grid, kThreads, 0, st>>>(x, wt, xs, ws, out, M, N, K);
+  return cudaGetLastError();
+}
+
+// ---- M > 16: TMA ring and wgmma ---------------------------------------------------
+
+constexpr int kTmaBM = 128, kTmaBN = 256, kTmaBK = 128, kTmaStages = 4;
+constexpr int kTmaThreads = 384;                       // producer + 2 consumer warpgroups
+constexpr int kStageA = kTmaBM * kTmaBK;               // bytes
+constexpr int kStageB = kTmaBN * kTmaBK;
+constexpr int kEpiLd = kTmaBN + 8;                     // int32 row stride of the epilogue
+constexpr size_t kTmaSmem = 1024 + (size_t)kTmaStages * (kStageA + kStageB) +
+                            2 * kTmaStages * sizeof(uint64_t);
+static_assert(2 * 64 * kEpiLd * 4 <= kTmaStages * (kStageA + kStageB), "epilogue fits");
+
+__global__ void __launch_bounds__(kTmaThreads, 1)
+w8a8_kernel_tma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                const float* __restrict__ xs, const float* __restrict__ ws,
+                float* __restrict__ out, int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  int8_t* sA = reinterpret_cast<int8_t*>(smem);          // [stage][128 rows][128 B]
+  int8_t* sB = sA + kTmaStages * kStageA;                 // [stage][256 rows][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sB + kTmaStages * kStageB);
+  uint64_t* empty = full + kTmaStages;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int m0 = blockIdx.y * kTmaBM, n0 = blockIdx.x * kTmaBN;
+  const int nk = (K + kTmaBK - 1) / kTmaBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTmaStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 256);                  // every consumer thread
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kTmaStages;
+        hopper::mbar_wait(&empty[s], ((kt / kTmaStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], kStageA + kStageB);
+        hopper::tma_load_2d(sA + s * kStageA, &xmap, &full[s], kt * kTmaBK, m0);
+        hopper::tma_load_2d(sB + s * kStageB, &wmap, &full[s], kt * kTmaBK, n0);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c owns rows c*64 .. c*64+63 of the tile
+  hopper::setmaxnreg_inc<232>();
+  const int c = wg - 1;
+  int acc[kTmaBN / 2];
+#pragma unroll
+  for (int i = 0; i < kTmaBN / 2; ++i) acc[i] = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kTmaStages;
+    hopper::mbar_wait(&full[s], (kt / kTmaStages) & 1);
+    const int8_t* a = sA + s * kStageA + c * 64 * kTmaBK;
+    const int8_t* b = sB + s * kStageB;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTmaBK / 32; ++kk)
+      hopper::wgmma_s8_ss_n256(acc, hopper::desc_sw128(a + kk * 32, 16, 1024),
+                               hopper::desc_sw128(b + kk * 32, 16, 1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (kt > 0) hopper::mbar_arrive(&empty[(kt - 1) % kTmaStages]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // epilogue: both consumers are done with the ring; stage the int32 tile there
+  hopper::named_sync(1, 256);
+  hopper::fence_proxy_async();
+  int* tile = reinterpret_cast<int*>(smem) + c * 64 * kEpiLd;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < kTmaBN / 8; ++j) {
+    int* p = tile + (warp * 16 + g) * kEpiLd + j * 8 + t * 2;
+    p[0] = acc[4 * j];
+    p[1] = acc[4 * j + 1];
+    p[8 * kEpiLd] = acc[4 * j + 2];
+    p[8 * kEpiLd + 1] = acc[4 * j + 3];
+  }
+  hopper::named_sync(2 + c, 128);
+  const bool vec_out = N % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  for (int idx = tid; idx < 64 * (kTmaBN / 4); idx += 128) {
+    const int row = idx / (kTmaBN / 4), c4 = idx % (kTmaBN / 4);
+    const int m = m0 + c * 64 + row, n = n0 + c4 * 4;
+    if (m >= M || n >= N) continue;
+    const int4 v = *reinterpret_cast<const int4*>(tile + row * kEpiLd + c4 * 4);
+    const float sx = xs[m];
+    float* o = out + (size_t)m * N + n;
+    // (float(acc) * xs) * ws, in the plain version's order
+    if (vec_out && n + 3 < N) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(__int2float_rn(v.x) * sx * ws[n], __int2float_rn(v.y) * sx * ws[n + 1],
+                      __int2float_rn(v.z) * sx * ws[n + 2], __int2float_rn(v.w) * sx * ws[n + 3]);
+    } else {
+      const int e4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n + e < N) o[e] = __int2float_rn(e4[e]) * sx * ws[n + e];
+    }
+  }
+}
+
+cudaError_t launch_tma(const int8_t* x, const int8_t* wt, const float* xs, const float* ws,
+                       float* out, int M, int N, int K, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        w8a8_kernel_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTmaSmem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  CUtensorMap xmap, wmap;
+  cudaError_t e = hopper::make_map<2>(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, x,
+                                      {(uint64_t)K, (uint64_t)M}, {(uint64_t)K},
+                                      {(uint32_t)kTmaBK, (uint32_t)kTmaBM});
+  if (e != cudaSuccess) return e;
+  e = hopper::make_map<2>(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, wt,
+                          {(uint64_t)K, (uint64_t)N}, {(uint64_t)K},
+                          {(uint32_t)kTmaBK, (uint32_t)kTmaBN});
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kTmaBN - 1) / kTmaBN, (M + kTmaBM - 1) / kTmaBM);
+  w8a8_kernel_tma<<<grid, kTmaThreads, kTmaSmem, st>>>(xmap, wmap, xs, ws, out, M, N, K);
   return cudaGetLastError();
 }
 
@@ -235,10 +372,14 @@ int w8a8_matmul_fwd(const void* xq, const void* wq_t, const void* xs, const void
   const float* b = (const float*)ws;
   float* o = (float*)out;
   cudaError_t e;
-  if (M <= 16)
-    e = launch<16, 16, 128, 1, 1, 4, 4>(vec, x, wt, a, b, o, M, N, K, st);
+  if (M <= 16 && vec)
+    e = launch<16, 16, 128, 1, 1, 4, 4, true>(x, wt, a, b, o, M, N, K, st);
+  else if (M <= 16)
+    e = launch<16, 16, 128, 1, 1, 4, 4, false>(x, wt, a, b, o, M, N, K, st);
+  else if (vec)  // TMA describes it: 16-byte row strides and aligned bases
+    e = launch_tma(x, wt, a, b, o, M, N, K, st);
   else
-    e = launch<64, 128, 64, 2, 2, 1, 3>(vec, x, wt, a, b, o, M, N, K, st);
+    e = launch<64, 128, 64, 2, 2, 1, 3, false>(x, wt, a, b, o, M, N, K, st);
   return (int)e;
 }
 

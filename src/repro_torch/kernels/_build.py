@@ -7,9 +7,13 @@ Every ``src/repro_torch/csrc/<name>.cu`` compiles on its own into
          -Xcompiler -fPIC
 
 The sources have a plain C interface (no PyTorch headers), so a build takes
-seconds. The library name carries a hash of its source, so an edited
-source rebuilds and a stale library is never loaded. Nothing is built when
-this module is imported: ``build_all`` (or the first ``load``) does it,
+seconds. The library name carries a hash of its source, of the shared
+headers in ``csrc/*.cuh`` (``hopper.cuh``: the TMA, mbarrier and wgmma
+helpers) and of the flags, so an edited source or header rebuilds and a
+stale library is never loaded. The tensor-core kernels fetch the CUDA
+driver API's ``cuTensorMapEncodeTiled`` through the CUDA runtime at run
+time, so no library links ``libcuda``. Nothing is built when this module
+is imported: ``build_all`` (or the first ``load``) does it,
 starting one ``nvcc`` per source at once and waiting for all of them.
 """
 from __future__ import annotations
@@ -47,11 +51,19 @@ def _nvcc() -> str:
                        f"({cuda_home}); the CUDA kernels cannot be built")
 
 
+def headers() -> List[Path]:
+    """The shared headers (``csrc/*.cuh``) any source may include."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def lib_path(name: str) -> Path:
-    src = sources()[name]
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of source ``name``, named by a hash of the source, every
+    header in ``csrc/`` and the flags: an edit to any of them rebuilds."""
+    h = hashlib.sha1(sources()[name].read_bytes())
+    for header in headers():
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: List[str] = None) -> Dict[str, Path]:
