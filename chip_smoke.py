@@ -21,7 +21,13 @@ result line):
              card could take (bytes at 3.35 TB/s or operations at the peak
              rate of the input type, whichever is larger); then a seeded
              sweep of random shapes, masks and types, checked only. The
-             w8a8 GEMM must equal its plain version bit for bit. The SLS
+             w8a8 GEMM must equal its plain version bit for bit. The
+             decode-step kernels are held at their split edges: w8a8 at 1 to
+             16 rows on deepseek-7b's shapes, the reduced configs' K of 64
+             and 128 and K slices that end inside a step; int8-KV decode
+             with pos on and around 64-key chunk boundaries, G 1-8, hd
+             16-128 and a softcap (the int8 sweep draws those edges half
+             the time). The SLS
              kernels' main shape is the DLRM batch (6144 bags of at most
              128 lookups, D 96, lengths from ``dlrm_batches``) on a table
              far larger than L2; ``embedding_bag`` is the fp32 yardstick.
@@ -31,8 +37,9 @@ result line):
              2047, a partial K and a partial N tile, and the decode
              (M <= 16) and fallback (K % 16 != 0) routes; the sweeps add
              tile-edge sizes. One ``torch.profiler`` window then reads the
-             device time of flash, SDPA, the three M=2048 w8a8 shapes and
-             ``torch._int_mm`` at the main shapes.
+             device time of flash, SDPA, bf16 decode, SDPA's decode, the
+             w8a8 GEMM and ``torch._int_mm`` at M=4 and M=2048, and the
+             int8-KV decode at the main shapes.
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``: 8 requests, 32 new
              tokens each. The kernels' launch counters are zeroed just
@@ -44,10 +51,12 @@ result line):
              decode kernels must have run and the bf16 decode kernel not;
              the greedy agreement with phase 3 is printed, not held (the
              logits of random full-width weights are near-flat).
-5. check   — the reduced deepseek-7b config served on the card and on the
-             host (plain versions) from the same weights must agree on the
-             greedy tokens, in bf16-config fp and in w8a8 with an int8 KV
-             cache, and a full-width prefill must give finite hidden states.
+5. check   — the reduced deepseek-7b config (f32, head_dim 16) and a
+             bf16 head_dim-128 one (``reduce_hd128``) served on the card and
+             on the host (plain versions) from the same weights must agree
+             on >= 95% of the greedy tokens, each in its fp type and in w8a8
+             with an int8 KV cache, and a full-width prefill must give
+             finite hidden states.
 6. profile — one full-width prefill call and eight decode steps through
              the model layer, fp and then w8a8 with the int8 KV cache: wall
              time untraced, then the device time of one ``torch.profiler``
@@ -101,7 +110,7 @@ from repro_torch.core.metrics import token_agreement  # noqa: E402
 from repro_torch.data.synthetic import dlrm_batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
-    decode_attn, decode_attn_int8)
+    decode_attn, decode_attn_int8, int8_chunk_plan)
 from repro_torch.kernels.decode_attn.ref import (  # noqa: E402
     decode_attn_int8_ref, decode_attn_ref)
 from repro_torch.kernels.flash_attn.ops import flash_attn  # noqa: E402
@@ -149,6 +158,7 @@ SLS_PLAIN = {"sls_fp": sls_ref, "sls_int8": sls_int8_ref,
              "sls_int4": sls_int4_ref}
 SLS_TOL = {"sls_fp": 1e-5, "sls_int8": 1e-4, "sls_int4": 1e-4}
 DEV = "cuda"
+SMS = 132                                       # H100 SXM; read in main()
 
 
 L2_FLUSH_BYTES = 2 * 50 * 2**20                   # twice the H100's 50 MB L2
@@ -317,12 +327,18 @@ def decode_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
         library_err = (lib_out[:, :, 0].float() - want).abs().max().item()
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=m4))
-    return dict(max_abs_err=err, library_err=library_err,
-                ms=time_ms(lambda: decode_attn(q, k, v, pos_t,
-                                               softcap=softcap)),
+    def call():
+        return decode_attn(q, k, v, pos_t, softcap=softcap)
+
+    def library_call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+
+    return dict(max_abs_err=err, library_err=library_err, ms=time_ms(call),
                 plain_ms=time_ms(lambda: decode_attn_ref(q, k, v, pos_t,
                                                          softcap=softcap)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                call=call,
+                library_call=None if library_ms is None else library_call)
 
 
 def _int8(gen, shape):
@@ -423,12 +439,15 @@ def decode_int8_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
     nbytes = q.numel() * q.element_size() + K * keys * (2 * hd + 4) \
         + 4 * B * H * hd
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    return dict(max_abs_err=err, library_err=None,
-                ms=time_ms(lambda: decode_attn_int8(q, *cache, pos_t,
-                                                    softcap=softcap)),
+
+    def call():
+        return decode_attn_int8(q, *cache, pos_t, softcap=softcap)
+
+    return dict(max_abs_err=err, library_err=None, ms=time_ms(call),
                 plain_ms=time_ms(lambda: decode_attn_int8_ref(
                     q, *cache, pos_t, softcap=softcap)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                call=call)
 
 
 def _show(kernel, name, r):
@@ -647,6 +666,8 @@ def phase_kernels() -> dict:
         _show("decode_attn", name, r)
         if name.startswith("main"):
             main["decode_attn"] = r
+            device_fns["decode_attn " + name] = r["call"]
+            device_fns["SDPA " + name] = r["library_call"]
     # the JAX package's cases (repro/kernels/w8a8/ops.py), then deepseek-7b's
     # dense projections at decode (4 rows) and prefill (4 x 512 rows)
     w8a8_cases = {
@@ -669,15 +690,27 @@ def phase_kernels() -> dict:
                        "M300_K4096_N4104": (300, 4096, 4104, True),
                        "decode_M4_K4112_N4104": (4, 4112, 4104, True),
                        "fallback_M300_K4100_N4104": (300, 4100, 4104, True)})
+    # the split-K decode-rows kernel: M from 1 to 16 at deepseek-7b's
+    # shapes, the reduced configs' K of 64 and 128 (one slice), K slices
+    # that end inside a 256-byte step (11024 -> 5504 + 5520 bytes, 2752 ->
+    # 1376 + 1376), and the byte-wise M <= 16 route (K % 16 != 0)
+    for M in (1, 8, 16):
+        for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
+            w8a8_cases[f"decode_M{M}_K{K}_N{N}"] = (M, K, N, True)
+    w8a8_cases.update({
+        "decode_M4_K64_N192": (4, 64, 192, True),
+        "decode_M4_K128_N64": (4, 128, 64, True),
+        "decode_M3_K11024_N4096_midstep": (3, 11024, 4096, True),
+        "decode_M16_K2752_N4104_scalar": (16, 2752, 4104, False),
+        "bytewise_M4_K4100_N4104": (4, 4100, 4104, True)})
     for name, (M, K, N, row) in w8a8_cases.items():
         r = w8a8_case(name, gen, M, K, N, row)
         _show("w8a8_matmul", name, r)
         if name == "main_M4_K4096_N11008":
             main["w8a8_matmul"] = r
-        if name.startswith("main_M2048"):
+        if name.startswith("main_M"):
             device_fns["w8a8_matmul " + name] = r["call"]
             device_fns["torch._int_mm + scales " + name] = r["library_call"]
-    device_window(device_fns)
     # the JAX package's int8 cases (repro/kernels/decode_attn/ops.py),
     # scalar pos broadcast, then deepseek-7b decode over an int8 cache
     decode_int8_cases = {
@@ -687,11 +720,29 @@ def phase_kernels() -> dict:
         "main_B4_S1024_H32_hd128": (4, 32, 32, 128, 1024,
                                     [1023, 600, 31, 0], bf16, 0.0),
     }
+    # the split-S kernel's edges (64-key chunks at these sizes): pos 0, one
+    # short of a chunk's end, on it, one past it, and at and past S-1; G
+    # from 1 to 8 and hd from 16 to 128 in both query types; softcap
+    decode_int8_cases.update({
+        "edges_B4_H8_K8_hd128_S1024": (4, 8, 8, 128, 1024, [0, 62, 63, 64],
+                                       bf16, 0.0),
+        "edges_B4_H8_K8_hd64_S1024": (4, 8, 8, 64, 1024,
+                                      [127, 128, 1023, 5000], f32, 0.0),
+        "softcap_B2_H32_K8_hd128_S700": (2, 32, 8, 128, 700, [699, 191],
+                                         bf16, 30.0)})
+    for G, hd, dt in ((1, 16, f32), (2, 32, bf16), (3, 64, f32),
+                      (4, 128, bf16), (5, 16, bf16), (6, 32, f32),
+                      (7, 64, bf16), (8, 128, f32)):
+        decode_int8_cases[f"G{G}_hd{hd}_B2_K2_S300"] = (
+            2, 2 * G, 2, hd, 300, [255, 64 * (G % 4) + G], dt,
+            30.0 if G % 3 == 0 else 0.0)
     for name, (B, H, K, hd, S, pos, dt, cap) in decode_int8_cases.items():
         r = decode_int8_case(name, gen, B, H, K, hd, S, pos, dt, cap)
         _show("decode_attn_int8", name, r)
         if name.startswith("main"):
             main["decode_attn_int8"] = r
+            device_fns["decode_attn_int8 " + name] = r["call"]
+    device_window(device_fns)
     main.update(sls_cases(gen))
     sweep(seed=1, n=32)
     sweep_int8(seed=2, n=32)
@@ -788,10 +839,12 @@ def sweep(seed: int, n: int) -> None:
 def sweep_int8(seed: int, n: int) -> None:
     """``n`` random cases per int8 kernel: w8a8 at ragged M, K and N, at
     the tensor-core kernel's 128-row, 256-column and 128-byte K tile edges
-    (K not a multiple of 16 takes the fallback's byte-wise loader), scalar
-    and per-row scales, checked bit for bit; int8-KV decode at every head_dim
-    and group size, both query types, empty rows and softcap mixed. No
-    timing."""
+    (K not a multiple of 16 takes the fallback's byte-wise loader), M <= 16
+    (the split-K kernel) about half the time, scalar and per-row scales,
+    checked bit for bit; int8-KV decode at every head_dim and group size,
+    both query types, empty rows and softcap mixed, half the time with S
+    over several chunks and each row's pos on or next to a chunk boundary
+    (``int8_chunk_plan``). No timing."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=DEV).manual_seed(seed)
 
@@ -801,7 +854,9 @@ def sweep_int8(seed: int, n: int) -> None:
     worst = {"w8a8_matmul": 0.0, "decode_attn_int8": 0.0}
     for i in range(n):
         M = pick([1, 3, 4, 16, 17, 64, 127, 128, 129, 257,
-                  int(rng.integers(1, 600))])
+                  int(rng.integers(1, 600)), int(rng.integers(1, 17)),
+                  int(rng.integers(1, 17)), int(rng.integers(1, 17)),
+                  int(rng.integers(1, 17)), int(rng.integers(1, 17))])
         K = pick([int(rng.integers(1, 40)) * 16,
                   pick([112, 128, 144, 256, 272]), int(rng.integers(1, 700))])
         N = pick([int(rng.integers(1, 400)), pick([255, 256, 257, 511, 513])])
@@ -814,10 +869,18 @@ def sweep_int8(seed: int, n: int) -> None:
         B, K, G = int(rng.integers(1, 4)), pick([1, 2, 4]), pick([1, 2, 4, 8])
         hd, dt = pick([16, 32, 64, 128]), pick([torch.float32, torch.bfloat16])
         cap, T = pick([0.0, 0.0, 30.0]), int(rng.integers(1, 300))
+        if rng.integers(0, 2):          # the split edges
+            T = int(rng.integers(129, 1100))
+            chunk = int8_chunk_plan(B, K, T, SMS)
+            edges = [c * chunk + d for c in range(T // chunk + 1)
+                     for d in (-1, 0, 1)] + [T - 1, T + 3]
+            pos = torch.tensor([max(0, pick(edges)) for _ in range(B)],
+                               dtype=torch.int32, device=DEV)
+        else:
+            pos = torch.tensor(rng.integers(0, T, B), dtype=torch.int32,
+                               device=DEV)
         q = _randn(gen, (B, K * G, hd), dt)
         cache = _int8_cache(gen, B, T, K, hd)
-        pos = torch.tensor(rng.integers(0, T, B), dtype=torch.int32,
-                           device=DEV)
         err = compare(f"decode_attn_int8[sweep {i}: B{B} S{T} K{K} G{G} "
                       f"hd{hd} {dt} softcap {cap} pos {pos.tolist()}]",
                       decode_attn_int8(q, *cache, pos, softcap=cap),
@@ -934,44 +997,62 @@ def phase_serve_quant(cfg, params, ref_outputs):
     return launches, eng.run_params
 
 
-def phase_check(cfg, params):
-    small = reduce_for_smoke(get_config("deepseek-7b"))
-    host = model_mod.init_params(small, seed=0, device="cpu")
-    card = model_mod.init_params(small, seed=0, device="cpu").to(DEV)
+def reduce_hd128(cfg):
+    """deepseek-7b cut to 2 layers of d_model 256 (2 heads of head_dim 128,
+    d_ff 512, vocab 256) in bf16: the full width's head_dim and type, so
+    the card runs the serving path's kernels (bf16 flash on the tensor
+    cores, the split-K w8a8 and split-S int8-KV decode at hd 128)."""
+    return dataclasses.replace(
+        reduce_for_smoke(cfg), d_model=256, num_heads=2, num_kv_heads=2,
+        head_dim=128, d_ff=512, param_dtype="bfloat16",
+        activation_dtype="bfloat16")
+
+
+def _card_vs_host(label: str, small, host, quant=None) -> float:
+    """Serve 6 requests x 8 tokens from the same weights on the card and on
+    the host (plain versions); raises below 0.95 greedy-token agreement.
+    ``quant``: the host's w8a8 build step result, copied to the card."""
+    card = copy.deepcopy(host).to(DEV)
+    runs = [(card, DEV), (host, "cpu")]
+    if quant is not None:
+        card_qp = QuantizedParams(copy.deepcopy(quant.params).to(DEV),
+                                  quant.result, quant.quantized_sites,
+                                  quant.fallback_sites)
+        runs = [(card, DEV, card_qp), (host, "cpu", quant)]
     outs = []
-    for p, dev in ((card, DEV), (host, "cpu")):
-        eng = InferenceEngine(small, p, batch_slots=3, max_len=64,
-                              prefill_buckets=(8, 16, 32), device=dev)
+    for run in runs:
+        kw = {} if quant is None else dict(precision="w8a8",
+                                           quantized_params=run[2])
+        eng = InferenceEngine(small, run[0], batch_slots=3, max_len=64,
+                              prefill_buckets=(8, 16, 32), device=run[1],
+                              **kw)
         reqs = _requests(6, 3, 30, 8, small.vocab_size, seed=3)
         eng.run(reqs)
         outs.append([r.output for r in reqs])
     agree = token_agreement(zip(*outs))
-    print(f"check: reduced deepseek-7b, card vs host greedy-token agreement "
-          f"{agree:.4f} over 6 requests", flush=True)
-    if agree < 0.95:
-        raise AssertionError(f"card/host token agreement {agree} < 0.95")
-    # w8a8 with an int8 KV cache: one build step on the host, its
-    # quantized model copied to the card, the same engine on both
-    small_q = _int8_kv(small)
-    qp = build_quantized_params(small_q, host)
-    card_qp = QuantizedParams(copy.deepcopy(qp.params).to(DEV), qp.result,
-                              qp.quantized_sites, qp.fallback_sites)
-    outs = []
-    for p, quant, dev in ((card, card_qp, DEV), (host, qp, "cpu")):
-        eng = InferenceEngine(small_q, p, precision="w8a8",
-                              quantized_params=quant, batch_slots=3,
-                              max_len=64, prefill_buckets=(8, 16, 32),
-                              device=dev)
-        reqs = _requests(6, 3, 30, 8, small.vocab_size, seed=3)
-        eng.run(reqs)
-        outs.append([r.output for r in reqs])
-    agree = token_agreement(zip(*outs))
-    print(f"check: reduced deepseek-7b w8a8 + int8 KV ({qp.quantized_sites} "
-          f"sites int8), card vs host greedy-token agreement {agree:.4f} "
+    print(f"check: {label}, card vs host greedy-token agreement {agree:.4f} "
           f"over 6 requests", flush=True)
     if agree < 0.95:
-        raise AssertionError(f"w8a8 card/host token agreement {agree} < "
+        raise AssertionError(f"{label}: card/host token agreement {agree} < "
                              f"0.95")
+    return agree
+
+
+def phase_check(cfg, params):
+    """The reduced config (f32, head_dim 16) and the head_dim-128 bf16 one
+    (``reduce_hd128``), each in its own precision and in w8a8 with an int8
+    KV cache (one build step on the host, its quantized model copied to the
+    card), served on the card and on the host; then a full-width prefill."""
+    for small, name in ((reduce_for_smoke(get_config("deepseek-7b")),
+                         "reduced deepseek-7b"),
+                        (reduce_hd128(get_config("deepseek-7b")),
+                         "reduced deepseek-7b bf16 head_dim 128")):
+        host = model_mod.init_params(small, seed=0, device="cpu")
+        _card_vs_host(name, small, host)
+        small_q = _int8_kv(small)
+        qp = build_quantized_params(small_q, host)
+        _card_vs_host(f"{name} w8a8 + int8 KV ({qp.quantized_sites} sites "
+                      f"int8)", small_q, host, qp)
     prompt = torch.from_numpy(_requests(1, 200, 200, 1, cfg.vocab_size,
                                         seed=4)[0].tokens)[None]
     with torch.inference_mode():
@@ -993,7 +1074,9 @@ LM_SHARES = {"matmul kernels": MATMUL_KERNEL_NAMES,
              "flash_fwd_kernel": ("flash_fwd_kernel",),
              "decode_kernel": ("decode_kernel",),
              "decode_int8_kernel": ("decode_int8_kernel",),
-             "w8a8_kernel": ("w8a8_kernel",)}
+             # w8a8_kernel_tma (M > 16) and the byte-wise w8a8_kernel
+             "w8a8_kernel": ("w8a8_kernel",),
+             "w8a8_splitk_kernel (M <= 16)": ("w8a8_splitk_kernel",)}
 
 
 def profile_window(label: str, fn, steps: int, shares=LM_SHARES) -> None:
@@ -1234,6 +1317,8 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "False)")
+    global SMS
+    SMS = torch.cuda.get_device_properties(0).multi_processor_count
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card_line(), flush=True)

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels (flash.cu, w8a8.cu):
-// inline-PTX wrappers for mbarriers, TMA tile loads, the wgmma shared-memory matrix
-// descriptor and the wgmma products the kernels issue, plus the host-side encoding of
-// a TMA tensor map. Not a kernel source: it is included, and `_build.lib_path` hashes
-// it with every source, so an edit here rebuilds the libraries.
+// inline-PTX wrappers for mbarriers, TMA tile loads, thread-block cluster barriers and
+// distributed shared memory reads, the wgmma shared-memory matrix descriptor and the
+// wgmma products the kernels issue, plus the host-side encoding of a TMA tensor map.
+// Not a kernel source: it is included, and `_build.lib_path` hashes it with every
+// source, so an edit here rebuilds the libraries.
 //
 // Layout convention. Every tile in shared memory is written by TMA with the 128-byte
 // swizzle: rows of exactly 128 bytes (64 bf16 or 128 int8 values), 8 rows to a
@@ -103,6 +104,27 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(c4)
       : "memory");
+}
+
+// ---- thread-block clusters ----------------------------------------------------------
+
+// every thread of every block of the cluster; orders shared-memory writes before it
+// with reads after it across the cluster (release / acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// 16 bytes at `p` (an address in this block's shared memory) in the shared memory of
+// the cluster's block `rank`
+__device__ __forceinline__ int4 ld_dsmem_v4(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  int4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // ---- wgmma ------------------------------------------------------------------------

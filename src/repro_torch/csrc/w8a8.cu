@@ -23,13 +23,12 @@
 //     mbarrier when its products are done. Ragged M, N and K read zeros (TMA fills
 //     outside the tensor). The epilogue stages the int32 tile in the freed ring and
 //     stores f32 rows with 16-byte stores.
-//   - M <= 16 (decode rows): `w8a8_kernel` with a 16 x 16 tile: the 4 warps split each
-//     128-byte K tile between them (`mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`,
-//     4-stage `cp.async` ring) and add their int32 partial sums in shared memory (exact,
-//     so the order does not matter). Small tiles give N/16 blocks, enough to keep the
-//     weight stream in flight on every SM.
-//   - M > 16 with a K or an alignment TMA cannot describe: `w8a8_kernel` with a 64 x 128
-//     tile (2 x 2 warps of 32 x 64) and a byte-wise loader.
+//   - M <= 16 and K % 16 == 0 with 16-byte aligned operands (decode rows):
+//     `w8a8_splitk_kernel`, below. It streams the weight once.
+//   - Otherwise (M <= 16, or M > 16 with a K or an alignment TMA cannot describe):
+//     `w8a8_kernel`, `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32` on tiles loaded
+//     by a byte-wise loader: 16 x 16 tiles whose 4 warps split each 128-byte K tile for
+//     M <= 16; 64 x 128 tiles (2 x 2 warps of 32 x 64) for M > 16.
 // Every path computes (float(acc) * xs[m]) * ws[n] in that order.
 //
 // Bound on this card. Decode (M = 4): memory. The weight is read once, K*N bytes,
@@ -37,8 +36,43 @@
 // at which the int8 tensor cores (1,979 TOP/s) would bound it at 3.35 TB/s; the
 // least time is K*N / 3.35 TB/s. Prefill (M = 2048): operations, 2*M*K*N at
 // 1,979 TOP/s, which only `wgmma` reaches (`mma.sync` runs well below it on Hopper).
-// Left for later: split-K across blocks for decode; a persistent prefill kernel whose
-// epilogue overlaps the next tile's loads.
+//
+// The decode-rows kernel. The one-block-per-16x16-tile design it replaces (N/16
+// blocks, each walking all of K behind a 4-stage ring of 2 KB stages and a
+// `__syncthreads` per 128-byte tile) kept ~12 KB in flight per SM and read the weight
+// at ~42% of the bytes rate. Now:
+//   - Split K. Block (r, t) of a (split, ceil(N/64)) grid owns 64 weight rows (output
+//     columns) t*64 .. t*64+63 and K slice r: [k16*r/split, k16*(r+1)/split) in
+//     16-byte units (k16 = K/16), so a slice may end inside a step. The wrapper picks
+//     the split (kernels/w8a8/ops.py::splitk_plan): as many slices as keep the grid
+//     within one block per SM, which measured fastest (scripts/torch_decode_plans.py).
+//   - Loads straight into registers. Each of the block's 4 warps streams its 16
+//     weight rows in 256-byte steps of K: a lane loads 16 bytes at k + 64*i + 16*t
+//     (i = 0..3) of its rows g and g+8 (`ld.global.nc.L1::no_allocate`, 16 bytes a
+//     lane, 64 contiguous bytes per row per instruction) and of its activation rows,
+//     and the next step's loads are issued before this step's products, so two steps
+//     (8 KB a warp) are in flight. No shared-memory ring: 1-D bulk copies of one
+//     256-byte row piece each, completing on mbarriers, were tried first and streamed
+//     at ~1 TB/s (a copy per row per stage is too small for the TMA unit).
+//   - Products. Swap-AB `mma.sync.m16n8k32`: weight rows are the 16-row A operand and
+//     the <= 16 activation rows the n8 B operand (one n8 tile for M <= 8, two for M <=
+//     16), so no product is spent on padding rows of M. A lane's 16 bytes feed two k32
+//     products; the k order inside them is the same permutation in A and B (both come
+//     from lanes of the same t), so the sum is unchanged. Past a slice's end a lane
+//     loads nothing and multiplies zeros. Memory bounds the kernel, so `mma.sync` (not
+//     `wgmma`, whose 64-row A would hold the padding) is enough.
+//   - Reduction across the split, in the same launch and exact: the split's blocks
+//     form one thread-block cluster. Each block leaves its int32 64 x 16 partial tile
+//     in shared memory; after a cluster barrier, block r adds its share of the tile
+//     over all the cluster's blocks through distributed shared memory (`mapa` +
+//     `ld.shared::cluster`) and writes the f32 outputs, with the scales it fetched at
+//     its start; a second barrier keeps every block resident until the others have
+//     read it. Integer addition makes the order irrelevant, so the result stays bit
+//     for bit equal to the plain version. One launch, no workspace, no host state.
+// What holds it now: ~2.5-3 us before the first weight bytes arrive and ~1.5 us of
+// block skew and reduction at the end, around a stream of ~3 TB/s.
+// Left for later: a persistent prefill kernel whose epilogue overlaps the next tile's
+// loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,24 +82,6 @@
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; copies 0 bytes (zero-fills the destination) when !pred
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
@@ -77,38 +93,29 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 }
 
 // Copy rows [r0, r0 + ROWS) x bytes [k0, k0 + BK) of a (rows, K) row-major int8
-// matrix into a shared tile with row stride LDS; out-of-range bytes become 0.
-template <int ROWS, int BK, int LDS, bool VEC>
+// matrix into a shared tile with row stride LDS, byte by byte (any K, any alignment);
+// out-of-range bytes become 0.
+template <int ROWS, int BK, int LDS>
 __device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* __restrict__ src,
                                           int r0, int rows, int k0, int K) {
-  if constexpr (VEC) {  // K % 16 == 0: a 16-byte chunk is all in or all out
-    constexpr int CH = BK / 16;
-    for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
-      const int r = i / CH, c = i % CH;
-      const int gr = r0 + r, gk = k0 + c * 16;
-      const bool in = gr < rows && gk < K;
-      cp_async16(dst + r * LDS + c * 16, in ? src + (size_t)gr * K + gk : src, in);
-    }
-  } else {
-    constexpr int W = BK / 4;
-    for (int i = threadIdx.x; i < ROWS * W; i += kThreads) {
-      const int r = i / W, c = i % W;
-      const int gr = r0 + r, gk = k0 + c * 4;
-      uint32_t word = 0;
-      if (gr < rows) {
+  constexpr int W = BK / 4;
+  for (int i = threadIdx.x; i < ROWS * W; i += kThreads) {
+    const int r = i / W, c = i % W;
+    const int gr = r0 + r, gk = k0 + c * 4;
+    uint32_t word = 0;
+    if (gr < rows) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (gk + e < K)
-            word |= (uint32_t)(uint8_t)src[(size_t)gr * K + gk + e] << (8 * e);
-      }
-      *reinterpret_cast<uint32_t*>(dst + r * LDS + c * 4) = word;
+      for (int e = 0; e < 4; ++e)
+        if (gk + e < K)
+          word |= (uint32_t)(uint8_t)src[(size_t)gr * K + gk + e] << (8 * e);
     }
+    *reinterpret_cast<uint32_t*>(dst + r * LDS + c * 4) = word;
   }
 }
 
 // Block tile BM x BN, K tile BK bytes; warps WM x WN x WK (WK warps split each K
 // tile and add their partial sums at the end).
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES, bool VEC>
+template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES>
 __global__ void __launch_bounds__(kThreads)
 w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
             const float* __restrict__ xs, const float* __restrict__ ws,
@@ -143,22 +150,19 @@ w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) {
-      load_tile<BM, BK, LDS, VEC>(sA + s * A_STAGE, x, m0, M, s * BK, K);
-      load_tile<BN, BK, LDS, VEC>(sB + s * B_STAGE, wt, n0, N, s * BK, K);
+      load_tile<BM, BK, LDS>(sA + s * A_STAGE, x, m0, M, s * BK, K);
+      load_tile<BN, BK, LDS>(sB + s * B_STAGE, wt, n0, N, s * BK, K);
     }
-    cp_async_commit();
   }
 
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
     __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
     const int pf = kt + STAGES - 1;
     if (pf < nk) {
       const int st = pf % STAGES;
-      load_tile<BM, BK, LDS, VEC>(sA + st * A_STAGE, x, m0, M, pf * BK, K);
-      load_tile<BN, BK, LDS, VEC>(sB + st * B_STAGE, wt, n0, N, pf * BK, K);
+      load_tile<BM, BK, LDS>(sA + st * A_STAGE, x, m0, M, pf * BK, K);
+      load_tile<BN, BK, LDS>(sB + st * B_STAGE, wt, n0, N, pf * BK, K);
     }
-    cp_async_commit();
 
     const int8_t* a_s = sA + (kt % STAGES) * A_STAGE;
     const int8_t* b_s = sB + (kt % STAGES) * B_STAGE;
@@ -186,7 +190,6 @@ w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
         for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], a[i], b[j]);
     }
   }
-  cp_async_wait<0>();
   __syncthreads();  // the ring is free: reuse it for the partial sums
 
   int* red = reinterpret_cast<int*>(smem);  // [WK][BM][BN]
@@ -214,12 +217,184 @@ w8a8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
   }
 }
 
-template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES, bool VEC>
+template <int BM, int BN, int BK, int WM, int WN, int WK, int STAGES>
 cudaError_t launch(const int8_t* x, const int8_t* wt, const float* xs, const float* ws,
                    float* out, int M, int N, int K, cudaStream_t st) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  w8a8_kernel<BM, BN, BK, WM, WN, WK, STAGES, VEC>
+  w8a8_kernel<BM, BN, BK, WM, WN, WK, STAGES>
       <<<grid, kThreads, 0, st>>>(x, wt, xs, ws, out, M, N, K);
+  return cudaGetLastError();
+}
+
+// ---- M <= 16: split-K weight streaming ------------------------------------------------
+
+constexpr int kSkBN = 64;                // weight rows (output columns) per block, 16 per warp
+constexpr int kSkThreads = 128;          // 4 warps
+constexpr int kSkPieces = 4;             // 16-byte pieces of a row a lane loads per step
+constexpr int kSkStep = 64 * kSkPieces;  // bytes of K a warp takes per step
+constexpr int kSkMaxSplit = 8;           // the portable cluster size
+
+// 16 bytes of the weight: read once, so kept out of L1
+__device__ __forceinline__ int4 ld_stream(const int8_t* p) {
+  int4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// One step of K for one lane: 16 bytes at k + 64*i + 16*t (i = 0..3) of weight rows g
+// and g+8 and of the MT activation rows g (+8); zeros past the slice or the matrix.
+template <int MT>
+struct SkStep {
+  int4 wa[kSkPieces], wb[kSkPieces], xv[MT][kSkPieces];
+
+  __device__ __forceinline__ void load(const int8_t* pa, bool ok_a, const int8_t* pb,
+                                       bool ok_b, const int8_t* const (&px)[MT],
+                                       const bool (&ok_x)[MT], int k, int kend) {
+    const int4 zero = make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int i = 0; i < kSkPieces; ++i) {
+      const bool in = k + 64 * i < kend;  // kend - k is a multiple of 16, as is k + 64 i
+      wa[i] = in && ok_a ? ld_stream(pa + k + 64 * i) : zero;
+      wb[i] = in && ok_b ? ld_stream(pb + k + 64 * i) : zero;
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+        xv[j][i] = in && ok_x[j] ? __ldg(reinterpret_cast<const int4*>(px[j] + k + 64 * i))
+                                 : zero;
+    }
+  }
+
+  // two k32 products per 16-byte piece: the k order inside a piece is the same
+  // permutation in A and B (both come from lanes of the same t), so the sum is unchanged
+  __device__ __forceinline__ void mma(int (&acc)[MT][4]) const {
+#pragma unroll
+    for (int i = 0; i < kSkPieces; ++i) {
+      const uint32_t a_lo[4] = {(uint32_t)wa[i].x, (uint32_t)wb[i].x, (uint32_t)wa[i].y,
+                                (uint32_t)wb[i].y};
+      const uint32_t a_hi[4] = {(uint32_t)wa[i].z, (uint32_t)wb[i].z, (uint32_t)wa[i].w,
+                                (uint32_t)wb[i].w};
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        const uint32_t b_lo[2] = {(uint32_t)xv[j][i].x, (uint32_t)xv[j][i].y};
+        const uint32_t b_hi[2] = {(uint32_t)xv[j][i].z, (uint32_t)xv[j][i].w};
+        mma_s8(acc[j], a_lo, b_lo);
+        mma_s8(acc[j], a_hi, b_hi);
+      }
+    }
+  }
+};
+
+// MT n8 tiles of activation rows: 1 for M <= 8, 2 for M <= 16
+template <int MT>
+__global__ void __launch_bounds__(kSkThreads)
+w8a8_splitk_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
+                   const float* __restrict__ xs, const float* __restrict__ ws,
+                   float* __restrict__ out, int M, int N, int K) {
+  __shared__ __align__(16) int part[16 * kSkBN];  // [m][n] int32 partial sums
+  __shared__ float sxs[16], sws[kSkBN];             // the epilogue's scales
+
+  const int split = gridDim.x, rank = blockIdx.x;  // the cluster is the split
+  const int n0 = blockIdx.y * kSkBN;
+  const int rows = min(kSkBN, N - n0);
+  // the scales are fetched first, into registers, so the epilogue does not wait on memory
+  const int si = threadIdx.x - kSkBN;
+  const float scale_r = threadIdx.x < rows ? ws[n0 + threadIdx.x] : si >= 0 && si < M ? xs[si] : 0.f;
+  const int k16 = K / 16;
+  const int kbeg = (int)((long long)k16 * rank / split) * 16;
+  const int kend = (int)((long long)k16 * (rank + 1) / split) * 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // this lane's rows: weight rows (A) g and g+8 of the warp's 16, activation rows (B) g
+  // (+8); a row outside the matrix reads zeros
+  const int na = n0 + warp * 16 + g, nb = na + 8;
+  const bool ok_a = na < N, ok_b = nb < N;
+  const int8_t* pa = wt + (size_t)(ok_a ? na : 0) * K + t * 16;
+  const int8_t* pb = wt + (size_t)(ok_b ? nb : 0) * K + t * 16;
+  const int8_t* px[MT];
+  bool ok_x[MT];
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+    ok_x[j] = j * 8 + g < M;
+    px[j] = x + (size_t)(ok_x[j] ? j * 8 + g : 0) * K + t * 16;
+  }
+
+  int acc[MT][4];
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+  // two steps in registers: the next step's loads are in flight while this one's
+  // products run
+  SkStep<MT> s0, s1;
+  const int kend_t = kend - t * 16;  // this lane's pieces start t*16 bytes in
+  const int nsteps = (kend - kbeg + kSkStep - 1) / kSkStep;
+  if (nsteps > 0) s0.load(pa, ok_a, pb, ok_b, px, ok_x, kbeg, kend_t);
+  for (int st = 0; st < nsteps; st += 2) {
+    if (st + 1 < nsteps) s1.load(pa, ok_a, pb, ok_b, px, ok_x, kbeg + (st + 1) * kSkStep, kend_t);
+    s0.mma(acc);
+    if (st + 2 < nsteps) s0.load(pa, ok_a, pb, ok_b, px, ok_x, kbeg + (st + 2) * kSkStep, kend_t);
+    if (st + 1 < nsteps) s1.mma(acc);
+  }
+
+  if (threadIdx.x < kSkBN)
+    sws[threadIdx.x] = scale_r;
+  else if (si < 16)
+    sxs[si] = scale_r;
+  // C fragment: rows (weight) g and g+8, columns (activation rows) 2t and 2t+1
+#pragma unroll
+  for (int j = 0; j < MT; ++j) {
+    const int n = warp * 16 + g, m = j * 8 + t * 2;
+    part[m * kSkBN + n] = acc[j][0];
+    part[(m + 1) * kSkBN + n] = acc[j][1];
+    part[m * kSkBN + n + 8] = acc[j][2];
+    part[(m + 1) * kSkBN + n + 8] = acc[j][3];
+  }
+
+  hopper::cluster_sync();  // every block's partial tile is in its shared memory
+  // block `rank` adds its share of the tile's M x 64 sums, 4 at a time, over the split
+  const int quads = M * (kSkBN / 4);
+  const int q_lo = quads * rank / split, q_hi = quads * (rank + 1) / split;
+  for (int qi = q_lo + threadIdx.x; qi < q_hi; qi += kSkThreads) {
+    int4 sum = make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int r = 0; r < kSkMaxSplit; ++r) {
+      if (r >= split) break;
+      const int4 v = hopper::ld_dsmem_v4(part + qi * 4, (uint32_t)r);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    const int m = qi / (kSkBN / 4), nl = (qi % (kSkBN / 4)) * 4;
+    const float sx = sxs[m];
+    const int s4[4] = {sum.x, sum.y, sum.z, sum.w};
+    float* o = out + (size_t)m * N + n0 + nl;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)  // (float(acc) * xs) * ws, in the plain version's order
+      if (nl + e < rows) o[e] = __int2float_rn(s4[e]) * sx * sws[nl + e];
+  }
+  hopper::cluster_sync();  // no block exits while another reads its shared memory
+}
+
+template <int MT>
+cudaError_t launch_splitk(const int8_t* x, const int8_t* wt, const float* xs, const float* ws,
+                          float* out, int M, int N, int K, int split, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (N + kSkBN - 1) / kSkBN);
+  cfg.blockDim = dim3(kSkThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, w8a8_splitk_kernel<MT>, x, wt, xs, ws, out, M, N, K);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -360,10 +535,13 @@ extern "C" {
 
 // xq (M,K) int8 row-major; wq_t (N,K) int8 row-major (the (K,N) weight stored
 // column-major); xs (M,) f32; ws (N,) f32; out (M,N) f32. All on the device,
-// contiguous. Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// contiguous. `split` (1 .. 8) is the number of K slices of the decode-rows kernel
+// (kernels/w8a8/ops.py::splitk_plan); the other kernels do not read it. Launches on
+// `stream` and returns cudaGetLastError() (0 = launched).
 int w8a8_matmul_fwd(const void* xq, const void* wq_t, const void* xs, const void* ws,
-                    void* out, int M, int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+                    void* out, int M, int N, int K, int split, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || split < 1 || split > kSkMaxSplit)
+    return (int)cudaErrorInvalidValue;
   const int8_t* x = (const int8_t*)xq;
   const int8_t* wt = (const int8_t*)wq_t;
   const bool vec = K % 16 == 0 && ((uintptr_t)x % 16 == 0) && ((uintptr_t)wt % 16 == 0);
@@ -372,14 +550,15 @@ int w8a8_matmul_fwd(const void* xq, const void* wq_t, const void* xs, const void
   const float* b = (const float*)ws;
   float* o = (float*)out;
   cudaError_t e;
-  if (M <= 16 && vec)
-    e = launch<16, 16, 128, 1, 1, 4, 4, true>(x, wt, a, b, o, M, N, K, st);
+  if (M <= 16 && vec)  // bulk copies take it: 16-byte row strides and aligned bases
+    e = M <= 8 ? launch_splitk<1>(x, wt, a, b, o, M, N, K, split, st)
+               : launch_splitk<2>(x, wt, a, b, o, M, N, K, split, st);
   else if (M <= 16)
-    e = launch<16, 16, 128, 1, 1, 4, 4, false>(x, wt, a, b, o, M, N, K, st);
+    e = launch<16, 16, 128, 1, 1, 4, 4>(x, wt, a, b, o, M, N, K, st);
   else if (vec)  // TMA describes it: 16-byte row strides and aligned bases
     e = launch_tma(x, wt, a, b, o, M, N, K, st);
   else
-    e = launch<64, 128, 64, 2, 2, 1, 3, false>(x, wt, a, b, o, M, N, K, st);
+    e = launch<64, 128, 64, 2, 2, 1, 3>(x, wt, a, b, o, M, N, K, st);
   return (int)e;
 }
 

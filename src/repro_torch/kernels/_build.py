@@ -27,6 +27,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -107,6 +109,12 @@ def load(name: str) -> ctypes.CDLL:
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, which the launch plans read."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -7,6 +7,14 @@ runs its plain version (``ref.py``) for CPU tensors. There is no fallback:
 a CUDA input the kernel cannot take raises. ``decode_attn.launches`` and
 ``decode_attn_int8.launches`` count kernel launches (plain-version calls do
 not count).
+
+The int8 kernel splits S: ``int8_chunk_plan`` picks the keys per block
+(``ref.row_chunks`` are the chunks a row reads), and rows of more than one
+chunk merge their chunks in the same launch through an f32 scratch
+allocated per call and one int32 ticket counter per (row, kv head). The
+counters are allocated zeroed once per device and every launch leaves them
+zero, so calls on one stream (the engine's) share them; two launches that
+run at once on different streams must not.
 """
 from __future__ import annotations
 
@@ -31,10 +39,38 @@ ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-# decode_attn_int8_fwd(q, kq, k_scale, vq, v_scale, pos, o, B, S, H, K, hd,
-#                      softcap, dtype, stream) in csrc/decode_int8.cu
-ARGTYPES_INT8 = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+# decode_attn_int8_fwd(q, kq, k_scale, vq, v_scale, pos, o, part, ticket, B,
+#                      S, H, K, hd, chunk, softcap, dtype, stream) in
+# csrc/decode_int8.cu
+ARGTYPES_INT8 = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+INT8_CHUNK_MIN, INT8_CHUNK_MAX = 64, 256   # keys per block
+INT8_BLOCKS_PER_SM = 16
+
+
+def int8_chunk_plan(B: int, K: int, S: int, sms: int) -> int:
+    """Keys per block of the split-S int8 kernel: 64, doubled (up to 256)
+    while its grid of K * B * ceil(S/chunk) blocks would hold more than 16
+    per SM, which bounds the scratch and the records one merge reads."""
+    chunk = INT8_CHUNK_MIN
+    while chunk < INT8_CHUNK_MAX \
+            and B * K * -(-S // chunk) > INT8_BLOCKS_PER_SM * sms:
+        chunk *= 2
+    return chunk
+
+
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 ticket counters on ``device``, zero between
+    launches (allocated zeroed once, grown when a call needs more)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                           device=device)
+    return t
 
 
 @functools.cache
@@ -156,11 +192,21 @@ def decode_attn_int8(q: torch.Tensor, kq: torch.Tensor, k_scale: torch.Tensor,
     if not all(t.is_contiguous() for t in (q, kq, k_scale, vq, v_scale)):
         raise ValueError("decode_attn_int8 kernel needs contiguous q, cache "
                          "and scales")
+    if kq.data_ptr() % 16 or vq.data_ptr() % 16:
+        raise ValueError("decode_attn_int8 kernel needs kq and vq at 16-byte "
+                         "aligned addresses")
     o = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    chunk = int8_chunk_plan(B, K, S, _build.sm_count(q.device.index))
+    n_chunks = -(-S // chunk)
+    part = (torch.empty(B * K * n_chunks * H // K * (hd + 4),
+                        dtype=torch.float32, device=q.device)
+            if n_chunks > 1 else None)
     lib = _lib_int8()
     err = lib.decode_attn_int8_fwd(
         q.data_ptr(), kq.data_ptr(), k_scale.data_ptr(), vq.data_ptr(),
-        v_scale.data_ptr(), pos.data_ptr(), o.data_ptr(), B, S, H, K, hd,
+        v_scale.data_ptr(), pos.data_ptr(), o.data_ptr(),
+        None if part is None else part.data_ptr(),
+        _tickets(q.device, B * K).data_ptr(), B, S, H, K, hd, chunk,
         float(softcap), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "decode_attn_int8")

@@ -10,6 +10,10 @@ The weight is the logical (K,N) int8 matrix. The kernel reads it
 K-contiguous, so on the card it must be stored column-major: strides
 (1, K), which is ``kernel_layout(wq)`` (a (K,N) view of an (N,K)
 row-major tensor). The port's quantized weights are stored so.
+
+Decode rows (M <= 16, K % 16 == 0) run the split-K kernel: ``splitk_plan``
+picks how many K slices (``ref.k_slices``) it cuts K into, from N, K and
+the card's SM count, and passes it to the kernel.
 """
 from __future__ import annotations
 
@@ -21,8 +25,27 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.w8a8.ref import w8a8_ref
 
-# w8a8_matmul_fwd(xq, wq_t, xs, ws, out, M, N, K, stream) in csrc/w8a8.cu
-ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# w8a8_matmul_fwd(xq, wq_t, xs, ws, out, M, N, K, split, stream) in
+# csrc/w8a8.cu
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+# the split-K kernel's geometry (csrc/w8a8.cu): weight rows per block, the
+# largest split (a cluster's portable size), and the least K slice worth a
+# block, bytes
+SPLITK_ROWS = 64
+SPLITK_MAX = 8
+SPLITK_MIN_SLICE = 1024
+
+
+def splitk_plan(N: int, K: int, sms: int) -> int:
+    """K slices of the decode-rows kernel: as many as keep the ceil(N/64)
+    weight tiles times the split within one block per SM, at least 1, at
+    most 8, and none shorter than 1 KB of K (so 1 for a K of 64 or 128).
+    One block of 4 warps per SM streams the weight fastest on the H100
+    (``scripts/torch_decode_plans.py`` sweeps the split)."""
+    tiles = -(-N // SPLITK_ROWS)
+    split = sms // tiles
+    return max(1, min(split, SPLITK_MAX, K // SPLITK_MIN_SLICE))
 
 
 @functools.cache
@@ -78,9 +101,10 @@ def w8a8_matmul(xq: torch.Tensor, wq: torch.Tensor, x_scale,
     if K == 0:
         return out.zero_()
     lib = _lib()
+    split = splitk_plan(N, K, _build.sm_count(xq.device.index))
     err = lib.w8a8_matmul_fwd(
         xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), w_scale.data_ptr(),
-        out.data_ptr(), M, N, K,
+        out.data_ptr(), M, N, K, split,
         torch.cuda.current_stream(xq.device).cuda_stream)
     _build.check(lib, err, "w8a8_matmul")
     w8a8_matmul.launches += 1
