@@ -24,13 +24,20 @@ result line):
              w8a8 GEMM must equal its plain version bit for bit. The
              decode-step kernels are held at their split edges: w8a8 at 1 to
              16 rows on deepseek-7b's shapes, the reduced configs' K of 64
-             and 128 and K slices that end inside a step; int8-KV decode
-             with pos on and around 64-key chunk boundaries, G 1-8, hd
-             16-128 and a softcap (the int8 sweep draws those edges half
-             the time). The SLS
+             and 128 and K slices that end inside a step; both split-S
+             decode kernels (bf16/f32 and int8-KV) with pos on and around
+             64-key chunk boundaries, G 1-8, hd 16-128 and a softcap, and
+             f32 at hd 128 in 128-key chunks (135 KB of shared memory; the
+             sweeps draw the chunk edges half the time). The SLS
              kernels' main shape is the DLRM batch (6144 bags of at most
              128 lookups, D 96, lengths from ``dlrm_batches``) on a table
              far larger than L2; ``embedding_bag`` is the fp32 yardstick.
+             Each SLS kernel is held against its plain version in its own
+             summation order (the lane groups' partial sums added in group
+             order), at its layout edges too: bags longer than one staged
+             batch of 128 indices, L = 1, rows that are not a multiple of
+             16 bytes or of more than 32 lanes, tables that start 8 or 1
+             bytes past a 16-byte boundary.
              The tensor-core paths are held at their edges: bf16 flash
              with GQA at hd 128, S not a multiple of the 128-row tile, an
              empty row, a window and a softcap; w8a8 at M = 17, 65 and
@@ -38,8 +45,9 @@ result line):
              (M <= 16) and fallback (K % 16 != 0) routes; the sweeps add
              tile-edge sizes. One ``torch.profiler`` window then reads the
              device time of flash, SDPA, bf16 decode, SDPA's decode, the
-             w8a8 GEMM and ``torch._int_mm`` at M=4 and M=2048, and the
-             int8-KV decode at the main shapes.
+             w8a8 GEMM and ``torch._int_mm`` at M=4 and M=2048, the int8-KV
+             decode, the three SLS kernels and fp32 ``embedding_bag`` at the
+             main shapes.
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``: 8 requests, 32 new
              tokens each. The kernels' launch counters are zeroed just
@@ -79,7 +87,8 @@ result line):
              tolerances, logits within 2e-3; each card run must launch its
              slab's SLS kernel once a request and the other two not.
 
-Kernel times are CUDA-event times of single calls, each after an L2 flush.
+Kernel times (``ms``) are CUDA-event times of single calls, each after an
+L2 flush; the device window's times leave out the host's enqueue gap.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` are those of the phase whose path runs it: serve, serve-w8a8,
@@ -110,12 +119,13 @@ from repro_torch.core.metrics import token_agreement  # noqa: E402
 from repro_torch.data.synthetic import dlrm_batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
-    decode_attn, decode_attn_int8, int8_chunk_plan)
+    chunk_plan, decode_attn, decode_attn_int8)
 from repro_torch.kernels.decode_attn.ref import (  # noqa: E402
     decode_attn_int8_ref, decode_attn_ref)
 from repro_torch.kernels.flash_attn.ops import flash_attn  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref  # noqa: E402
-from repro_torch.kernels.sls.ops import sls, sls_int4, sls_int8  # noqa: E402
+from repro_torch.kernels.sls.ops import (  # noqa: E402
+    sls, sls_int4, sls_int8, table_plan)
 from repro_torch.kernels.sls.ref import (  # noqa: E402
     sls_int4_ref, sls_int8_ref, sls_ref)
 from repro_torch.kernels.w8a8.ops import w8a8_matmul  # noqa: E402
@@ -481,11 +491,20 @@ def _bags(gen, R, NB, L):
     return idx, lens
 
 
+def sls_groups(kind, tables) -> int:
+    """The lane groups that split a bag in SLS kernel ``kind`` over
+    ``tables`` (``table_plan``), which its plain version adds in the same
+    order."""
+    return table_plan(f"{kind}_fwd", tables[0])[1]
+
+
 def sls_check(kind, name, tables, idx, lens) -> float:
-    """One SLS kernel call against its plain version; max abs error."""
+    """One SLS kernel call against its plain version in the kernel's
+    summation order; max abs error."""
     got = LAUNCHERS[kind](*tables, idx, lens)
     torch.cuda.synchronize()
-    want = SLS_PLAIN[kind](*tables, idx, lens)
+    want = SLS_PLAIN[kind](*tables, idx, lens,
+                           groups=sls_groups(kind, tables))
     return compare(f"{kind}[{name}]", got, want, torch.float32,
                    tol=SLS_TOL[kind], nan_ok=True)
 
@@ -515,10 +534,18 @@ def sls_measure(kind, tables, idx, lens, err) -> dict:
         library_err = (lib_out - plain(*tables, idx, lens)).abs().max().item()
         library_ms = time_ms(lambda: F.embedding_bag(flat, t, offsets,
                                                      mode="sum"))
-    return dict(max_abs_err=err, library_err=library_err,
-                ms=time_ms(lambda: fn(*tables, idx, lens)),
+
+    def call():
+        return fn(*tables, idx, lens)
+
+    def library_call():
+        return F.embedding_bag(flat, t, offsets, mode="sum")
+
+    return dict(max_abs_err=err, library_err=library_err, ms=time_ms(call),
                 plain_ms=time_ms(lambda: plain(*tables, idx, lens)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                call=call,
+                library_call=None if library_ms is None else library_call)
 
 
 def dlrm_main_bags(R: int):
@@ -539,16 +566,62 @@ def dlrm_main_bags(R: int):
 SLS_MAIN_ROWS = 1 << 23
 
 
-def sls_cases(gen) -> dict:
+def _shifted(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A copy of ``t`` that starts ``nbytes`` past the start of its
+    (aligned) allocation."""
+    e = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + e, dtype=t.dtype, device=DEV)
+    out = buf[e:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def sls_edges(gen) -> None:
+    """The SLS kernels' layout edges, each against its plain version in the
+    kernel's order: bags longer than one staged batch of 128 indices (L
+    300), L = 1, rows that are not a multiple of 16 bytes (8-, 4- and
+    2-byte lane loads), rows of more than 32 lanes (two and three passes),
+    tables that start 8 and 1 bytes past a 16-byte boundary; lengths past L
+    and below 0, and one index outside the table (a NaN bag) in each."""
+    # (kind, R, D, NB, L, bytes the table's start is shifted by)
+    cases = [(k, 3000, 96, 64, 300, 0) for k in SLS_PLAIN] \
+        + [(k, 500, 96, 200, 1, 0) for k in SLS_PLAIN] \
+        + [(k, 1000, D, 64, 40, 0) for k, D in (
+            ("sls_fp", 50), ("sls_int8", 100), ("sls_int8", 98),
+            ("sls_int4", 36), ("sls_fp", 200), ("sls_int8", 600))] \
+        + [(k, 1000, 96, 64, 40, shift) for k, shift in (
+            ("sls_fp", 8), ("sls_int8", 8), ("sls_int8", 1), ("sls_int4", 8),
+            ("sls_int4", 1))]
+    worst = {k: 0.0 for k in SLS_PLAIN}
+    plans = set()
+    for kind, R, D, NB, L, shift in cases:
+        tables = _sls_table(gen, kind, R, D)
+        tables = (_shifted(tables[0], shift), *tables[1:])
+        idx, _ = _bags(gen, R, NB, L)
+        lens = torch.randint(-2, L + 4, (NB,), generator=gen, device=DEV,
+                             dtype=torch.int32)
+        idx[0, 0], lens[0] = R, max(int(lens[0]), 1)   # bag 0 is NaN
+        plans.add((kind, D, shift) + table_plan(f"{kind}_fwd", tables[0]))
+        worst[kind] = max(worst[kind], sls_check(
+            kind, f"edge R{R} D{D} NB{NB} L{L} shift {shift}", tables, idx,
+            lens))
+    print(f"sls edges: {len(cases)} cases agree with the plain versions "
+          f"(kind, D, shift, vec, groups, unroll: {sorted(plans)}); max abs "
+          f"err {worst}", flush=True)
+
+
+def sls_cases(gen, device_fns: dict) -> dict:
     """The JAX package's SLS cases (repro/kernels/sls/ops.py), empty bags,
     then the main shape on a 2^23-row table (3.2 GB in fp32, 805 MB in
     int8, 403 MB in int4: far past the 50 MB L2); returns the main
-    shape's measurements."""
+    shape's measurements and adds each kernel's main call (and
+    ``embedding_bag``'s) to ``device_fns``."""
     cases = {"sls_fp": [(64, 16, 8, 4), (1000, 64, 32, 8), (4096, 128, 16, 64),
                         (128, 256, 4, 1)],
              "sls_int8": [(64, 16, 8, 4), (1000, 64, 32, 8), (512, 128, 16, 32)],
              "sls_int4": [(64, 16, 8, 4), (1000, 64, 32, 8)]}
     main = {}
+    sls_edges(gen)
     main_idx, main_lens = dlrm_main_bags(SLS_MAIN_ROWS)
     for kind, shapes in cases.items():
         worst = 0.0
@@ -568,7 +641,9 @@ def sls_cases(gen) -> dict:
         r = main[kind] = sls_measure(kind, tables, main_idx, main_lens, err)
         _show(kind, f"main_NB6144_L128_D96_R{SLS_MAIN_ROWS} "
               f"({main_lens.sum().item()} lookups)", r)
-        del tables
+        device_fns[f"{kind} main_NB6144_D96"] = r["call"]
+        if r["library_call"] is not None:
+            device_fns["embedding_bag main_NB6144_D96"] = r["library_call"]
     return main
 
 
@@ -608,6 +683,20 @@ def sweep_sls(seed: int, n: int) -> None:
     torch.cuda.synchronize()
     print(f"sweep: {n} random cases per SLS kernel agree with the plain "
           f"versions; max abs err {worst}", flush=True)
+
+
+def split_group_cases() -> dict:
+    """Decode cases of the split-S kernels at G 1 to 8 and hd 16 to 128 in
+    both query types, each row's pos on a 64-key chunk's end or past a
+    boundary, a softcap at G 3 and 6: name -> (B, H, K, hd, S, pos, dtype,
+    softcap)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return {f"G{G}_hd{hd}_B2_K2_S300": (2, 2 * G, 2, hd, 300,
+                                        [255, 64 * (G % 4) + G], dt,
+                                        30.0 if G % 3 == 0 else 0.0)
+            for G, hd, dt in ((1, 16, f32), (2, 32, bf16), (3, 64, f32),
+                              (4, 128, bf16), (5, 16, bf16), (6, 32, f32),
+                              (7, 64, bf16), (8, 128, f32))}
 
 
 def phase_kernels() -> dict:
@@ -661,6 +750,24 @@ def phase_kernels() -> dict:
         "main_B4_S1024_H32_hd128": (4, 32, 32, 128, 1024,
                                     [1023, 600, 31, 0], bf16, 0.0),
     }
+    # the split-S kernel's edges (64-key chunks at these sizes): pos 0, one
+    # short of a chunk's end, on it, one past it, and at and past S-1; G
+    # from 1 to 8 and hd from 16 to 128 in both types; softcap; and f32 at
+    # hd 128 at the main shape, whose 128-key chunks take 135 KB of shared
+    # memory
+    decode_cases.update({
+        "edges_B4_H8_K8_hd128_S1024": (4, 8, 8, 128, 1024, [0, 62, 63, 64],
+                                       bf16, 0.0),
+        "edges_B4_H8_K8_hd64_S1024": (4, 8, 8, 64, 1024,
+                                      [127, 128, 1023, 5000], f32, 0.0),
+        "softcap_B2_H32_K8_hd128_S700": (2, 32, 8, 128, 700, [699, 191],
+                                         bf16, 30.0),
+        "f32_B4_S1024_H32_hd128": (4, 32, 32, 128, 1024, [1023, 600, 31, 0],
+                                   f32, 0.0),
+        # 128-key chunks on 8 warps a block, G 4, softcap
+        "gqa_B4_H128_K32_hd128_S1024": (4, 128, 32, 128, 1024,
+                                        [1023, 511, 128, 127], bf16, 30.0)})
+    decode_cases.update(split_group_cases())
     for name, (B, H, K, hd, S, pos, dt, cap) in decode_cases.items():
         r = decode_case(name, gen, B, H, K, hd, S, pos, dt, cap)
         _show("decode_attn", name, r)
@@ -729,21 +836,23 @@ def phase_kernels() -> dict:
         "edges_B4_H8_K8_hd64_S1024": (4, 8, 8, 64, 1024,
                                       [127, 128, 1023, 5000], f32, 0.0),
         "softcap_B2_H32_K8_hd128_S700": (2, 32, 8, 128, 700, [699, 191],
-                                         bf16, 30.0)})
-    for G, hd, dt in ((1, 16, f32), (2, 32, bf16), (3, 64, f32),
-                      (4, 128, bf16), (5, 16, bf16), (6, 32, f32),
-                      (7, 64, bf16), (8, 128, f32)):
-        decode_int8_cases[f"G{G}_hd{hd}_B2_K2_S300"] = (
-            2, 2 * G, 2, hd, 300, [255, 64 * (G % 4) + G], dt,
-            30.0 if G % 3 == 0 else 0.0)
+                                         bf16, 30.0),
+        # 256-key chunks on 8 warps a block (two tiles a warp), G 2
+        "B8_H64_K32_hd128_S2048": (8, 64, 32, 128, 2048,
+                                   [2047, 1500, 256, 255, 0, 1024, 700, 64],
+                                   f32, 0.0)})
+    decode_int8_cases.update(split_group_cases())
     for name, (B, H, K, hd, S, pos, dt, cap) in decode_int8_cases.items():
         r = decode_int8_case(name, gen, B, H, K, hd, S, pos, dt, cap)
         _show("decode_attn_int8", name, r)
         if name.startswith("main"):
             main["decode_attn_int8"] = r
             device_fns["decode_attn_int8 " + name] = r["call"]
+    main.update(sls_cases(gen, device_fns))
     device_window(device_fns)
-    main.update(sls_cases(gen))
+    for r in main.values():         # let the main shapes' tables go
+        r.pop("call", None)
+        r.pop("library_call", None)
     sweep(seed=1, n=32)
     sweep_int8(seed=2, n=32)
     sweep_sls(seed=3, n=32)
@@ -796,7 +905,9 @@ def sweep(seed: int, n: int) -> None:
     T != S, empty rows (lens or pos 0), every head_dim and group size the
     kernels take, both input types (bf16 at hd 64 and 128 most often: the
     tensor-core path), S and T at its tile edges half the time, masks and
-    softcap mixed; each against its plain version. No timing."""
+    softcap mixed; decode half the time over a cache of several chunks with
+    each row's pos on or next to a chunk boundary (``chunk_plan``); each
+    against its plain version. No timing."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=DEV).manual_seed(seed)
 
@@ -824,8 +935,17 @@ def sweep(seed: int, n: int) -> None:
                       flash_attention_ref(q, k, v, lens, **kw), dt)
         worst["flash_attn"] = max(worst["flash_attn"], err)
         qd = _randn(gen, (B, K * G, hd), dt)
-        pos = torch.tensor(rng.integers(0, T, B), dtype=torch.int32,
-                           device=DEV)
+        if rng.integers(0, 2):          # the split edges, on a longer cache
+            T = int(rng.integers(129, 1100))
+            k, v = (_randn(gen, (B, T, K, hd), dt) for _ in range(2))
+            chunk = chunk_plan(B, K, T, SMS, hd * k.element_size())
+            edges = [c * chunk + d for c in range(T // chunk + 1)
+                     for d in (-1, 0, 1)] + [T - 1, T + 3]
+            pos = torch.tensor([max(0, pick(edges)) for _ in range(B)],
+                               dtype=torch.int32, device=DEV)
+        else:
+            pos = torch.tensor(rng.integers(0, T, B), dtype=torch.int32,
+                               device=DEV)
         err = compare(f"decode_attn[sweep {i}: B{B} S{T} K{K} G{G} hd{hd} "
                       f"{dt} softcap {cap} pos {pos.tolist()}]",
                       decode_attn(qd, k, v, pos, softcap=cap),
@@ -844,7 +964,7 @@ def sweep_int8(seed: int, n: int) -> None:
     checked bit for bit; int8-KV decode at every head_dim and group size,
     both query types, empty rows and softcap mixed, half the time with S
     over several chunks and each row's pos on or next to a chunk boundary
-    (``int8_chunk_plan``). No timing."""
+    (``chunk_plan``). No timing."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=DEV).manual_seed(seed)
 
@@ -871,7 +991,7 @@ def sweep_int8(seed: int, n: int) -> None:
         cap, T = pick([0.0, 0.0, 30.0]), int(rng.integers(1, 300))
         if rng.integers(0, 2):          # the split edges
             T = int(rng.integers(129, 1100))
-            chunk = int8_chunk_plan(B, K, T, SMS)
+            chunk = chunk_plan(B, K, T, SMS, hd)
             edges = [c * chunk + d for c in range(T // chunk + 1)
                      for d in (-1, 0, 1)] + [T - 1, T + 3]
             pos = torch.tensor([max(0, pick(edges)) for _ in range(B)],

@@ -8,13 +8,14 @@ a CUDA input the kernel cannot take raises. ``decode_attn.launches`` and
 ``decode_attn_int8.launches`` count kernel launches (plain-version calls do
 not count).
 
-The int8 kernel splits S: ``int8_chunk_plan`` picks the keys per block
-(``ref.row_chunks`` are the chunks a row reads), and rows of more than one
-chunk merge their chunks in the same launch through an f32 scratch
-allocated per call and one int32 ticket counter per (row, kv head). The
-counters are allocated zeroed once per device and every launch leaves them
-zero, so calls on one stream (the engine's) share them; two launches that
-run at once on different streams must not.
+Both kernels split S (``csrc/decode_split.cuh``): ``chunk_plan`` picks the
+keys per block from the bytes of a K row (``ref.row_chunks`` are the chunks
+a row reads), and rows of more than one chunk merge their chunks in the
+same launch through an f32 scratch allocated per call and one int32 ticket
+counter per (row, kv head). The two kernels share the counters: they are
+allocated zeroed once per device and every launch of either kernel leaves
+them zero, so launches that run in turn on one stream (the engine's) share
+them; two launches that run at once on different streams must not.
 """
 from __future__ import annotations
 
@@ -33,9 +34,9 @@ MAX_GROUP = 8          # query heads per kv head held in registers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# decode_attn_fwd(q, k, v, pos, o, B, S, H, K, hd, softcap, dtype, stream)
-# in csrc/decode.cu
-ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+# decode_attn_fwd(q, k, v, pos, o, part, ticket, B, S, H, K, hd, chunk,
+#                 softcap, dtype, stream) in csrc/decode.cu
+ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -45,19 +46,37 @@ ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 ARGTYPES_INT8 = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
-INT8_CHUNK_MIN, INT8_CHUNK_MAX = 64, 256   # keys per block
-INT8_BLOCKS_PER_SM = 16
+CHUNK_MIN, CHUNK_MAX = 64, 256      # keys per block
+# the names the int8 kernel's callers know them by
+INT8_CHUNK_MIN, INT8_CHUNK_MAX = CHUNK_MIN, CHUNK_MAX
+BLOCKS_PER_SM = 16
+CHUNK_SMEM = 160 * 1024   # bytes of K and V rows a block may hold
+SMEM_PAD = 16             # bytes after each K/V row in shared memory
+
+
+def chunk_plan(B: int, K: int, S: int, sms: int, row_bytes: int) -> int:
+    """Keys per block of the split-S decode kernels, for K/V rows of
+    ``row_bytes`` bytes (head_dim times 1 for int8, 2 for bf16, 4 for f32):
+    64, doubled (up to 256) while the grid of K * B * ceil(S/chunk) blocks
+    would hold more than 16 per SM for rows of up to 128 bytes, and
+    proportionally fewer for wider rows (8 at 256 bytes, 4 at 512), which
+    bounds the scratch, the records one merge reads and the blocks the card
+    cannot hold at once; and while the doubled chunk's K and V rows
+    (2 * chunk * (row_bytes + 16) bytes in shared memory) stay within
+    160 KB, which keeps a block within the card's 227 KB."""
+    per_sm = BLOCKS_PER_SM * 128 // max(row_bytes, 128)
+    chunk = CHUNK_MIN
+    while chunk < CHUNK_MAX \
+            and B * K * -(-S // chunk) > per_sm * sms \
+            and 2 * 2 * chunk * (row_bytes + SMEM_PAD) <= CHUNK_SMEM:
+        chunk *= 2
+    return chunk
 
 
 def int8_chunk_plan(B: int, K: int, S: int, sms: int) -> int:
-    """Keys per block of the split-S int8 kernel: 64, doubled (up to 256)
-    while its grid of K * B * ceil(S/chunk) blocks would hold more than 16
-    per SM, which bounds the scratch and the records one merge reads."""
-    chunk = INT8_CHUNK_MIN
-    while chunk < INT8_CHUNK_MAX \
-            and B * K * -(-S // chunk) > INT8_BLOCKS_PER_SM * sms:
-        chunk *= 2
-    return chunk
+    """``chunk_plan`` of the int8 kernel, whose rows (at most 128 bytes)
+    never reach the shared-memory cap."""
+    return chunk_plan(B, K, S, sms, HEAD_DIMS[-1])
 
 
 _TICKETS = {}
@@ -71,6 +90,17 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
         t = _TICKETS[device] = torch.zeros(max(n, 4096), dtype=torch.int32,
                                            device=device)
     return t
+
+
+def _scratch(B: int, H: int, K: int, S: int, hd: int, chunk: int, device):
+    """The f32 scratch of a split-S launch: one (acc, m, l) record of
+    G * (hd + 4) floats per (row, kv head, chunk); None when every row fits
+    one chunk."""
+    n_chunks = -(-S // chunk)
+    if n_chunks == 1:
+        return None
+    return torch.empty(B * K * n_chunks * (H // K) * (hd + 4),
+                       dtype=torch.float32, device=device)
 
 
 @functools.cache
@@ -132,11 +162,19 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got head_dim {hd}, group {H // K}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attn kernel needs contiguous q, k, v")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attn kernel needs k and v at 16-byte aligned "
+                         "addresses")
     o = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    chunk = chunk_plan(B, K, S, _build.sm_count(q.device.index),
+                       hd * k.element_size())
+    part = _scratch(B, H, K, S, hd, chunk, q.device)
     lib = _lib()
     err = lib.decode_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        o.data_ptr(), B, S, H, K, hd, float(softcap), _DTYPES[q.dtype],
+        o.data_ptr(), None if part is None else part.data_ptr(),
+        _tickets(q.device, B * K).data_ptr(), B, S, H, K, hd, chunk,
+        float(softcap), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "decode_attn")
     decode_attn.launches += 1
@@ -196,11 +234,8 @@ def decode_attn_int8(q: torch.Tensor, kq: torch.Tensor, k_scale: torch.Tensor,
         raise ValueError("decode_attn_int8 kernel needs kq and vq at 16-byte "
                          "aligned addresses")
     o = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
-    chunk = int8_chunk_plan(B, K, S, _build.sm_count(q.device.index))
-    n_chunks = -(-S // chunk)
-    part = (torch.empty(B * K * n_chunks * H // K * (hd + 4),
-                        dtype=torch.float32, device=q.device)
-            if n_chunks > 1 else None)
+    chunk = chunk_plan(B, K, S, _build.sm_count(q.device.index), hd)
+    part = _scratch(B, H, K, S, hd, chunk, q.device)
     lib = _lib_int8()
     err = lib.decode_attn_int8_fwd(
         q.data_ptr(), kq.data_ptr(), k_scale.data_ptr(), vq.data_ptr(),

@@ -12,6 +12,12 @@ a CUDA input the kernel cannot take raises. ``sls.launches``,
 A bag reads only its first ``lengths[b]`` indices; one of those outside
 [0, R) reads nothing and makes the bag NaN, in the kernels and the plain
 versions alike.
+
+``lane_plan`` picks the kernel's lane loads (16 bytes where the row size and
+the table's address allow) and with them the number of lane groups that
+split a bag: the kernel adds each group's lookups in the order of l and the
+groups' partial sums in group order, which the plain versions compute with
+``groups=`` (``ref.py``).
 """
 from __future__ import annotations
 
@@ -23,12 +29,58 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.sls.ref import sls_int4_ref, sls_int8_ref, sls_ref
 
-# sls_fp_fwd(table, indices, lengths, out, NB, L, D, R, stream) in csrc/sls.cu
-ARGTYPES_FP = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# sls_fp_fwd(table, indices, lengths, out, NB, L, D, R, vec, unroll, stream)
+# in csrc/sls.cu
+ARGTYPES_FP = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # sls_int8_fwd / sls_int4_fwd(q, scale, bias, indices, lengths, out, NB, L, D,
-#                             R, stream)
-ARGTYPES_Q = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+#                             R, vec, unroll, stream)
+ARGTYPES_Q = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 INT_MAX = 2**31 - 1
+COLUMNS_PER_BYTE = {"sls_fp_fwd": 0.25, "sls_int8_fwd": 1.0,
+                    "sls_int4_fwd": 2.0}
+UNROLLS = (2, 4, 8)     # row loads a lane may issue before it adds any
+ROWS_IN_FLIGHT = 8      # a warp's row loads in flight, at least, by the plan
+MAX_COLUMNS = 16        # output columns a lane may hold
+
+
+def bag_groups(row_bytes: int, vec: int) -> int:
+    """The rows one warp load reads at ``vec`` bytes a lane: 32 // (lanes a
+    row takes), 1 for a row of more than 32 lanes (which takes passes of
+    32)."""
+    lanes = row_bytes // vec
+    return 32 // lanes if lanes <= 32 else 1
+
+
+def lane_plan(row_bytes: int, elem: int, address: int,
+              columns_per_byte: float = 1.0) -> tuple:
+    """(vec, groups, unroll) of the SLS kernel for rows of ``row_bytes``
+    bytes of ``elem``-byte elements in a table at ``address``, holding
+    ``columns_per_byte`` output columns a byte (1/4 fp32, 1 int8, 2
+    int4): ``vec``, the bytes a lane loads of a row, is the widest of 16,
+    8, 4, 2, 1 (at least ``elem``) that divides the row size and the
+    address and leaves a lane at most 16 columns to sum (int4 stops at 8
+    bytes); ``groups`` is ``bag_groups``; ``unroll``, the row loads each
+    lane issues before it adds any, is the fewest of 2, 4, 8 that keep 8
+    rows in flight a warp, or 8 (registers are what a row in flight costs,
+    and fewer of them keep more bags resident). At D=96: fp32 16 bytes, 1
+    group, unroll 8; int8 16 bytes, 5 groups, unroll 2; int4 8 bytes, 5
+    groups, unroll 2."""
+    vec = next(w for w in (16, 8, 4, 2, 1)
+               if w >= elem and w * columns_per_byte <= MAX_COLUMNS
+               and row_bytes % w == 0 and address % w == 0)
+    groups = bag_groups(row_bytes, vec)
+    unroll = next((u for u in UNROLLS if groups * u >= ROWS_IN_FLIGHT),
+                  UNROLLS[-1])
+    return vec, groups, unroll
+
+
+def table_plan(entry: str, table) -> tuple:
+    """``lane_plan`` of the kernel entry ``entry`` (``sls_fp_fwd``,
+    ``sls_int8_fwd`` or ``sls_int4_fwd``) over ``table``, its fp32 or
+    uint8 table."""
+    elem = 4 if entry == "sls_fp_fwd" else 1    # bytes of a table element
+    return lane_plan(table.shape[1] * elem, elem, table.data_ptr(),
+                     COLUMNS_PER_BYTE[entry])
 
 
 @functools.cache
@@ -86,10 +138,11 @@ def _launch(wrapper, entry: str, tables, indices, lengths, D: int):
     out = torch.empty((NB, D), dtype=torch.float32, device=device)
     if NB == 0:
         return out
+    vec, _, unroll = table_plan(entry, tables[0])
     lib = _lib()
     err = getattr(lib, entry)(
         *(t.data_ptr() for t in tables), indices.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), NB, L, D, R,
+        lengths.data_ptr(), out.data_ptr(), NB, L, D, R, vec, unroll,
         torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, err, name)
     wrapper.launches += 1

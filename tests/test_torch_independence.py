@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package ``repro``."""
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not the port's plan sweeps (``scripts/torch_*.py``)
+imports JAX or the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _modules():

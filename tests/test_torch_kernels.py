@@ -215,20 +215,23 @@ def test_every_csrc_source_is_covered():
 
 def test_lib_path_changes_with_a_shared_header(tmp_path, monkeypatch):
     """A library is named by a hash of its source, the shared headers and
-    the flags, so an edit to ``hopper.cuh`` (which is not a source) names
-    a new library for every source and a stale one is never loaded."""
+    the flags, so an edit to ``hopper.cuh`` or ``decode_split.cuh`` (which
+    are not sources) names a new library for every source and a stale one
+    is never loaded."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
-    header = csrc / "hopper.cuh"
-    assert [p.name for p in _build.headers()] == ["hopper.cuh"]
-    assert "hopper" not in _build.sources()
-    before = {name: _build.lib_path(name) for name in _build.sources()}
-    assert before == {name: _build.lib_path(name) for name in _build.sources()}
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {name: _build.lib_path(name) for name in _build.sources()}
-    assert all(after[name] != before[name] for name in before)
-    assert len(set(after.values())) == len(after)
+    assert [p.name for p in _build.headers()] == ["decode_split.cuh",
+                                                  "hopper.cuh"]
+    for header in _build.headers():
+        assert header.stem not in _build.sources()
+        before = {name: _build.lib_path(name) for name in _build.sources()}
+        assert before == {name: _build.lib_path(name)
+                          for name in _build.sources()}
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {name: _build.lib_path(name) for name in _build.sources()}
+        assert all(after[name] != before[name] for name in before)
+        assert len(set(after.values())) == len(after)
 
 
 def test_wrappers_reject_bad_inputs():
