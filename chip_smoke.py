@@ -48,6 +48,15 @@ result line):
              w8a8 GEMM and ``torch._int_mm`` at M=4 and M=2048, the int8-KV
              decode, the three SLS kernels and fp32 ``embedding_bag`` at the
              main shapes.
+             Flash also takes prefill chunks: queries at a per-row offset
+             (``q_off``) attending rows ``kv_rows`` of a larger cache in
+             place, held against the plain version at the tile edges
+             (offsets off the 128-key tile, a short last chunk, a padded
+             row, G 4 and 8, f32 on the CUDA cores, a window), kv rows
+             outside the cache (0 for those rows only), deepseek-7b's chunk
+             call (4 x 128 at offsets 384, 128, 0, 256 over a 4 x 1024
+             cache; timed beside SDPA with a boolean mask) and a 24-case
+             seeded sweep.
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``: 8 requests, 32 new
              tokens each. The kernels' launch counters are zeroed just
@@ -59,17 +68,31 @@ result line):
              decode kernels must have run and the bf16 decode kernel not;
              the greedy agreement with phase 3 is printed, not held (the
              logits of random full-width weights are near-flat).
+4b. serve-chunked, serve-chunked-w8a8 — the same weights and requests
+             through ``prefill_chunk=128`` engines, bf16 and then w8a8 with
+             an int8 KV cache: 8/8 requests of 32 tokens, flash launched at
+             a query offset; the agreement with the monolithic engine's
+             outputs is printed, not held.
 5. check   — the reduced deepseek-7b config (f32, head_dim 16) and a
              bf16 head_dim-128 one (``reduce_hd128``) served on the card and
              on the host (plain versions) from the same weights must agree
              on >= 95% of the greedy tokens, each in its fp type and in w8a8
              with an int8 KV cache, and a full-width prefill must give
              finite hidden states.
-6. profile — one full-width prefill call and eight decode steps through
-             the model layer, fp and then w8a8 with the int8 KV cache: wall
-             time untraced, then the device time of one ``torch.profiler``
-             trace (busy share, the share of the matrix products and of each
-             port kernel, the top kernels).
+5b. check-chunked — the reduced f32 config on the card, the host as
+             reference: chunked == monolithic tokens (chunk 8 and 16; card vs
+             host >= 0.95), prefix hits == a cold engine, snapshot ->
+             restore bit for bit over f32 and int8 caches, host paging and
+             mid-prefill migration token-identical, and ``reduce_hd128`` in
+             w8a8 + int8 KV chunked vs monolithic >= 0.95.
+6. profile — one full-width prefill call, eight decode steps and one
+             prefill chunk call through the model layer, fp and then w8a8
+             with the int8 KV cache: wall time untraced, then the device
+             time of one ``torch.profiler`` trace (busy share, the share of
+             the matrix products and of each port kernel, the top kernels);
+             the chunk call must touch whole cache rows only through views
+             and its in-place write (no gather, copy or dequantize of whole
+             rows), and over an int8 cache the prefix dequantize is timed.
 7. serve-dlrm — with the deepseek-7b weights freed: DLRM ``PAPER_COMPLEX``
              at its published widths with every table halved (one shard,
              a 58.6 GB row-wise int8 slab made on the card from a seed)
@@ -91,8 +114,10 @@ Kernel times (``ms``) are CUDA-event times of single calls, each after an
 L2 flush; the device window's times leave out the host's enqueue gap.
 
 The line before the last is a JSON object with one entry per kernel (its
-``launches`` are those of the phase whose path runs it: serve, serve-w8a8,
-serve-dlrm, or check-dlrm for the fp32 and int4 SLS kernels); the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
+``launches`` are those of the phases whose path runs it: serve and
+serve-chunked for flash, serve for bf16 decode, serve-w8a8, serve-dlrm, or
+check-dlrm for the fp32 and int4 SLS kernels); the last line is
+``{"ok": true, "device": {...}}``. Needs one CUDA device and
 the repository's ``src/`` beside this file; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -130,7 +155,9 @@ from repro_torch.kernels.sls.ref import (  # noqa: E402
     sls_int4_ref, sls_int8_ref, sls_ref)
 from repro_torch.kernels.w8a8.ops import w8a8_matmul  # noqa: E402
 from repro_torch.kernels.w8a8.ref import w8a8_ref  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import dlrm as dlrm_mod  # noqa: E402
+from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.quantize import (  # noqa: E402
     QuantizedParams, build_quantized_params)
@@ -310,6 +337,97 @@ def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, **kw):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 call=call,
                 library_call=None if library_ms is None else library_call)
+
+
+def chunk_mask(start, lengths, C: int, T: int, window: int = 0):
+    """(P,C,T) bool on the card: key t visible to chunk query i of row j
+    (t <= start[j] + i, t < start[j] + lengths[j], inside the window)."""
+    start = torch.tensor(start, device=DEV)[:, None, None]
+    lens = start + torch.tensor(lengths, device=DEV)[:, None, None]
+    qpos = start + torch.arange(C, device=DEV)[None, :, None]
+    kpos = torch.arange(T, device=DEV)[None, None, :]
+    mask = (kpos <= qpos) & (kpos < lens)
+    if window:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def flash_chunk_case(name, gen, Bk, T, H, K, hd, C, dtype, slots, start,
+                     lengths, window=0, softcap=0.0, measure=False,
+                     quiet=False):
+    """Prefill chunks through flash at query offsets ``start`` over rows
+    ``slots`` of a (Bk, T) cache, held against the plain version on the
+    same inputs; with ``measure``, timed beside its bound and SDPA (a
+    boolean mask over the gathered rows, the gather outside the timed
+    call) and returned as a measurement dict, else its error."""
+    P = len(slots)
+    q = _randn(gen, (P, C, H, hd), dtype)
+    k, v = (_randn(gen, (Bk, T, K, hd), dtype) for _ in range(2))
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=DEV)
+    lens = i32([s + n for s, n in zip(start, lengths)])
+    kw = dict(window=window, softcap=softcap, q_off=i32(start),
+              kv_rows=i32(slots))
+    got = flash_attn(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, lens, **kw)
+    err = compare(f"flash_attn[{name}]", got, want, dtype)
+    if not measure:
+        if not quiet:
+            print(f"flash_attn {name}: max abs err {err:.3e}", flush=True)
+        return err
+    mask = chunk_mask(start, lengths, C, T, window)
+    elem = q.element_size()
+    flops = 4.0 * mask.sum().item() * H * hd
+    # q read and o written once; each row's K and V up to its lens
+    nbytes = elem * (2 * q.numel() + 2 * K * hd * lens.sum().item())
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    rows = i32(slots).long()
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x[rows].repeat_interleave(H // K, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    m4 = mask[:, None]
+
+    def call():
+        return flash_attn(q, k, v, lens, **kw)
+
+    def library_call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+
+    library_err = (library_call().transpose(1, 2).float()
+                   - want.float()).abs().max().item()
+    return dict(max_abs_err=err, library_err=library_err, ms=time_ms(call),
+                plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, lens,
+                                                             **kw)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=time_ms(library_call), call=call,
+                library_call=library_call)
+
+
+def flash_bad_row(gen) -> None:
+    """A kv row outside the cache reads no key: that row gives 0, on both
+    routes, and the other rows stay right."""
+    for dt, hd in ((torch.bfloat16, 128), (torch.float32, 32)):
+        q = _randn(gen, (3, 16, 4, hd), dt)
+        k, v = (_randn(gen, (3, 64, 2, hd), dt) for _ in range(2))
+        lens = torch.tensor([40, 40, 40], dtype=torch.int32, device=DEV)
+        rows = torch.tensor([1, 3, -1], dtype=torch.int32, device=DEV)
+        off = torch.tensor([24, 24, 24], dtype=torch.int32, device=DEV)
+        got = flash_attn(q, k, v, lens, q_off=off, kv_rows=rows)
+        torch.cuda.synchronize()
+        if got[1:].any():
+            raise AssertionError(f"flash_attn: kv rows 3 and -1 of a 3-row "
+                                 f"cache did not give 0 ({dt})")
+        compare("flash_attn[kv rows outside the cache]", got,
+                flash_attention_ref(q, k, v, lens, q_off=off, kv_rows=rows),
+                dt)
+    print("flash_attn: kv rows outside the cache give 0 for their rows only "
+          "(bf16 hd 128, f32 hd 32)", flush=True)
+
+
+# deepseek-7b's chunk call: 4 slots at offsets (384, 128, 0, 256) over a
+# 4 x 1024 bf16 cache, one 128-token chunk each (lengths 128, 128, 77, 1)
+CHUNK_MAIN = dict(slots=[0, 1, 2, 3], start=[384, 128, 0, 256],
+                  lengths=[128, 128, 77, 1])
 
 
 def decode_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
@@ -738,6 +856,41 @@ def phase_kernels() -> dict:
             main["flash_attn"] = r
             device_fns["flash_attn " + name] = r["call"]
             device_fns["SDPA " + name] = r["library_call"]
+    # prefill chunks at query offsets over a larger cache: offsets off the
+    # 128-key tile, a short last chunk and a padded row (lengths 0,
+    # repeating the first slot), G 4 and 8 at hd 64 and 128, the CUDA-core
+    # kernel in f32 at hd 16 and 128, a window
+    chunk_cases = {
+        "chunk_off_tile_C100_T400": (4, 400, 8, 8, 128, 100, [3, 1],
+                                     [300, 157], [100, 100], 0, bf16),
+        "chunk_short_lens_C128_T512": (3, 512, 8, 8, 128, 128, [2, 0, 1, 2],
+                                       [384, 0, 200, 0], [128, 5, 77, 0], 0,
+                                       bf16),
+        "chunk_G4_C64_T300_hd128": (2, 300, 16, 4, 128, 64, [1, 0],
+                                    [236, 10], [64, 40], 0, bf16),
+        "chunk_G8_C64_T300_hd64": (2, 300, 16, 2, 64, 64, [1, 0], [236, 129],
+                                   [64, 33], 0, bf16),
+        "chunk_f32_hd16_C32_T128": (3, 128, 4, 2, 16, 32, [2, 1], [96, 31],
+                                    [32, 20], 0, f32),
+        "chunk_f32_hd128_C48_T256": (2, 256, 8, 4, 128, 48, [0, 1],
+                                     [200, 65], [48, 48], 0, f32),
+        "chunk_hd64_C96_T512": (4, 512, 8, 8, 64, 96, [3, 2, 1], [416, 97, 0],
+                                [96, 96, 50], 0, bf16),
+        "chunk_window64_C128_T600": (3, 600, 8, 8, 128, 128, [1, 2],
+                                     [472, 129], [128, 100], 64, bf16),
+    }
+    for name, (Bk, T, H, K, hd, C, slots, start, lengths, window,
+               dt) in chunk_cases.items():
+        flash_chunk_case(name, gen, Bk, T, H, K, hd, C, dt, slots, start,
+                         lengths, window)
+    flash_bad_row(gen)
+    name = "chunk_main_P4_C128_T1024_H32_hd128"
+    r = flash_chunk_case(name, gen, 4, 1024, 32, 32, 128, 128, bf16,
+                         measure=True, **CHUNK_MAIN)
+    _show("flash_attn", name, r)
+    main["flash_attn_chunk"] = r
+    device_fns["flash_attn " + name] = r["call"]
+    device_fns["SDPA (boolean mask) " + name] = r["library_call"]
     # the JAX package's cases (repro/kernels/decode_attn/ops.py), scalar
     # pos broadcast to every row, then deepseek-7b decode at per-row pos
     decode_cases = {
@@ -854,6 +1007,7 @@ def phase_kernels() -> dict:
         r.pop("call", None)
         r.pop("library_call", None)
     sweep(seed=1, n=32)
+    sweep_chunks(seed=4, n=24)
     sweep_int8(seed=2, n=32)
     sweep_sls(seed=3, n=32)
     return main
@@ -956,6 +1110,41 @@ def sweep(seed: int, n: int) -> None:
           f" max abs err {worst}", flush=True)
 
 
+def sweep_chunks(seed: int, n: int) -> None:
+    """``n`` random prefill-chunk cases of flash: a cache of 1 to 4 rows,
+    a group of 1 to 4 rows (repeats allowed), offsets anywhere in the
+    cache, chunks near the 128-key tile, lengths from 0 to the chunk,
+    every head_dim and group size, both types, windows and softcaps; each
+    against its plain version. No timing."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def pick(xs):
+        return xs[int(rng.integers(0, len(xs)))]
+
+    worst = 0.0
+    for i in range(n):
+        Bk, P = int(rng.integers(1, 5)), int(rng.integers(1, 5))
+        K, G, hd = pick([1, 2, 4]), pick([1, 2, 4, 8]), pick([16, 32, 64,
+                                                              128, 64, 128])
+        dt = pick([torch.float32, torch.bfloat16, torch.bfloat16])
+        C = pick([int(rng.integers(1, 200)), pick([127, 128, 129])])
+        T = C + int(rng.integers(0, 500))
+        start = [int(rng.integers(0, T - C + 1)) for _ in range(P)]
+        lengths = [int(rng.integers(0, C + 1)) for _ in range(P)]
+        slots = [int(rng.integers(0, Bk)) for _ in range(P)]
+        window, cap = pick([0, 0, 16, 70]), pick([0.0, 0.0, 30.0])
+        err = flash_chunk_case(
+            f"chunk sweep {i}: Bk{Bk} T{T} C{C} K{K} G{G} hd{hd} {dt} "
+            f"slots {slots} start {start} lengths {lengths} window {window} "
+            f"softcap {cap}", gen, Bk, T, K * G, K, hd, C, dt, slots, start,
+            lengths, window, cap, quiet=True)
+        worst = max(worst, err)
+    torch.cuda.synchronize()
+    print(f"sweep: {n} random prefill-chunk cases of flash_attn agree with "
+          f"the plain version; max abs err {worst:.3e}", flush=True)
+
+
 def sweep_int8(seed: int, n: int) -> None:
     """``n`` random cases per int8 kernel: w8a8 at ragged M, K and N, at
     the tensor-core kernel's 128-row, 256-column and 128-byte K tile edges
@@ -1036,18 +1225,23 @@ def _serve(eng, cfg, label: str):
     with every launch counter zeroed just before and read just after.
     Raises unless all 8 got 32 tokens in the vocab. Returns (launches,
     the requests' outputs)."""
+    torch.cuda.reset_peak_memory_stats()
     eng.run(_requests(1, 64, 64, 4, cfg.vocab_size, seed=1))    # warm-up
     eng.telemetry.reset_serving_stats()
     reqs = _requests(8, 64, 512, 32, cfg.vocab_size, seed=0)
-    for fn in LAUNCHERS.values():
-        fn.launches = 0
+    _zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in LAUNCHERS.items()}
+    launches["flash_attn at a q_off"] = flash_attn.offset_launches
     tel = eng.telemetry
+    prefill = ("chunk call", "chunk_prefill") if eng.prefill_chunk \
+        else ("prefill call", "prefill")
+    chunked = (f" ({tel.continuations} continuations, chunk "
+               f"{eng.prefill_chunk})" if eng.prefill_chunk else "")
     ttft = tel.ttft_percentiles()
     n_tok = sum(len(r.output) for r in reqs)
     print(f"{label}: deepseek-7b full width bf16, {cfg.num_layers} layers, "
@@ -1055,9 +1249,9 @@ def _serve(eng, cfg, label: str):
           f"{tel.served}/{len(reqs)} in {wall:.3f} s, {n_tok / wall:.1f} "
           f"tok/s, TTFT p50 {ttft['p50']:.2f} ms p99 {ttft['p99']:.2f} ms, "
           f"mean decode step {stage_ms(tel, 'decode'):.3f} ms over "
-          f"{tel.steps} steps, mean prefill call "
-          f"{stage_ms(tel, 'prefill'):.3f} ms over "
-          f"{tel.prefill_batches} calls; peak memory "
+          f"{tel.steps} steps, mean {prefill[0]} "
+          f"{stage_ms(tel, prefill[1]):.3f} ms over "
+          f"{tel.prefill_batches} calls{chunked}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if tel.served != len(reqs):
         raise AssertionError(f"served {tel.served} of {len(reqs)}")
@@ -1114,7 +1308,32 @@ def phase_serve_quant(cfg, params, ref_outputs):
     print(f"serve-w8a8: greedy-token agreement with the bf16 engine "
           f"{agree:.4f} (printed, not held: random full-width weights give "
           f"near-flat logits)", flush=True)
-    return launches, eng.run_params
+    return launches, eng.quant, outputs
+
+
+def phase_serve_chunked(cfg, params, mono_outputs, quant=None):
+    """The serve phase's weights and requests through a chunked engine
+    (``prefill_chunk=128``), in bf16 or, given the w8a8 build, in w8a8
+    with an int8 KV cache. Flash must have run at a query offset; the
+    agreement with the monolithic engine's outputs is printed, not held
+    (near-flat logits of random full-width weights). Returns the launch
+    counts."""
+    label = "serve-chunked" + ("-w8a8" if quant is not None else "")
+    kw = dict(batch_slots=4, max_len=1024, prefill_buckets=(64, 128, 256, 512),
+              prefill_chunk=128, device=DEV)
+    if quant is not None:
+        cfg = _int8_kv(cfg)
+        kw.update(precision="w8a8", quantized_params=quant)
+    launches, outputs = _serve(InferenceEngine(cfg, params, **kw), cfg, label)
+    _require_launched(label, launches, (
+        "flash_attn", "flash_attn at a q_off",
+        *(("w8a8_matmul", "decode_attn_int8") if quant is not None
+          else ("decode_attn",))))
+    agree = token_agreement(zip(outputs, mono_outputs))
+    print(f"{label}: greedy-token agreement with the monolithic engine's "
+          f"outputs {agree:.4f} (printed, not held: near-flat logits of "
+          f"random full-width weights)", flush=True)
+    return launches
 
 
 def reduce_hd128(cfg):
@@ -1185,6 +1404,158 @@ def phase_check(cfg, params):
           f"rms {h.float().pow(2).mean().sqrt().item():.4f}", flush=True)
 
 
+def _outputs(eng, reqs):
+    """Run ``reqs`` on ``eng``, the slot partition checked after every
+    tick; their outputs."""
+    for r in reqs:
+        eng.submit(r)
+    while eng.has_work:
+        eng.step_once()
+        eng.states.check_partition()
+    return [r.output for r in reqs]
+
+
+def _prefix_trace(vocab, n=6):
+    """Requests sharing a 24-token system prompt (3 chunks of 8)."""
+    shared = np.random.default_rng(0).integers(0, vocab, 24).astype(np.int32)
+    rng = np.random.default_rng(3)
+    return [Request(i, np.concatenate([shared, rng.integers(0, vocab, int(L))])
+                    .astype(np.int32), max_new_tokens=6)
+            for i, L in enumerate(rng.integers(4, 14, n))]
+
+
+def _check_identical(label: str, got, want) -> None:
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"check-chunked: {label}: requests {bad} differ")
+
+
+def _check_round_trip(small, card, kw) -> None:
+    """Snapshot -> restore into another slot -> snapshot, bit for bit, on
+    the card; the restored row past the prefix is zero."""
+    eng = InferenceEngine(small, card, prefill_chunk=8, device=DEV, **kw)
+    eng.run(_requests(3, 16, 20, 4, small.vocab_size, seed=6))
+    src = eng.snapshot_slot(0, 16)
+    live = [{k: t[0, :16].cpu() for k, t in c.items()} for c in eng.caches]
+    eng.restore_slot(src, 2)
+    back = eng.snapshot_slot(2, 16)
+    for a, b, c, layer in zip(src.leaves, back.leaves, live, eng.caches):
+        for k in a:
+            if not (torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])
+                    and not layer[k][2, 16:].any().item()):
+                raise AssertionError(f"check-chunked: {k} row did not "
+                                     f"round-trip bit for bit")
+    st = eng.transfer_stats
+    dtype = eng.caches[0]["k"].dtype
+    print(f"check-chunked: {dtype} cache, snapshot -> restore bit for bit "
+          f"({src.bytes_partial} of {src.bytes_full} row bytes shipped; "
+          f"{st.num_transfers_batched} batched copies for "
+          f"{st.num_transfers_naive} tensors)", flush=True)
+
+
+def phase_check_chunked():
+    """The reduced f32 config on the card, the host's plain versions as
+    reference: chunked (8, 16) token-identical to the card's monolithic
+    engine and >= 0.95 greedy agreement with the host's chunked engine; a
+    prefix-cache replay token-identical to a cold engine; snapshot ->
+    restore bit for bit over f32 and int8 caches; host paging (6 sessions
+    on 2 slots) and mid-prefill migration token-identical; then
+    ``reduce_hd128`` in w8a8 + int8 KV, chunked against monolithic at >=
+    0.95."""
+    small = reduce_for_smoke(get_config("deepseek-7b"))
+    host = model_mod.init_params(small, seed=0, device="cpu")
+    card = copy.deepcopy(host).to(DEV)
+    kw = dict(batch_slots=3, max_len=64, prefill_buckets=(8, 16, 32, 48))
+    trace = lambda: _requests(6, 3, 40, 8, small.vocab_size, seed=3)
+    mono = _outputs(InferenceEngine(small, card, device=DEV, **kw), trace())
+    for chunk in (8, 16):
+        eng = InferenceEngine(small, card, prefill_chunk=chunk, device=DEV,
+                              **kw)
+        got = _outputs(eng, trace())
+        _check_identical(f"chunk {chunk} vs monolithic", got, mono)
+        on_host = _outputs(InferenceEngine(small, host, prefill_chunk=chunk,
+                                           device="cpu", **kw), trace())
+        agree = token_agreement(zip(got, on_host))
+        print(f"check-chunked: chunk {chunk}, 6 requests token-identical to "
+              f"monolithic ({eng.telemetry.continuations} continuations); "
+              f"card vs host greedy-token agreement {agree:.4f}", flush=True)
+        if agree < 0.95:
+            raise AssertionError(f"check-chunked: chunk {chunk} card/host "
+                                 f"agreement {agree} < 0.95")
+    ckw = dict(kw, prefill_chunk=8)
+    cold = _outputs(InferenceEngine(small, card, device=DEV, **ckw),
+                    _prefix_trace(small.vocab_size))
+    warm = InferenceEngine(small, card, prefix_cache=16, device=DEV, **ckw)
+    warm.run(_prefix_trace(small.vocab_size))
+    warm.telemetry.reset_serving_stats()
+    _check_identical("prefix hits vs cold", _outputs(
+        warm, _prefix_trace(small.vocab_size)), cold)
+    if warm.telemetry.prefix_hits == 0:
+        raise AssertionError("check-chunked: no prefix hit on the replay")
+    print(f"check-chunked: prefix cache, 6 requests replayed with "
+          f"{warm.telemetry.prefix_hits} hits, token-identical to a cold "
+          f"engine", flush=True)
+    _check_round_trip(small, card, kw)
+    _check_round_trip(_int8_kv(small), card, kw)
+    lens = (40, 5, 9, 30, 3, 12)
+    sessions = lambda: [Request(i, np.random.default_rng(9 + i).integers(
+        0, small.vocab_size, n).astype(np.int32), max_new_tokens=6)
+        for i, n in enumerate(lens)]
+    ref = _outputs(InferenceEngine(small, card, device=DEV,
+                                   **dict(ckw, batch_slots=6)), sessions())
+    paged = InferenceEngine(small, card, page_host=True, device=DEV,
+                            **dict(ckw, batch_slots=2))
+    _check_identical("paging vs 6 slots", _outputs(paged, sessions()), ref)
+    tel = paged.telemetry
+    if not tel.paged_out or tel.paged_in != tel.paged_out:
+        raise AssertionError(f"check-chunked: paged out {tel.paged_out}, "
+                             f"in {tel.paged_in}")
+    print(f"check-chunked: host paging, 6 sessions on 2 slots token-identical "
+          f"to 6 slots ({tel.paged_out} paged out and in)", flush=True)
+    ref = _outputs(InferenceEngine(small, card, device=DEV, **ckw),
+                   sessions())
+    victim, thief = (InferenceEngine(small, card, device=DEV, **ckw)
+                     for _ in range(2))
+    got = sessions()
+    for r in got:
+        victim.submit(r)
+    victim.step_once()
+    stolen = victim.scheduler.steal_pending(
+        3, eligible=victim.migration_eligible, include_continuations=True)
+    for t in stolen:
+        thief.adopt_prefill(t, victim.export_prefill(t))
+    thief.scheduler.absorb(stolen, record=False)
+    while victim.has_work or thief.has_work:
+        for eng in (victim, thief):
+            if eng.has_work:
+                eng.step_once()
+    if not stolen:
+        raise AssertionError("check-chunked: no mid-prefill ticket migrated")
+    _check_identical("migration", [r.output for r in got], ref)
+    print(f"check-chunked: migration, {len(stolen)} mid-prefill tickets "
+          f"exported and adopted, outputs token-identical", flush=True)
+    small = _int8_kv(reduce_hd128(get_config("deepseek-7b")))
+    host = model_mod.init_params(small, seed=0, device="cpu")
+    qp = build_quantized_params(small, host)
+    card_qp = QuantizedParams(copy.deepcopy(qp.params).to(DEV), qp.result,
+                              qp.quantized_sites, qp.fallback_sites)
+    card = copy.deepcopy(host).to(DEV)
+    outs, conts = [], 0
+    for chunk in (None, 8):
+        eng = InferenceEngine(small, card, precision="w8a8",
+                              quantized_params=card_qp, prefill_chunk=chunk,
+                              device=DEV, **kw)
+        outs.append(_outputs(eng, trace()))
+        conts += eng.telemetry.continuations
+    agree = token_agreement(zip(*outs))
+    print(f"check-chunked: reduced deepseek-7b bf16 head_dim 128, w8a8 + "
+          f"int8 KV, chunked (8) vs monolithic greedy-token agreement "
+          f"{agree:.4f} ({conts} continuations)", flush=True)
+    if agree < 0.95:
+        raise AssertionError(f"check-chunked: w8a8 + int8 KV chunked vs "
+                             f"monolithic agreement {agree} < 0.95")
+
+
 # ---- profile ----------------------------------------------------------------
 
 MATMUL_KERNEL_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
@@ -1245,10 +1616,79 @@ def profile_window(label: str, fn, steps: int, shares=LM_SHARES) -> None:
               f" ms/step x{e.count // steps:<4d} {e.key[:90]}", flush=True)
 
 
+# what may touch a whole cache tensor (B, max_len, K, hd) in a chunk call:
+# views and the in-place write of the chunk's K/V; a gather (aten::index), a
+# copy or a dequantize of whole rows would show up as another op
+IN_PLACE_OPS = {"aten::index_put_", "aten::_index_put_impl_", "aten::slice",
+                "aten::select", "aten::as_strided", "aten::view",
+                "aten::alias"}
+
+
+def whole_row_ops(fn, max_len: int) -> set:
+    """Names of the aten ops of one traced call of ``fn`` that take a
+    tensor with ``max_len`` positions at dim 1 (a whole cache row)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            record_shapes=True) as prof:
+        fn()
+    return {e.name for e in prof.events()
+            if any(isinstance(sh, (list, tuple)) and len(sh) >= 3
+                   and all(isinstance(d, int) for d in sh)
+                   and sh[1] == max_len for sh in e.input_shapes)}
+
+
+def profile_chunk(cfg, params, caches, tag: str) -> None:
+    """One chunk call at deepseek-7b's chunk shape (``CHUNK_MAIN``) on the
+    profile's caches: device time and shares, the ops that touch whole
+    cache rows (views and the in-place write only: the flash kernel reads
+    the rows in place), and over an int8 cache the time of the prefix
+    dequantize."""
+    C, max_len = 128, caches[0]["k"].shape[1]
+    slots, start, lengths = (CHUNK_MAIN[k] for k in ("slots", "start",
+                                                     "lengths"))
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (len(slots), C), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    last = torch.tensor([n - 1 for n in lengths], device=DEV)
+
+    @torch.inference_mode()
+    def chunk():
+        x, _ = model_mod.chunk_prefill_step(params, cfg, toks, caches, slots,
+                                            start, start, lengths)
+        return model_mod.greedy_next(
+            params, cfg, x[torch.arange(len(slots), device=DEV), last]).cpu()
+
+    profile_window(f"{tag}chunk call, {len(slots)}x{C} at offsets {start} "
+                   f"(lengths {lengths})", chunk, 1)
+    seen = whole_row_ops(chunk, max_len)
+    if seen - IN_PLACE_OPS:
+        raise AssertionError(f"profile: {tag}chunk call: ops that read "
+                             f"whole cache rows: "
+                             f"{sorted(seen - IN_PLACE_OPS)}")
+    print(f"profile: {tag}chunk call: ops on whole cache rows "
+          f"{sorted(seen)} (views and the in-place write; no gather, copy "
+          f"or dequantize of whole rows)", flush=True)
+    if "k_scale" in caches[0]:
+        tile = attn_mod.DEQUANT_TILE
+        n = -(-max(s + L for s, L in zip(start, lengths)) // tile) * tile
+        c0, rows = caches[0], torch.tensor(slots, device=DEV)
+        dt = dtype_of(cfg.activation_dtype)
+
+        def dequant():
+            return [attn_mod._kv_dequant(c0[k][rows, :n], c0[k + "_scale"]
+                                         [rows, :n], dt) for k in ("k", "v")]
+        ms = time_ms(dequant)
+        print(f"profile: {tag}chunk call: int8 prefix dequantize ({len(slots)}"
+              f" rows x {n} of {max_len} keys, K and V) {ms:.4f} ms a layer, "
+              f"{ms * cfg.num_layers:.3f} ms a call over {cfg.num_layers} "
+              f"layers", flush=True)
+
+
 def phase_profile(cfg, params, tag: str = ""):
-    """Where one full-width prefill call and one decode step spend their
-    time: the model layer driven directly at the serve phase's shapes
-    (``params`` may be a quantized model, ``cfg`` an int8-KV config)."""
+    """Where one full-width prefill call, one decode step and one prefill
+    chunk call spend their time: the model layer driven directly at the
+    serve phases' shapes (``params`` may be a quantized model, ``cfg`` an
+    int8-KV config)."""
     B, S, max_len = 4, 512, 1024
     lens = torch.tensor([512, 300, 77, 1], device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(5)
@@ -1280,6 +1720,7 @@ def phase_profile(cfg, params, tag: str = ""):
     profile_window(f"{tag}prefill {B}x{S} (lens {lens.tolist()})", prefill, 1)
     profile_window(f"{tag}decode step, {B} rows at pos {lens.tolist()}+",
                    decode, steps)
+    profile_chunk(cfg, params, caches, tag)
 
 
 # ---- DLRM -------------------------------------------------------------------
@@ -1292,6 +1733,7 @@ DLRM_SHARES = {"matmul kernels": MATMUL_KERNEL_NAMES,
 def _zero_launches() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
+    flash_attn.offset_launches = 0
 
 
 def _require_sls(label: str, launches: dict, kind: str, n: int) -> None:
@@ -1454,15 +1896,21 @@ def main():
           f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
           f"params in {time.perf_counter() - t0:.1f} s", flush=True)
     launches, bf16_outputs = phase_serve(cfg, params)
-    launches_q, quant_params = phase_serve_quant(cfg, params, bf16_outputs)
+    launches_c = phase_serve_chunked(cfg, params, bf16_outputs)
+    launches_q, quant, w8a8_outputs = phase_serve_quant(cfg, params,
+                                                        bf16_outputs)
+    phase_serve_chunked(cfg, params, w8a8_outputs, quant)
     phase_check(cfg, params)
+    phase_check_chunked()
     phase_profile(cfg, params)
-    phase_profile(_int8_kv(cfg), quant_params, tag="w8a8+int8kv ")
-    # each kernel's launches are those of the serve phase that runs it
+    phase_profile(_int8_kv(cfg), quant.params, tag="w8a8+int8kv ")
+    # each kernel's launches are those of the serve phase that runs it;
+    # flash's are the monolithic and the chunked bf16 serves'
     launches.update({k: launches_q[k] for k in ("w8a8_matmul",
                                                 "decode_attn_int8")})
+    launches["flash_attn"] += launches_c["flash_attn"]
     # the DLRM slab needs the card: drop every deepseek-7b tensor first
-    del params, quant_params
+    del params, quant
     gc.collect()
     torch.cuda.empty_cache()
     print(f"freed deepseek-7b: {torch.cuda.memory_allocated() / 2**30:.2f} "

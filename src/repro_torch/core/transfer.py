@@ -15,11 +15,18 @@ A pinned buffer must not be refilled while an asynchronous copy out of it
 is still reading it. ``PinnedStaging`` therefore keeps a ring of buffers,
 one per copy in flight, each with an event recorded after its copy, and
 waits on that event before it refills the buffer.
+
+The sequence-snapshot legs (``snapshot_device_get`` /
+``snapshot_device_put``, the LM engine's movable state) ship a whole slot
+row — every layer's K/V (and int8 scales) — as ONE copy each way through
+one pinned buffer (``SnapshotStaging``), counted in ``TransferStats`` as
+the originals count them. A tree is the engine's cache layout: a list
+with one dict of tensors per layer.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -153,6 +160,131 @@ def command_batched_transfer(batch: SparseBatch,
     keep = lpos[None, :] < used_dev[:, None]                    # (T, Lmax)
     out = staged_dev[:, src.reshape(-1)].reshape(B, T, Lmax)
     return torch.where(keep[None], out, 0), lens_dev
+
+
+Tree = List[Dict[str, torch.Tensor]]
+
+
+class SnapshotStaging:
+    """One pinned host buffer for the snapshot legs, grown on demand. An
+    event recorded after a host-to-device copy out of it guards the next
+    refill; a device-to-host copy into it is waited for before it is
+    read."""
+
+    def __init__(self):
+        self._buf: Optional[torch.Tensor] = None
+        self._event: Optional[torch.cuda.Event] = None
+
+    def buffer(self, nbytes: int) -> torch.Tensor:
+        if self._event is not None:
+            self._event.synchronize()
+        if self._buf is None or self._buf.numel() < nbytes:
+            self._buf = torch.empty(nbytes, dtype=torch.uint8,
+                                    pin_memory=True)
+        return self._buf[:nbytes]
+
+    def record(self, device) -> None:
+        if self._event is None:
+            self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(device))
+
+
+def _nbytes(shape, dtype) -> int:
+    return int(np.prod(shape)) * torch.empty(0, dtype=dtype).element_size()
+
+
+def _layout(shapes_dtypes) -> Tuple[List[int], int]:
+    """16-byte aligned start of each (shape, dtype) in one byte buffer, and
+    the buffer's size."""
+    starts, n = [], 0
+    for shape, dtype in shapes_dtypes:
+        starts.append(n)
+        n += -(-_nbytes(shape, dtype) // PinnedStaging.ALIGN) \
+            * PinnedStaging.ALIGN
+    return starts, n
+
+
+def _view(buf: torch.Tensor, start: int, shape, dtype) -> torch.Tensor:
+    """The bytes of ``buf`` from ``start`` as a (shape, dtype) tensor."""
+    n = _nbytes(shape, dtype)
+    return buf[start:start + n].view(dtype).view(shape)
+
+
+def _count(stats: Optional[TransferStats], n_leaves: int, partial: int,
+           full: int) -> None:
+    if stats is not None:
+        stats.bytes_partial += partial
+        stats.bytes_full += full
+        stats.num_transfers_naive += n_leaves
+        stats.num_transfers_batched += 1
+
+
+def snapshot_device_get(tree: Tree, stats: Optional[TransferStats] = None,
+                        full_bytes: Optional[int] = None,
+                        staging: Optional[SnapshotStaging] = None) -> Tree:
+    """Device->host leg of the sequence-snapshot path: the tree's tensors
+    as host tensors of the same shapes and types, bit for bit. On a card,
+    the rows are packed into one device buffer and shipped in ONE copy
+    into ``staging``'s pinned buffer (command batching: one copy and one
+    wait for all leaves, not one per tensor). ``full_bytes`` is what whole
+    rows would have shipped; counted as ``TransferStats`` counts it in the
+    JAX package (one naive transfer per tensor, one batched)."""
+    leaves = [t for layer in tree for t in layer.values()]
+    partial = sum(t.numel() * t.element_size() for t in leaves)
+    _count(stats, len(leaves), partial,
+           full_bytes if full_bytes is not None else partial)
+    device = leaves[0].device
+    if device.type != "cuda":
+        return [{k: t.clone() for k, t in layer.items()} for layer in tree]
+    if staging is None:
+        raise ValueError("a snapshot from the card goes through a "
+                         "SnapshotStaging buffer")
+    starts, total = _layout((t.shape, t.dtype) for t in leaves)
+    packed = torch.empty(total, dtype=torch.uint8, device=device)
+    for t, s in zip(leaves, starts):
+        _view(packed, s, t.shape, t.dtype).copy_(t)
+    host = staging.buffer(total)
+    host.copy_(packed, non_blocking=True)
+    torch.cuda.current_stream(device).synchronize()
+    it = iter(zip(leaves, starts))
+    return [{k: _view(host, s, t.shape, t.dtype).clone()
+             for k, (t, s) in zip(layer, it)} for layer in tree]
+
+
+def snapshot_device_put(rows: Tree, like: Tree, device,
+                        stats: Optional[TransferStats] = None,
+                        staging: Optional[SnapshotStaging] = None) -> Tree:
+    """Host->device leg of snapshot restore: each host row of ``rows``
+    zero-padded along dim 0 to the shape of its tensor in ``like`` (whole
+    rows, as the JAX package restores them), all shipped in ONE copy out
+    of ``staging``'s pinned buffer. Returns the padded rows on
+    ``device``. The restore ships full rows, so partial == full here (the
+    saving was taken on the snapshot leg)."""
+    pairs = [(r, ref) for rl, ll in zip(rows, like)
+             for r, ref in ((rl[k], ll[k]) for k in rl)]
+    starts, total = _layout((ref.shape, ref.dtype) for _, ref in pairs)
+    full = sum(ref.numel() * ref.element_size() for _, ref in pairs)
+    _count(stats, len(pairs), full, full)
+    device = torch.device(device)
+    if device.type == "cuda":
+        if staging is None:
+            raise ValueError("a restore to the card goes through a "
+                             "SnapshotStaging buffer")
+        host = staging.buffer(total)
+    else:
+        host = torch.empty(total, dtype=torch.uint8)
+    for (r, ref), s in zip(pairs, starts):
+        v = _view(host, s, ref.shape, ref.dtype)
+        v[:r.shape[0]] = r
+        v[r.shape[0]:] = 0
+    if device.type == "cuda":
+        dev = host.to(device, non_blocking=True)
+        staging.record(device)
+    else:
+        dev = host
+    it = iter(zip(pairs, starts))
+    return [{k: _view(dev, s, ref.shape, ref.dtype)
+             for k, ((_, ref), s) in zip(rl, it)} for rl in rows]
 
 
 def naive_transfer(batch: SparseBatch,

@@ -7,6 +7,18 @@
 // a per-row valid key length `lens` (B,). Online softmax (m, l, acc) in f32; a row
 // whose keys are all masked gives 0. Output (B,S,H,hd) in the input type.
 //
+// Prefill chunks (the JAX package's chunk path, src/repro/models/attention.py:366-387,
+// which attends in jnp) come through the same two kernels with two optional (B,)
+// int32 arrays. `q_off`: query i of row b sits at absolute position q_off[b] + i, so
+// the causal frontier, the window and the tile range all shift by q_off[b] (key j is
+// visible iff j <= q_off[b] + i, j < lens[b], and within the window). `kv_rows`: row b
+// reads K/V row kv_rows[b] of a k, v whose batch extent Bk may differ from B, so a
+// chunk group attends the engine's whole (slots, max_len, K, hd) cache in place, with
+// no gather. A null pointer means offset 0 and row b. A kv row outside [0, Bk) reads
+// no key and gives 0 (the tensor-core kernel loads zero tiles there: TMA fills a box
+// outside the tensor with zeros; a guard in that kernel cost 15% at the chunk shape,
+// scripts/torch_flash_chunks.py).
+//
 // Rows. A "row" is one (query position, group head) pair: flattened row r = s*G + g,
 // so all G heads that share a kv head are served by the same K/V tiles. A block
 // owns one (batch, kv head, tile of rows) and loops over the kv tiles from the
@@ -46,7 +58,10 @@
 // byte, below the ~295 at which the bf16 tensor cores (989 TFLOP/s) bound it, so the
 // least time is the bytes at 3.35 TB/s; with lens (512, 300, 77, 1) little work is
 // left per block and the tile's latency (load, two products, softmax in series)
-// bounds the kernel. Left for later: overlapping one tile's softmax with the next
+// bounds the kernel. A prefill chunk is the same: at deepseek-7b's chunk call (4 rows
+// of 128 queries at offsets 384, 128, 0, 256) the bytes bound it at 7.89 us, and each
+// of its 128 blocks walks 1 to 4 key tiles in series (23 us on an H100 80GB HBM3 at
+// 700 W, PERF.md). Left for later: overlapping one tile's softmax with the next
 // tile's products (two tiles in flight per warpgroup) and splitting long rows' key
 // range across blocks.
 
@@ -97,8 +112,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ lens, T* __restrict__ o, int S, int T_, int H, int K,
-                 int causal, int window, float softcap, float scale) {
+                 const int* __restrict__ lens, const int* __restrict__ q_off,
+                 const int* __restrict__ kv_rows, T* __restrict__ o, int Bk, int S, int T_,
+                 int H, int K, int causal, int window, float softcap, float scale) {
   constexpr int LD = HD + 1;            // padded smem row stride for Q, K, V
   constexpr int LP = kBk + 1;           // padded smem row stride for P
   constexpr int CPT = HD / 8;           // output columns per thread
@@ -127,10 +143,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   // key range this block needs: from the window's left edge to the causal
-  // frontier of its last row, and never past lens[b]
-  const int len_b = min(lens[b], T_);
-  const int q_first = r0 / G;
-  const int q_last = (min(r0 + kRows, n_rows) - 1) / G;
+  // frontier of its last row, and never past lens[b]; positions are absolute
+  // (shifted by the row's query offset)
+  const int qoff = q_off ? q_off[b] : 0;
+  const int kb = kv_rows ? kv_rows[b] : b;
+  const bool bad_row = kb < 0 || kb >= Bk;
+  const int len_b = bad_row ? 0 : min(lens[b], T_);
+  const int q_first = qoff + r0 / G;
+  const int q_last = qoff + (min(r0 + kRows, n_rows) - 1) / G;
   int k_end = len_b;
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
@@ -138,7 +158,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   int qpos[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) qpos[i] = (r0 + ty * 4 + i) / G;
+  for (int i = 0; i < 4; ++i) qpos[i] = qoff + (r0 + ty * 4 + i) / G;
 
   float m[4], l[4], acc[4][CPT];
 #pragma unroll
@@ -155,9 +175,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int row = i / HD, d = i % HD, t = k0 + row;
       float kv = 0.f, vv = 0.f;
       if (t < T_) {
-        const size_t off = (((size_t)b * T_ + t) * K + h) * HD + d;
-        kv = to_f(k[off]);
-        vv = to_f(v[off]);
+        const size_t at = (((size_t)kb * T_ + t) * K + h) * HD + d;
+        kv = to_f(k[at]);
+        vv = to_f(v[at]);
       }
       ks[row * LD + d] = kv;
       vs[row * LD + d] = vv;
@@ -242,9 +262,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* lens, void* o,
-                   int B, int S, int T_, int H, int K, int causal, int window,
-                   float softcap, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const int* lens,
+                   const int* q_off, const int* kv_rows, void* o, int B, int Bk, int S, int T_,
+                   int H, int K, int causal, int window, float softcap, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
@@ -258,8 +278,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lens,
   dim3 grid((S * G + kRows - 1) / kRows, K, B);
   const float scale = (float)(1.0 / std::sqrt((double)HD));  // hd ** -0.5
   flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, lens, (T*)o, S, T_, H, K, causal, window,
-      softcap, scale);
+      (const T*)q, (const T*)k, (const T*)v, lens, q_off, kv_rows, (T*)o, Bk, S, T_, H, K,
+      causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -283,13 +303,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int HD>
+// OFFSETS: whether q_off / kv_rows may be given. The kernel without them compiles
+// as it did before chunks: with the offset logic in, even with null pointers, the
+// main prefill shape ran 12% slower (scripts/torch_flash_chunks.py).
+template <int HD, bool OFFSETS>
 __global__ void __launch_bounds__(kFaThreads, 1)
 flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap, const int* __restrict__ lens,
-                     __nv_bfloat16* __restrict__ o, int S, int T_, int H, int K, int causal,
-                     int window, float softcap, float scale) {
+                     const int* __restrict__ q_off, const int* __restrict__ kv_rows,
+                     __nv_bfloat16* __restrict__ o, int Bk, int S, int T_, int H, int K,
+                     int causal, int window, float softcap, float scale) {
   constexpr int HALVES = HD / 64;
   constexpr int TILE_BYTES = HALVES * kBox;   // one Q, K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -305,9 +329,14 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
   const int h = blockIdx.x, b = blockIdx.y;
   const int r0 = (gridDim.z - 1 - blockIdx.z) * kFaRows;  // last row tiles (most keys) first
   const int n_rows = S * G;
+  // absolute positions: the row's query offset shifts the causal frontier, the
+  // window and the tile range; the Q tile itself is loaded at its local row q_lo
+  const int qoff = OFFSETS && q_off ? q_off[b] : 0;
+  const int kb = OFFSETS && kv_rows ? kv_rows[b] : b;  // outside [0, Bk): zero tiles
   const int len_b = min(lens[b], T_);
-  const int q_first = r0 / G;
-  const int q_last = (min(r0 + kFaRows, n_rows) - 1) / G;
+  const int q_lo = r0 / G;
+  const int q_first = qoff + q_lo;
+  const int q_last = qoff + (min(r0 + kFaRows, n_rows) - 1) / G;
   int k_end = len_b;
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
@@ -330,14 +359,14 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
     if (tid == 0 && n_kv > 0) {
       hopper::mbar_arrive_expect_tx(qbar, TILE_BYTES);
       for (int hf = 0; hf < HALVES; ++hf)
-        hopper::tma_load_5d(sQ + hf * kBox, &qmap, qbar, hf * 64, 0, h, q_first, b);
+        hopper::tma_load_5d(sQ + hf * kBox, &qmap, qbar, hf * 64, 0, h, q_lo, b);
       for (int i = 0; i < n_kv; ++i) {
         const int s = i % kFaStages, k0 = k_begin + i * kFaKeys;
         hopper::mbar_wait(&empty[s], ((i / kFaStages) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
         for (int hf = 0; hf < HALVES; ++hf) {
-          hopper::tma_load_4d(sK + s * TILE_BYTES + hf * kBox, &kmap, &full[s], hf * 64, h, k0, b);
-          hopper::tma_load_4d(sV + s * TILE_BYTES + hf * kBox, &vmap, &full[s], hf * 64, h, k0, b);
+          hopper::tma_load_4d(sK + s * TILE_BYTES + hf * kBox, &kmap, &full[s], hf * 64, h, k0, kb);
+          hopper::tma_load_4d(sV + s * TILE_BYTES + hf * kBox, &vmap, &full[s], hf * 64, h, k0, kb);
         }
       }
     }
@@ -349,7 +378,7 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
   const int c = wg - 1;
   const int warp = tid / 32, lane = tid % 32, t = lane % 4;
   const int ra = c * 64 + warp * 16 + lane / 4;
-  const int qpos[2] = {(r0 + ra) / G, (r0 + ra + 8) / G};
+  const int qpos[2] = {qoff + (r0 + ra) / G, qoff + (r0 + ra + 8) / G};
   const float qk_scale = scale * kLog2e;      // scores in the log2 domain
 
   float acc[HD / 2];
@@ -474,14 +503,15 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int HD>
-cudaError_t launch_tma(const void* q, const void* k, const void* v, const int* lens, void* o,
-                       int B, int S, int T_, int H, int K, int causal, int window,
-                       float softcap, cudaStream_t stream) {
+template <int HD, bool OFFSETS>
+cudaError_t launch_tma(const void* q, const void* k, const void* v, const int* lens,
+                       const int* q_off, const int* kv_rows, void* o, int B, int Bk, int S,
+                       int T_, int H, int K, int causal, int window, float softcap,
+                       cudaStream_t stream) {
   constexpr size_t smem = tma_smem_bytes<HD>();
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel_tma<HD>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel_tma<HD, OFFSETS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
@@ -499,17 +529,20 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, const int* l
   if (e != cudaSuccess) return e;
   const void* kv[2] = {k, v};
   CUtensorMap* maps[2] = {&kmap, &vmap};
+  // k, v as (Bk, T, K, hd): a chunk's row b loads its tiles at batch coordinate
+  // kv_rows[b]; keys past T_ fill with zeros (and are masked)
   for (int i = 0; i < 2; ++i) {
     e = hopper::make_map<4>(maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kv[i],
-                            {(uint64_t)HD, (uint64_t)K, (uint64_t)T_, (uint64_t)B},
+                            {(uint64_t)HD, (uint64_t)K, (uint64_t)T_, (uint64_t)Bk},
                             {HD * e2, (uint64_t)K * HD * e2, (uint64_t)T_ * K * HD * e2},
                             {64u, 1u, (uint32_t)kFaKeys, 1u});
     if (e != cudaSuccess) return e;
   }
   dim3 grid(K, B, (S * G + kFaRows - 1) / kFaRows);
   const float scale = (float)(1.0 / std::sqrt((double)HD));  // hd ** -0.5
-  flash_fwd_kernel_tma<HD><<<grid, kFaThreads, smem, stream>>>(
-      qmap, kmap, vmap, lens, (__nv_bfloat16*)o, S, T_, H, K, causal, window, softcap, scale);
+  flash_fwd_kernel_tma<HD, OFFSETS><<<grid, kFaThreads, smem, stream>>>(
+      qmap, kmap, vmap, lens, q_off, kv_rows, (__nv_bfloat16*)o, Bk, S, T_, H, K, causal,
+      window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -522,43 +555,53 @@ bool takes_tma(int hd, int G, const void* q, const void* k, const void* v, const
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, const int* lens,
-                        void* o, int B, int S, int T_, int H, int K, int causal, int window,
-                        float softcap, cudaStream_t st) {
+                        const int* q_off, const int* kv_rows, void* o, int B, int Bk, int S,
+                        int T_, int H, int K, int causal, int window, float softcap,
+                        cudaStream_t st) {
+#define FLASH_ARGS q, k, v, lens, q_off, kv_rows, o, B, Bk, S, T_, H, K, causal, window, softcap, st
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (takes_tma(hd, H / K, q, k, v, o)) {
-      if (hd == 128)
-        return launch_tma<128>(q, k, v, lens, o, B, S, T_, H, K, causal, window, softcap, st);
-      return launch_tma<64>(q, k, v, lens, o, B, S, T_, H, K, causal, window, softcap, st);
+      if (q_off != nullptr || kv_rows != nullptr)
+        return hd == 128 ? launch_tma<128, true>(FLASH_ARGS) : launch_tma<64, true>(FLASH_ARGS);
+      return hd == 128 ? launch_tma<128, false>(FLASH_ARGS) : launch_tma<64, false>(FLASH_ARGS);
     }
   }
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, lens, o, B, S, T_, H, K, causal, window, softcap, st);
-    case 32: return launch<T, 32>(q, k, v, lens, o, B, S, T_, H, K, causal, window, softcap, st);
-    case 64: return launch<T, 64>(q, k, v, lens, o, B, S, T_, H, K, causal, window, softcap, st);
-    case 128: return launch<T, 128>(q, k, v, lens, o, B, S, T_, H, K, causal, window, softcap, st);
+    case 16: return launch<T, 16>(FLASH_ARGS);
+    case 32: return launch<T, 32>(FLASH_ARGS);
+    case 64: return launch<T, 64>(FLASH_ARGS);
+    case 128: return launch<T, 128>(FLASH_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef FLASH_ARGS
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (B,S,H,hd), k/v (B,T,K,hd), o (B,S,H,hd): contiguous, all float32 (dtype 0)
-// or all bfloat16 (dtype 1); lens (B,) int32 on the device. Launches on
-// `stream` and returns cudaGetLastError() (0 = launched).
-int flash_attn_fwd(const void* q, const void* k, const void* v, const void* lens, void* o,
-                   int B, int S, int T, int H, int K, int hd, int causal, int window,
-                   float softcap, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
+// q (B,S,H,hd), k/v (Bk,T,K,hd), o (B,S,H,hd): contiguous, all float32 (dtype 0)
+// or all bfloat16 (dtype 1); lens (B,) int32 on the device; q_off and kv_rows (B,)
+// int32 on the device or null (offset 0, row b; Bk == B then). Launches on `stream`
+// and returns cudaGetLastError() (0 = launched).
+int flash_attn_fwd(const void* q, const void* k, const void* v, const void* lens,
+                   const void* q_off, const void* kv_rows, void* o, int B, int Bk, int S, int T,
+                   int H, int K, int hd, int causal, int window, float softcap, int dtype,
+                   void* stream) {
+  if (B <= 0 || Bk <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0 ||
+      (kv_rows == nullptr && Bk != B))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int* ln = (const int*)lens;
+  const int* qo = (const int*)q_off;
+  const int* kr = (const int*)kv_rows;
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_hd<float>(hd, q, k, v, ln, o, B, S, T, H, K, causal, window, softcap, st);
+    e = dispatch_hd<float>(hd, q, k, v, ln, qo, kr, o, B, Bk, S, T, H, K, causal, window,
+                           softcap, st);
   else if (dtype == 1)
-    e = dispatch_hd<__nv_bfloat16>(hd, q, k, v, ln, o, B, S, T, H, K, causal, window,
-                                   softcap, st);
+    e = dispatch_hd<__nv_bfloat16>(hd, q, k, v, ln, qo, kr, o, B, Bk, S, T, H, K, causal,
+                                   window, softcap, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

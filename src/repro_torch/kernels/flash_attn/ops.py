@@ -3,7 +3,9 @@
 ``flash_attn`` checks its inputs, then launches the CUDA kernel for CUDA
 tensors, or runs the plain version (``ref.py``) for CPU tensors. There is no
 fallback: a CUDA input the kernel cannot take raises. ``flash_attn.launches``
-counts kernel launches (plain-version calls do not count).
+counts kernel launches (plain-version calls do not count), and
+``flash_attn.offset_launches`` those of them given a ``q_off`` (the model's
+chunk path passes one only when some row's offset is not 0).
 """
 from __future__ import annotations
 
@@ -20,9 +22,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# flash_attn_fwd(q, k, v, lens, o, B, S, T, H, K, hd, causal, window,
-#                softcap, dtype, stream) in csrc/flash.cu
-ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+# flash_attn_fwd(q, k, v, lens, q_off, kv_rows, o, B, Bk, S, T, H, K, hd,
+#                causal, window, softcap, dtype, stream) in csrc/flash.cu
+ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -34,37 +36,50 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, lens):
+def _check(q, k, v, lens, q_off, kv_rows):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attn wants q (B,S,H,hd) and k, v (B,T,K,hd); "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+        raise ValueError(f"flash_attn wants q (B,S,H,hd) and k, v "
+                         f"(Bk,T,K,hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, hd = q.shape
-    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
+    if (kv_rows is None and k.shape[0] != B) or k.shape[3] != hd \
+            or H % k.shape[2]:
         raise ValueError(f"flash_attn: k {tuple(k.shape)} does not match "
-                         f"q {tuple(q.shape)} (H must be a multiple of K)")
+                         f"q {tuple(q.shape)} (H must be a multiple of K, "
+                         f"and without kv_rows k's batch must be q's)")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attn: q, k and v must be on one device")
-    if lens is not None and (lens.shape != (B,) or lens.dtype != torch.int32
-                             or lens.device != q.device):
-        raise ValueError(f"flash_attn: lens must be ({B},) int32 on "
-                         f"{q.device}; got {tuple(lens.shape)} {lens.dtype} "
-                         f"on {lens.device}")
+    for name, t in (("lens", lens), ("q_off", q_off), ("kv_rows", kv_rows)):
+        if t is not None and (t.shape != (B,) or t.dtype != torch.int32
+                              or t.device != q.device):
+            raise ValueError(f"flash_attn: {name} must be ({B},) int32 on "
+                             f"{q.device}; got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
 
 
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lens: Optional[torch.Tensor] = None, *, causal: bool = True,
-               window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """q (B,S,H,hd); k,v (B,T,K,hd); lens (B,) int32 valid key count
-    (default T) -> (B,S,H,hd) in q.dtype."""
-    _check(q, k, v, lens)
+               window: int = 0, softcap: float = 0.0,
+               q_off: Optional[torch.Tensor] = None,
+               kv_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,S,H,hd); k,v (Bk,T,K,hd); lens (B,) int32 valid key count
+    (default T) -> (B,S,H,hd) in q.dtype.
+
+    ``q_off`` (B,) int32: query i of row b sits at absolute position
+    ``q_off[b] + i`` (default 0); the causal mask and the window count from
+    there, so a prefill chunk attends the keys its row's cache already
+    holds. ``kv_rows`` (B,) int32: row b reads K/V row ``kv_rows[b]`` of
+    ``k``/``v`` (default b), so a chunk group reads the engine's whole
+    cache in place; a row outside [0, Bk) reads no key and gives 0."""
+    _check(q, k, v, lens, q_off, kv_rows)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, lens, causal=causal,
-                                   window=window, softcap=softcap)
+                                   window=window, softcap=softcap,
+                                   q_off=q_off, kv_rows=kv_rows)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn: no kernel for device {q.device}")
     B, S, H, hd = q.shape
-    T, K = k.shape[1], k.shape[2]
+    Bk, T, K = k.shape[:3]
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attn kernel takes float32 or bfloat16 q, k, "
                          f"v of one dtype; got {q.dtype}, {k.dtype}, "
@@ -76,17 +91,22 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attn kernel needs contiguous q, k, v")
     if lens is None:
         lens = torch.full((B,), T, dtype=torch.int32, device=q.device)
-    lens = lens.contiguous()
     o = torch.empty_like(q)
     lib = _lib()
+    # absent q_off / kv_rows go to the kernel as null pointers: offset 0,
+    # row b
     err = lib.flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        o.data_ptr(), B, S, T, H, K, hd, int(causal), int(window),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.contiguous().data_ptr(),
+        None if q_off is None else q_off.contiguous().data_ptr(),
+        None if kv_rows is None else kv_rows.contiguous().data_ptr(),
+        o.data_ptr(), B, Bk, S, T, H, K, hd, int(causal), int(window),
         float(softcap), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_attn")
     flash_attn.launches += 1
+    flash_attn.offset_launches += q_off is not None
     return o
 
 
 flash_attn.launches = 0
+flash_attn.offset_launches = 0

@@ -12,6 +12,13 @@ size one 80 GB card holds.
 then the w8a8 kernel for every int8 site); ``--verify-quant`` replays the
 trace on an unquantized engine and exits non-zero when the greedy-token
 agreement falls below the 0.90 guardrail.
+``--prefill-chunk N`` splits prompts into N-token chunks interleaved with
+decode steps; ``--verify-chunked`` replays the trace monolithically and
+exits non-zero unless every output is token-identical. ``--prefix-cache N``
+(with ``--prefill-chunk``) caches prompt prefixes at chunk granularity;
+``--verify-prefix`` replays a hot-system-prompt trace through the warm
+cache and exits non-zero unless it hits and every output is
+token-identical to a cold engine's.
 """
 from __future__ import annotations
 
@@ -47,6 +54,52 @@ def _lm_requests(args, cfg):
             for i, (l, p) in enumerate(zip(lens, prios))]
 
 
+def _prefix_requests(args, cfg):
+    """Hot-system-prompt trace (the JAX launcher's): every request opens
+    with the same 3-chunk prefix and ends with a short suffix of its
+    own."""
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, cfg.vocab_size,
+                          3 * args.prefill_chunk).astype(np.int32)
+    reqs = []
+    for i in range(args.requests):
+        tail = rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(4, 12))).astype(np.int32)
+        reqs.append(Request(i, np.concatenate([prefix, tail]),
+                            max_new_tokens=args.new_tokens))
+    return reqs
+
+
+def _verify_prefix(args, cfg, params, kw):
+    """Populate the prefix cache with the hot-system-prompt trace, replay
+    it through the warm cache, and exit non-zero unless it hits and every
+    replayed output is token-identical to a cold engine's."""
+    if not args.prefix_cache:
+        raise SystemExit("--verify-prefix needs --prefix-cache")
+    warm = InferenceEngine(cfg, params, precision=args.precision, **kw)
+    warm.run(_prefix_requests(args, cfg))       # populate pass
+    warm.telemetry.reset_serving_stats()
+    hot = _prefix_requests(args, cfg)
+    warm.run(hot)                               # replay: every prefix hits
+    tel = warm.telemetry
+    cold = InferenceEngine(cfg, params, precision=args.precision,
+                           **dict(kw, prefix_cache=None))
+    ref = _prefix_requests(args, cfg)
+    cold.run(ref)
+    bad = [r.rid for r, m in zip(hot, ref) if r.output != m.output]
+    if bad:
+        raise SystemExit(f"FAIL: cache-hit outputs diverge from cold "
+                         f"prefill for requests {bad}")
+    if tel.prefix_hits == 0:
+        raise SystemExit("FAIL: no prefix hits on a replayed "
+                         "hot-system-prompt trace")
+    print(f"verify-prefix OK: {len(hot)} requests replayed, "
+          f"{tel.prefix_hits} prefix-cache hits, outputs token-identical "
+          f"to cold prefill")
+    print(tel.report())
+    return tel
+
+
 def serve_lm(args):
     cfg = reduce_for_smoke(get_config(args.arch)) if args.smoke \
         else get_config(args.arch)
@@ -58,22 +111,42 @@ def serve_lm(args):
         print(f"CUDA kernels built in {time.perf_counter() - t0:.1f}s")
     if args.verify_quant and args.precision != "w8a8":
         raise SystemExit("--verify-quant needs --precision w8a8")
+    if args.verify_chunked and not args.prefill_chunk:
+        raise SystemExit("--verify-chunked needs --prefill-chunk")
+    if args.prefix_cache and not args.prefill_chunk:
+        raise SystemExit("--prefix-cache needs --prefill-chunk")
     params = model_mod.init_params(cfg, seed=0, device=args.device)
     kw = dict(batch_slots=args.slots, max_len=args.max_len,
               prefill_buckets=(16, 32, 64, 128), policy=args.policy,
               slo_ms=args.slo_ms, max_queue=args.max_queue,
-              device=args.device)
+              prefill_chunk=args.prefill_chunk,
+              prefix_cache=args.prefix_cache, device=args.device)
+    if args.verify_prefix:
+        return _verify_prefix(args, cfg, params, kw)
     eng = InferenceEngine(cfg, params, precision=args.precision, **kw)
     reqs = _lm_requests(args, cfg)
     t0 = time.perf_counter()
     eng.run(reqs)
     wall = time.perf_counter() - t0
     tel = eng.telemetry
+    chunked = (f", {tel.continuations} chunk continuations"
+               if args.prefill_chunk else "")
     print(f"served {tel.served} requests in {wall:.2f}s on {args.device} "
           f"({tel.total_tokens / wall:.0f} tok/s, {tel.steps} decode steps, "
           f"{tel.prefills} prefills in {tel.prefill_batches} batched "
-          f"dispatches)")
+          f"dispatches{chunked})")
     print(tel.report())
+    if args.verify_chunked:
+        ref = InferenceEngine(cfg, params, precision=args.precision,
+                              **dict(kw, prefill_chunk=None))
+        ref_reqs = _lm_requests(args, cfg)
+        ref.run(ref_reqs)
+        bad = [r.rid for r, m in zip(reqs, ref_reqs) if r.output != m.output]
+        if bad:
+            raise SystemExit(f"FAIL: chunked outputs diverge from "
+                             f"monolithic for requests {bad}")
+        print(f"verify-chunked OK: {len(reqs)} requests token-identical "
+              f"to monolithic prefill")
     if args.verify_quant:
         ref = InferenceEngine(cfg, params, precision="fp32", **kw)
         ref_reqs = _lm_requests(args, cfg)
@@ -120,6 +193,10 @@ def serve_dlrm(args):
     return tel
 
 
+def _chunk_arg(v: str):
+    return v if v == "auto" else int(v)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b",
@@ -140,6 +217,23 @@ def main(argv=None):
     ap.add_argument("--verify-quant", action="store_true",
                     help="replay on an unquantized engine and check the "
                          "greedy-token agreement guardrail")
+    ap.add_argument("--prefill-chunk", type=_chunk_arg, default=None,
+                    help="split prompts into N-token chunks interleaved "
+                         "with decode steps (LM only); 'auto' needs the "
+                         "performance model, which the port does not have "
+                         "yet")
+    ap.add_argument("--verify-chunked", action="store_true",
+                    help="replay the trace monolithically and check that "
+                         "chunked outputs are token-identical")
+    ap.add_argument("--prefix-cache", type=int, default=None,
+                    help="prefix cache capacity (entries): snapshot prompt "
+                         "prefixes at chunk granularity and admit later "
+                         "shared-prefix requests with their prefill "
+                         "restored (needs --prefill-chunk)")
+    ap.add_argument("--verify-prefix", action="store_true",
+                    help="replay a hot-system-prompt trace through the "
+                         "warm prefix cache and check nonzero hits with "
+                         "outputs token-identical to a cold engine")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full-config", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda",

@@ -1,8 +1,8 @@
 """Global (causal, all-positions) GQA attention with a KV cache — the part
-of ``repro/models/attention.py`` that deepseek-7b serving runs. Prefill goes
-through the flash kernel, decode through the flash-decode kernel (or its
-int8-cache twin). A projection whose weight the build step quantized
-(``QuantDense``) goes through the w8a8 kernel.
+of ``repro/models/attention.py`` that deepseek-7b serving runs. Prefill and
+prefill chunks go through the flash kernel, decode through the
+flash-decode kernel (or its int8-cache twin). A projection whose weight the
+build step quantized (``QuantDense``) goes through the w8a8 kernel.
 
 The KV cache is a dict of preallocated ``k``/``v`` tensors (B, max_len, K, hd)
 that prefill and decode update in place. (The JAX package instead returns a
@@ -13,8 +13,10 @@ fp16 ``k_scale``/``v_scale`` (B, max_len, K): one symmetric scale per
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -66,6 +68,12 @@ def _kv_quant(x: torch.Tensor):
     scale = absmax / 127.0
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale.to(torch.float16)
+
+
+def _kv_dequant(q: torch.Tensor, scale: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    return (q.to(torch.float32)
+            * scale.to(torch.float32)[..., None]).to(dtype)
 
 
 def _head_proj(x: torch.Tensor, w, cfg: ModelConfig) -> torch.Tensor:
@@ -149,3 +157,85 @@ def decode_attention(p: Attention, x: torch.Tensor, cache: Cache,
     else:
         o = decode_attn(q[:, 0], cache["k"], cache["v"], pos)
     return _out_proj(p, o.to(x.dtype)[:, None]), cache
+
+
+# an int8 cache's chunk path dequantizes each group row's keys up to the
+# largest ``start + lengths`` rounded up to this many keys: the flash
+# kernel's K/V tile on the tensor cores (128 keys; the CUDA-core kernel's
+# 32-key tile divides it)
+DEQUANT_TILE = 128
+
+
+@dataclass
+class ChunkCoords:
+    """Where one prefill chunk call reads and writes, on the device; built
+    once a call by ``chunk_coords`` and shared by every layer."""
+    positions: torch.Tensor          # (P,C) int64: start[j] + i
+    lens: torch.Tensor               # (P,) int32: start + lengths
+    q_off: Optional[torch.Tensor]    # (P,) int32 start; None if all 0
+    kv_rows: torch.Tensor            # (P,) int32 cache rows (slots)
+    write_rows: torch.Tensor         # (n,) int64 cache row of each real token
+    write_pos: torch.Tensor          # (n,) int64 its position in the row
+    src: torch.Tensor                # (n,) int64 its index in the P*C tokens
+    dequant_len: int                 # keys an int8 cache dequantizes a row
+
+
+def chunk_coords(slots, start, write_pos, lengths, C: int, max_len: int,
+                 device) -> ChunkCoords:
+    """Host arrays (P,) of a chunk group -> its ``ChunkCoords``. Row j's
+    chunk covers positions start[j] .. start[j]+C-1, of which the first
+    ``lengths[j]`` are real (0: a padded row). Only the real tokens are
+    written, at ``write_pos[j] + i``, and only below ``max_len``: the JAX
+    package scatters all C with out-of-bounds writes dropped, and the
+    positions past a row's real tokens that it writes are rewritten before
+    anything reads them (the next chunk or decode writes a position before
+    attending it)."""
+    slots, start, write_pos, lengths = (np.asarray(a, np.int64) for a in
+                                        (slots, start, write_pos, lengths))
+    j, i = np.nonzero(np.arange(C)[None, :] < lengths[:, None])
+    keep = write_pos[j] + i < max_len
+    j, i = j[keep], i[keep]
+    ends = start + lengths
+    dequant = -(-int(ends.max(initial=1)) // DEQUANT_TILE) * DEQUANT_TILE
+
+    def dev(a, dtype=torch.int64):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+    return ChunkCoords(
+        positions=dev(start[:, None] + np.arange(C)[None, :]),
+        lens=dev(ends, torch.int32),
+        q_off=dev(start, torch.int32) if start.any() else None,
+        kv_rows=dev(slots, torch.int32),
+        write_rows=dev(slots[j]), write_pos=dev(write_pos[j] + i),
+        src=dev(j * C + i), dequant_len=min(max(dequant, 1), max_len))
+
+
+def chunk_prefill_attention(p: Attention, x: torch.Tensor, cache: Cache,
+                            cc: ChunkCoords, cfg: ModelConfig
+                            ) -> torch.Tensor:
+    """One prompt chunk per group row against the live cache (the global
+    half of the JAX package's ``chunk_prefill_attention``): x (P,C,d) at
+    positions ``cc.positions``. The chunk's real K/V is written into the
+    cache rows in place, then every query attends its own cache row
+    through the flash kernel: key t is visible to chunk query i of row j
+    iff t <= start[j] + i (and t < start[j] + lengths[j]). An fp cache is
+    read in place (``kv_rows``); an int8 cache is quantized on the write
+    and its group rows dequantized up to ``cc.dequant_len`` keys. Returns
+    y (P,C,d)."""
+    P, C = x.shape[:2]
+    q, k_new, v_new = _project_qkv(p, x, cfg, cc.positions)
+    k_tok = k_new.reshape(P * C, *k_new.shape[2:])[cc.src]
+    v_tok = v_new.reshape(P * C, *v_new.shape[2:])[cc.src]
+    for name, val in _cache_entries(cache, k_tok, v_tok):
+        cache[name][cc.write_rows, cc.write_pos] = val.to(cache[name].dtype)
+    if "k_scale" in cache:
+        n, rows = cc.dequant_len, cc.kv_rows.long()
+        ck = _kv_dequant(cache["k"][rows, :n], cache["k_scale"][rows, :n],
+                         x.dtype)
+        cv = _kv_dequant(cache["v"][rows, :n], cache["v_scale"][rows, :n],
+                         x.dtype)
+        o = flash_attn(q, ck, cv, cc.lens, q_off=cc.q_off)
+    else:
+        o = flash_attn(q, cache["k"], cache["v"], cc.lens, q_off=cc.q_off,
+                       kv_rows=cc.kv_rows)
+    return _out_proj(p, o)

@@ -27,20 +27,24 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 cache: attn.Cache, positions: Optional[torch.Tensor] = None,
                 pos: Optional[torch.Tensor] = None,
                 kv_valid: Optional[torch.Tensor] = None,
-                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                rows: Optional[torch.Tensor] = None,
+                chunk: Optional[attn.ChunkCoords] = None) -> torch.Tensor:
     """mode 'full': causal attention over x, no cache; mode 'prefill': the
-    same, K/V written into cache rows ``rows``; mode 'decode': one token
-    per row at ``pos``, K/V written for the active ``rows``. The cache is
-    updated in place."""
+    same, K/V written into cache rows ``rows``; mode 'chunk': one prompt
+    chunk per row against the live cache at the coordinates ``chunk``;
+    mode 'decode': one token per row at ``pos``, K/V written for the
+    active ``rows``. The cache is updated in place."""
     h = p.pre_norm(x, cfg.norm_eps)
     if mode == "decode":
         y, _ = attn.decode_attention(p.attn, h, cache, pos, cfg, rows)
+    elif mode == "chunk":
+        y = attn.chunk_prefill_attention(p.attn, h, cache, chunk, cfg)
     elif mode in ("full", "prefill"):
         y, (k, v) = attn.full_attention(p.attn, h, cfg, positions, kv_valid)
         if mode == "prefill":
             attn.fill_cache_from_prefill(cache, k, v, rows)
     else:
-        raise ValueError(f"mode must be 'full', 'prefill' or 'decode', got "
-                         f"{mode!r}")
+        raise ValueError(f"mode must be 'full', 'prefill', 'chunk' or "
+                         f"'decode', got {mode!r}")
     x = x + y
     return x + apply_mlp(p.mlp, p.pre_mlp_norm(x, cfg.norm_eps), cfg)

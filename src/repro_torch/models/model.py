@@ -96,6 +96,9 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     marks real tokens; batch row j's K/V goes to cache row
     ``cache_rows[j]`` (default row j), for the first ``len(cache_rows)``
     rows only — padded group rows write nothing.
+    mode 'chunk': batch {'tokens' (P,C)}, one prompt chunk per group row;
+    ``pos`` is ``(slots, start, write_pos, lengths)``, host arrays (P,)
+    (see ``chunk_prefill_step``).
     mode 'decode': batch {'tokens' (B,1)} at per-row positions ``pos``
     (B,); ``active`` (B,) bool (host array or tensor) marks the rows really
     decoding — the others write no K/V.
@@ -104,7 +107,7 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"].to(device)
     x = vocab_mod.embed_lookup(params.embed, tokens, cfg)
     B, S = tokens.shape
-    positions = rows = None
+    positions = rows = chunk = None
     if mode in ("full", "prefill"):
         positions = torch.arange(S, device=device).expand(B, S)
     if mode == "full":
@@ -114,6 +117,12 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 else cache_rows.to(device))
         if kv_valid is not None:
             kv_valid = kv_valid.to(device)
+    elif mode == "chunk":
+        slots_bk, max_len = caches[0]["k"].shape[:2]
+        if not all(0 <= s < slots_bk for s in np.asarray(pos[0]).tolist()):
+            raise ValueError(f"chunk slots {pos[0]} outside the cache's "
+                             f"{slots_bk} rows")
+        chunk = attn_mod.chunk_coords(*pos, S, max_len, device)
     elif mode == "decode":
         pos = torch.as_tensor(pos, dtype=torch.int32).to(device)
         if pos.dim() == 0:                     # one position for every row
@@ -125,7 +134,7 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     for layer, cache in zip(params.layers, caches):
         x = blk.apply_block(layer, x, cfg, mode=mode, cache=cache,
                             positions=positions, pos=pos, kv_valid=kv_valid,
-                            rows=rows)
+                            rows=rows, chunk=chunk)
     return params.final_norm(x, cfg.norm_eps), \
         (None if mode == "full" else caches)
 
@@ -143,6 +152,21 @@ def prefill(params: Model, cfg: ModelConfig, batch, max_len: int,
     x, caches = forward(params, cfg, batch, mode="prefill", caches=caches,
                         kv_valid=kv_valid)
     return x[:, -1], caches
+
+
+def chunk_prefill_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
+                       caches, slots, start, write_pos, lengths):
+    """Run one prompt chunk per group row against the live caches: tokens
+    (P,C) for cache rows ``slots`` (P,) at absolute offsets ``start``
+    (P,) — row j covers positions start[j]..start[j]+C-1, of which the
+    first ``lengths[j]`` are real (``lengths == 0`` marks a padded group
+    row, which writes nothing). K/V is written in place at ``write_pos[j]
+    + i`` and queries attend the whole written prefix, so iterating chunks
+    is prefix-consistent with a monolithic prefill. ``slots``, ``start``,
+    ``write_pos`` and ``lengths`` are host arrays. Returns (hidden
+    (P,C,d), caches)."""
+    return forward(params, cfg, {"tokens": tokens}, mode="chunk",
+                   caches=caches, pos=(slots, start, write_pos, lengths))
 
 
 def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,8 +1,21 @@
 """LM serving engine of the port (counterpart of ``InferenceEngine`` in
-``repro/serving/engine.py``, monolithic-prefill path): the shared scheduler
-admits requests into free slots, each tick prefills the admitted requests
-in bucketed batched calls and then runs one decode step over all slots at
-per-slot positions, greedy sampling throughout.
+``repro/serving/engine.py``): the shared scheduler admits requests into
+free slots, each tick prefills the admitted requests in bucketed batched
+calls and then runs one decode step over all slots at per-slot positions,
+greedy sampling throughout.
+
+``prefill_chunk=N`` splits prompts into N-token chunks that interleave with
+decode steps: a tick runs at most ONE bucket-coherent chunk group, then one
+decode step. Mid-prefill requests re-enter the queue as continuation
+tickets and keep their slot; each chunk writes its K/V at the row's offset
+and attends the row's cache through the flash kernel at a query offset,
+so chunked prefill is token-identical to monolithic prefill.
+
+Movable sequence state, on one snapshot contract (``snapshot_slot`` /
+``restore_slot``, one batched copy each way): a prefix cache of chunk-
+multiple prompt prefixes (``prefix_cache=N``), host-RAM paging of active
+sessions when fresh arrivals find no slot (``page_host=True``), and
+mid-prefill migration (``export_prefill`` / ``adopt_prefill``).
 
 The KV cache is one list of preallocated per-layer tensors that prefill
 and decode update in place: a prefill group writes its K/V straight into
@@ -19,20 +32,26 @@ follows the config (``cfg.quant.kv_cache_dtype``).
 """
 from __future__ import annotations
 
+import hashlib
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bucketing import pick_bucket
+from repro_torch.core.transfer import (SnapshotStaging, TransferStats,
+                                       snapshot_device_get,
+                                       snapshot_device_put)
 from repro_torch.models import model as model_mod
 from repro_torch.models.quantize import QuantizedParams, build_quantized_params
 from repro_torch.serving.executor import StageExecutor
 from repro_torch.serving.scheduler import Scheduler, SizeTimePolicy, Ticket
-from repro_torch.serving.state import SequenceStateManager
+from repro_torch.serving.state import (SequenceSnapshot, SequenceStateManager,
+                                       require_chunkable)
 from repro_torch.serving.telemetry import Telemetry
 
 
@@ -56,8 +75,8 @@ class Request:
 
 
 class InferenceEngine:
-    """Greedy-decoding LM server: bucketed batched prefill + continuous
-    slot-batched decode (per-slot positions) on ``device``."""
+    """Greedy-decoding LM server: bucketed batched (or chunked) prefill +
+    continuous slot-batched decode (per-slot positions) on ``device``."""
 
     def __init__(self, cfg: ModelConfig, params: model_mod.Model, *,
                  batch_slots: int = 4, max_len: int = 256,
@@ -69,7 +88,15 @@ class InferenceEngine:
                  precision: str = "fp32",
                  quantized_params: Optional[QuantizedParams] = None,
                  quant_budget: float = 0.05,
+                 prefill_chunk: Optional[int | str] = None,
+                 prefix_cache: Optional[int] = None,
+                 page_host: bool = False,
+                 page_victim: str = "lru",
+                 migrate_min_tokens: Optional[int] = None,
                  device="cuda"):
+        if page_victim not in ("lru", "remaining"):
+            raise ValueError(f"page_victim must be 'lru' or 'remaining', "
+                             f"got {page_victim!r}")
         if precision not in ("fp32", "w8a8"):
             raise ValueError(f"precision must be 'fp32' or 'w8a8', "
                              f"got {precision!r}")
@@ -102,13 +129,27 @@ class InferenceEngine:
         self.buckets = tuple(b for b in prefill_buckets if b <= max_len)
         # default admits up to all free slots at once; 1 = per-request
         self.max_prefill_batch = max_prefill_batch or batch_slots
+        if prefill_chunk == "auto":
+            raise NotImplementedError(
+                "prefill_chunk='auto' needs the performance model "
+                "(serving/perf_model.py), which the port does not have yet")
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError("prefill_chunk must be >= 1")
+            require_chunkable(cfg)
+            # the chunk ladder: the bucket ladder cut at the chunk size
+            self.chunk_buckets = tuple(sorted(
+                {b for b in self.buckets if b <= prefill_chunk}
+                | {prefill_chunk}))
 
         self.telemetry = Telemetry()
         self.executor = StageExecutor(self.telemetry)
         if policy == "sizetime":
             # group on the engine's own buckets, or a "coherent" group
             # still splits into several prefill calls
-            policy = SizeTimePolicy(self.buckets)
+            policy = SizeTimePolicy(self.chunk_buckets if prefill_chunk
+                                    else self.buckets)
         self.scheduler = Scheduler(policy, telemetry=self.telemetry,
                                    default_slo_ms=slo_ms,
                                    max_queue=max_queue,
@@ -117,6 +158,37 @@ class InferenceEngine:
                                             self.device)
         self.states = SequenceStateManager(batch_slots, cfg)
 
+        # movable sequence state: one snapshot contract, three consumers
+        # (prefix cache, host-RAM paging, mid-prefill migration)
+        self.transfer_stats = TransferStats()
+        self._staging = SnapshotStaging() if self.device.type == "cuda" \
+            else None
+        if prefix_cache is not None and prefill_chunk is None:
+            raise ValueError("prefix_cache requires prefill_chunk: cache "
+                             "keys are prompt prefixes at chunk granularity")
+        self.prefix_cache = prefix_cache         # max cached prefixes (LRU)
+        self._prefix_cache: "OrderedDict[Tuple[int, str], SequenceSnapshot]" \
+            = OrderedDict()
+        # submit-time hits waiting for their first chunk admission:
+        # id(ticket) -> snapshot to restore into the acquired slot
+        self._pending_restore: Dict[int, SequenceSnapshot] = {}
+        # the fleet-shared prefix tier comes with the fleet layer; until
+        # then the cache is per-engine
+        self._prefix_index = None
+        self.page_host = page_host
+        self.page_victim = page_victim
+        # slot -> decode-step stamp of its most recent token (LRU paging)
+        self._last_decode: Dict[int, int] = {}
+        # paged-out sessions in fault-back (FIFO) order:
+        # id(ticket) -> (ticket, snapshot)
+        self._paged: "OrderedDict[int, Tuple[Ticket, SequenceSnapshot]]" \
+            = OrderedDict()
+        # ship a mid-prefill snapshot only once this many tokens of chunk
+        # work would otherwise be redone (default: one chunk)
+        self.migrate_min_tokens = (migrate_min_tokens
+                                   if migrate_min_tokens is not None
+                                   else (prefill_chunk or 0))
+
     @property
     def free(self) -> List[int]:
         return self.states.free
@@ -124,6 +196,10 @@ class InferenceEngine:
     @property
     def active(self) -> Dict[int, Ticket]:
         return self.states.active
+
+    @property
+    def prefilling(self) -> Dict[int, int]:
+        return self.states.prefilling
 
     @property
     def pos(self) -> np.ndarray:
@@ -152,6 +228,26 @@ class InferenceEngine:
 
         return fn
 
+    def _build_chunk(self, bucket: int):
+        cfg = self.cfg
+
+        @torch.inference_mode()
+        def fn(params, caches, slots, tokens, start, write_pos, lengths,
+               last_idx):
+            """tokens (P,bucket) on the device; slots, start, write_pos,
+            lengths, last_idx (P,) host arrays. Row j's chunk writes its
+            K/V in place into cache row slots[j] and attends that row;
+            padded rows (lengths 0) write nothing. Returns the next tokens
+            (P,) on the host."""
+            x, _ = model_mod.chunk_prefill_step(params, cfg, tokens, caches,
+                                                slots, start, write_pos,
+                                                lengths)
+            hidden = x[torch.arange(x.shape[0], device=x.device),
+                       torch.from_numpy(last_idx).to(x.device).long()]
+            return model_mod.greedy_next(params, cfg, hidden).cpu().numpy()
+
+        return fn
+
     def _build_decode(self):
         cfg = self.cfg
 
@@ -163,6 +259,150 @@ class InferenceEngine:
 
         return fn
 
+    # ---- movable sequence state: serialize / restore ---------------------
+    def snapshot_slot(self, slot: int, length: int, *,
+                      pos: int = 0) -> SequenceSnapshot:
+        """Serialize one slot's sequence state to a host-side
+        ``SequenceSnapshot``: every cache tensor's row ``slot`` sliced to
+        the written prefix ``[0, length)`` (dim 0 of every tensor is the
+        slot, dim 1 the position), shipped in one batched copy, with the
+        partial-vs-full byte accounting in ``transfer_stats``."""
+        n = min(length, self.max_len)
+        rows = [{k: t[slot, :n] for k, t in c.items()} for c in self.caches]
+        full = sum(t[slot].numel() * t.element_size()
+                   for c in self.caches for t in c.values())
+        host = snapshot_device_get(rows, self.transfer_stats,
+                                   full_bytes=full, staging=self._staging)
+        partial = sum(t.numel() * t.element_size()
+                      for c in host for t in c.values())
+        return SequenceSnapshot(length=length, pos=pos, leaves=host,
+                                bytes_partial=partial, bytes_full=full)
+
+    def restore_slot(self, snap: SequenceSnapshot, slot: int) -> None:
+        """Restore a snapshot into ANY free slot: the rows zero-pad back to
+        full rows (positions >= ``snap.length`` are never attended before
+        decode or a chunk rewrites them), ship in one batched copy, and are
+        written into row ``slot`` of every cache tensor in place."""
+        like = [{k: t[slot] for k, t in c.items()} for c in self.caches]
+        dev = snapshot_device_put(snap.leaves, like, self.device,
+                                  self.transfer_stats, self._staging)
+        for cache, rows in zip(self.caches, dev):
+            for k, row in rows.items():
+                cache[k][slot].copy_(row)
+
+    # ---- prefix cache (consumer 1) ---------------------------------------
+    def _prefix_key(self, tokens: np.ndarray, length: int):
+        """Cache key for a prompt prefix: (length, sha1 of the token ids),
+        at chunk granularity, so requests that share a system prompt share
+        every chunk-multiple prefix key."""
+        raw = np.ascontiguousarray(tokens[:length], np.int32).tobytes()
+        return (length, hashlib.sha1(raw).hexdigest())
+
+    def _prefix_lookup(self, req: Request) -> Optional[SequenceSnapshot]:
+        """Longest cached prefix STRICTLY below the request's prefill
+        length, at chunk granularity: the final chunk always recomputes,
+        so a hit emits its first token through the same math as a cold
+        prefill (token-identical by construction)."""
+        total = self._prefill_len(req)
+        L = ((total - 1) // self.prefill_chunk) * self.prefill_chunk
+        while L >= self.prefill_chunk:
+            key = self._prefix_key(req.tokens, L)
+            snap = self._prefix_cache.get(key)
+            if snap is not None:
+                self._prefix_cache.move_to_end(key)          # LRU touch
+                return snap
+            L -= self.prefill_chunk
+        return None
+
+    def _prefix_store(self, key, snap: SequenceSnapshot) -> None:
+        """Put one snapshot into the LRU (dedup by content key, bounded by
+        ``prefix_cache`` entries)."""
+        if key in self._prefix_cache:
+            self._prefix_cache.move_to_end(key)
+            return
+        self._prefix_cache[key] = snap
+        while len(self._prefix_cache) > self.prefix_cache:
+            self._prefix_cache.popitem(last=False)
+
+    def _prefix_insert(self, req: Request, slot: int) -> None:
+        """Admit the slot's written prefix into the cache at a chunk
+        boundary."""
+        key = self._prefix_key(req.tokens, req.prefill_pos)
+        if key in self._prefix_cache:
+            self._prefix_cache.move_to_end(key)
+            return
+        self._prefix_store(key, self.snapshot_slot(slot, req.prefill_pos))
+
+    # ---- host-RAM paging (consumer 2) ------------------------------------
+    def _page_out_one(self) -> bool:
+        """Park one active slot to host RAM so a fresh arrival can have
+        its row. ``page_victim="lru"`` picks the slot whose last decoded
+        token is oldest (ties to the lowest slot); ``"remaining"`` the
+        session with the most tokens still to generate (ties to the
+        highest slot)."""
+        if not self.states.active:
+            return False
+
+        def remaining(t: Ticket) -> int:
+            req: Request = t.payload
+            return req.max_new_tokens - len(req.output)
+
+        if self.page_victim == "lru":
+            slot = min(self.states.active,
+                       key=lambda s: (self._last_decode.get(s, -1), s))
+        else:
+            slot = max(self.states.active,
+                       key=lambda s: (remaining(self.states.active[s]), s))
+        p = int(self.states.pos[slot])
+        snap = self.snapshot_slot(slot, p, pos=p)
+        t = self.states.page_out(slot)
+        self._last_decode.pop(slot, None)
+        self._paged[id(t)] = (t, snap)
+        self.telemetry.record_paged_out()
+        return True
+
+    def _page_in(self) -> None:
+        """Fault paged sessions back into whatever slots admission left
+        free, oldest first; they rejoin the decode batch where they left
+        off."""
+        while self._paged and self.states.free_count > 0:
+            _, (t, snap) = self._paged.popitem(last=False)
+            slot = self.states.acquire(t)
+            self.restore_slot(snap, slot)
+            self.states.activate(t, slot, snap.pos)
+            self._last_decode[slot] = self.telemetry.steps
+            self.telemetry.record_paged_in()
+
+    @property
+    def cache_pressure(self) -> float:
+        """The host-RAM paging backlog per device slot: 0 when every
+        admitted session has a row, 1.0 when a full extra batch of sessions
+        waits in host RAM."""
+        return len(self._paged) / max(self.batch_slots, 1)
+
+    # ---- mid-prefill migration (consumer 3) ------------------------------
+    def migration_eligible(self, t: Ticket) -> bool:
+        """A mid-prefill continuation may leave, with its snapshot, once
+        it has at least ``migrate_min_tokens`` of completed chunk work."""
+        return (t.continuation and id(t) in self.states.prefilling
+                and t.payload.prefill_pos >= max(self.migrate_min_tokens, 1))
+
+    def export_prefill(self, t: Ticket) -> SequenceSnapshot:
+        """Victim side of a migration: serialize the ticket's completed
+        chunk prefix and free its slot."""
+        slot = self.states.prefilling[id(t)]
+        snap = self.snapshot_slot(slot, t.payload.prefill_pos)
+        self.states.release_prefilling(t)
+        return snap
+
+    def adopt_prefill(self, t: Ticket, snap: SequenceSnapshot) -> None:
+        """Thief side: restore the snapshot into a free slot and park it;
+        the continuation then chunks on from ``prefill_pos``."""
+        slot = self.states.acquire(t)
+        self.restore_slot(snap, slot)
+        self.states.park(t, slot)
+        self.telemetry.record_migrated()
+
     # ---- main loop -------------------------------------------------------
     def _eff_len(self, req: Request) -> int:
         """Effective prefill length: what admission sizing and bucket
@@ -173,32 +413,63 @@ class InferenceEngine:
                priority: Optional[int] = None) -> Ticket:
         """Enqueue a request; keyword overrides beat the request's own
         slo/priority. ``shed=True`` on the ticket means admission control
-        rejected it."""
+        rejected it. A prefix-cache hit enters the queue sized to the
+        remaining prefill and carries a pending restore: its first chunk
+        admission restores the snapshot and prefill resumes at the prefix
+        boundary."""
+        hit = None
+        if self.prefix_cache and not req.prefill_pos:
+            hit = self._prefix_lookup(req)
+        size = self._eff_len(req) - (hit.length if hit is not None else 0)
         t = self.scheduler.submit(
-            req, size=max(self._eff_len(req), 1),
+            req, size=max(size, 1),
             slo_ms=slo_ms if slo_ms is not None else req.slo_ms,
             priority=priority if priority is not None else req.priority)
         req.enqueue_t = t.enqueue_t
         req.shed = t.shed
+        if hit is not None and not t.shed:
+            req.prefill_pos = hit.length
+            self._pending_restore[id(t)] = hit
+            self.telemetry.record_prefix_hit()
         return t
 
     @property
     def inflight(self) -> int:
-        return self.states.inflight
+        # paged sessions are admitted-but-unfinished work
+        return self.states.inflight + len(self._paged)
 
     @property
     def has_work(self) -> bool:
-        return bool(self.scheduler.depth or self.states.inflight)
+        return bool(self.scheduler.depth or self.states.inflight
+                    or self._paged)
+
+    def steal_eligible(self, t: Ticket) -> bool:
+        """Steal veto: continuations and mid-prefill tickets own a slot on
+        THIS replica, and a prefix hit's pending snapshot lives in this
+        engine's cache; only fresh, not-yet-started tickets may leave."""
+        return self.states.steal_eligible(t) \
+            and id(t) not in self._pending_restore
 
     def step_once(self):
-        """One engine tick: refill every freed slot, then one decode
-        step."""
-        self._admit()
+        """One engine tick. Chunked: at most ONE chunk group, then one
+        decode step. Monolithic: refill every freed slot, then one decode
+        step. With ``page_host``, paged sessions fault back in after
+        admission (fresh arrivals take the free slots first)."""
+        if self.prefill_chunk is not None:
+            self._admit_chunk()
+        else:
+            self._admit()
+        if self.page_host:
+            self._page_in()
         self._step()
 
     def _admit(self):
         """Admit up to len(free) tickets, group them by prefill bucket, and
         prefill each group in ONE bucketed call."""
+        if self.page_host and not self.free and self.scheduler.fresh_depth:
+            # slot-starved with fresh arrivals waiting: park one long-idle
+            # session to host RAM (one per tick: bounded churn)
+            self._page_out_one()
         while self.free and self.scheduler.depth:
             tickets = self.scheduler.admit(
                 min(len(self.free), self.max_prefill_batch))
@@ -239,7 +510,93 @@ class InferenceEngine:
             t.payload.prefill_pos = L
             self.telemetry.record_ttft((now - t.enqueue_t) * 1e3)
             self.states.activate(t, slot, L)
+            self._last_decode[slot] = self.telemetry.steps
         self.telemetry.prefills += g
+        self.telemetry.prefill_batches += 1
+
+    # ---- chunked prefill -------------------------------------------------
+    def _prefill_len(self, req: Request) -> int:
+        """Tokens the chunked path prefills: what the monolithic path runs
+        (the effective length, capped by the top bucket)."""
+        return max(min(self._eff_len(req), self.buckets[-1]), 1)
+
+    def _chunk_next_len(self, req: Request) -> int:
+        return min(self.prefill_chunk,
+                   self._prefill_len(req) - req.prefill_pos)
+
+    def _chunk_bucket_of(self, t: Ticket) -> int:
+        return pick_bucket(self._chunk_next_len(t.payload),
+                           self.chunk_buckets)
+
+    def _admit_chunk(self):
+        """Ask the scheduler for ONE bucket-coherent chunk group (fresh
+        tickets capped by free slots; continuations hold theirs) and run
+        it."""
+        if not self.scheduler.depth:
+            return
+        if self.page_host and not self.free and not self.prefilling \
+                and self.scheduler.fresh_depth:
+            self._page_out_one()        # the page-out rule of _admit
+        if not self.free and not self.prefilling:
+            return                      # every slot is decoding
+        group = self.scheduler.admit_coherent(
+            self.batch_slots, bucket_fn=self._chunk_bucket_of,
+            new_cap=len(self.free))
+        if group:
+            self._chunk_group(self._chunk_bucket_of(group[0]), group)
+
+    def _chunk_group(self, bucket: int, group: List[Ticket]):
+        """One prompt chunk for every ticket of the group in a single call,
+        each row at its own offset (request A's third chunk can batch with
+        request B's first). The group pads to a power of two; padded rows
+        repeat the first slot with no real tokens, so they write nothing.
+        Unfinished prompts re-enter the queue as continuations; finished
+        ones sample their first token and join the decode batch."""
+        g = len(group)
+        P = 1 << (g - 1).bit_length()       # pad like _prefill_group
+        toks = np.zeros((P, bucket), np.int32)
+        start = np.zeros(P, np.int32)
+        wpos = np.full(P, self.max_len, np.int32)   # padded: no write
+        lens = np.zeros(P, np.int32)                # padded: no tokens
+        last = np.zeros(P, np.int32)
+        slots: List[int] = []
+        for j, t in enumerate(group):
+            req: Request = t.payload
+            off = req.prefill_pos
+            clen = min(self._chunk_next_len(req), bucket)
+            slots.append(self.states.acquire(t))
+            snap = self._pending_restore.pop(id(t), None)
+            if snap is not None:
+                # prefix hit: the cached prefix lands in the slot before
+                # this group's chunk reads the cache
+                self.restore_slot(snap, slots[-1])
+            toks[j, :clen] = req.tokens[off:off + clen]
+            start[j] = off
+            wpos[j] = off
+            lens[j] = clen
+            last[j] = clen - 1
+        slots_padded = np.asarray(slots + [slots[0]] * (P - g), np.int32)
+        nxt = self.executor.dispatch(
+            "chunk_prefill", (bucket, P, self.precision),
+            lambda: self._build_chunk(bucket), self.run_params, self.caches,
+            slots_padded, self._to_device(toks), start, wpos, lens, last)
+        now = time.perf_counter()
+        for j, (t, slot) in enumerate(zip(group, slots)):
+            req = t.payload
+            req.prefill_pos += int(last[j]) + 1
+            if self.prefix_cache \
+                    and req.prefill_pos % self.prefill_chunk == 0:
+                # a completed chunk boundary: cache the written prefix
+                self._prefix_insert(req, slot)
+            if req.prefill_pos >= self._prefill_len(req):
+                req.output.append(int(nxt[j]))
+                self.telemetry.record_ttft((now - t.enqueue_t) * 1e3)
+                self.telemetry.prefills += 1
+                self.states.activate(t, slot, req.prefill_pos)
+                self._last_decode[slot] = self.telemetry.steps
+            else:
+                self.states.park(t, slot)
+                self.scheduler.resubmit(t, size=self._chunk_next_len(req))
         self.telemetry.prefill_batches += 1
 
     def _step(self):
@@ -264,6 +621,7 @@ class InferenceEngine:
             self.pos[s] += 1
             req.output.append(int(nxt[s]))
             self.telemetry.total_tokens += 1
+            self._last_decode[s] = self.telemetry.steps
             if len(req.output) >= req.max_new_tokens \
                     or self.pos[s] >= self.max_len - 1:
                 req.done = True
@@ -271,6 +629,7 @@ class InferenceEngine:
                 req.enqueue_t = t.enqueue_t
                 req.finish_t = t.finish_t
                 self.states.release(s)
+                self._last_decode.pop(s, None)
 
     def run(self, requests: Sequence[Request]) -> List[Request]:
         for r in requests:

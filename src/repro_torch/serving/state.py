@@ -1,19 +1,17 @@
-"""Per-slot sequence state for the LM engine: a copy of
-``SequenceStateManager`` and the slot-state kinds it names from
+"""Per-slot sequence state for the LM engine: copies of
+``SequenceStateManager``, the slot-state kinds it names,
+``require_chunkable`` and ``SequenceSnapshot`` from
 ``repro/serving/state.py``, kept so that the port never imports the JAX
 package. A *slot* is one batch row of the engine's preallocated KV cache;
 at every instant the slots partition into exactly free | active |
-prefilling. The monolithic-prefill engine of the port uses ``acquire``,
-``activate``, ``release``, ``active_mask`` and ``decode_positions``; the
-chunked-prefill, paging, migration and fault-drain moves (``park``,
-``release_prefilling``, ``page_out``, ``evict_all``, ``steal_eligible``)
-are kept with the class for the slices that port those features.
-``SequenceSnapshot``, ``require_chunkable`` and ``FleetPrefixIndex`` join
-with them.
+prefilling. The engine uses every move of the manager but ``evict_all``
+(the fault drain, which comes with the fleet layer, as does
+``FleetPrefixIndex``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -69,6 +67,49 @@ def slot_kinds_for(cfg: Optional[ModelConfig]) -> Tuple[SlotStateKind, ...]:
         if cls is not None and cls not in seen:
             seen[cls] = cls()
     return tuple(seen.values())
+
+
+def require_chunkable(cfg: ModelConfig) -> None:
+    """Raise unless every layer kind in ``cfg`` has a per-slot chunk
+    contract. Global KV, local ring, and SSM / RG-LRU recurrent state all
+    chunk exactly; what cannot is cross-attention encoder-decoder state
+    (the decoder's cross K/V is keyed to a whole encoder pass, not a
+    per-slot prefix position). The error names the offending kind."""
+    if cfg.encdec is not None:
+        raise ValueError(
+            f"prefill_chunk is unsupported for {cfg.name}: layer kind "
+            f"'decoder' (cross-attention encoder-decoder) has no per-slot "
+            f"chunk contract — cross K/V is per-encoder-pass, not "
+            f"per-prefix-position")
+    bad = sorted(set(cfg.layer_kinds()) - set(SLOT_STATE_KINDS))
+    if bad:
+        raise ValueError(
+            f"prefill_chunk is unsupported for {cfg.name}: layer kind "
+            f"{bad[0]!r} has no per-slot chunk contract (supported kinds: "
+            f"{sorted(SLOT_STATE_KINDS)})")
+
+
+@dataclass
+class SequenceSnapshot:
+    """Host-side serialized form of ONE slot's sequence state.
+
+    In the port ``leaves`` mirrors the engine's cache list (one dict per
+    layer) with each tensor reduced to the slot's row as a host tensor
+    (torch, so bf16 rows keep their type), sliced to the written prefix
+    ``[0, length)``: every cache tensor of the port is positional (dim 1
+    is the sequence). ``length`` is the written prefix in tokens (=
+    ``prefill_pos`` for mid-prefill snapshots, the prefix length for
+    prefix-cache entries) and doubles as the restore offset: chunked
+    prefill resumes its writes at ``write_pos = length``. ``pos`` carries
+    the decode position for paged ACTIVE slots (0 for snapshots taken
+    mid-prefill). ``bytes_partial`` / ``bytes_full`` are the
+    staged-transfer accounting (what shipped vs what whole rows would
+    have shipped)."""
+    length: int
+    pos: int
+    leaves: Any
+    bytes_partial: int = 0
+    bytes_full: int = 0
 
 
 class SequenceStateManager:

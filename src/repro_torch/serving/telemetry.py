@@ -1,8 +1,8 @@
 """Serving telemetry: a copy of ``Telemetry`` and ``percentile`` from
 ``repro/serving/telemetry.py``, kept so that the port never imports the JAX
 package. The counters of features the port has not taken over yet (the
-fleet, chunked prefill, the prefix cache, paging) stay, at zero, so that
-the two summaries keep the same keys.
+fleet: steals, routing, the shared prefix tier) stay, at zero, so that the
+two summaries keep the same keys.
 """
 from __future__ import annotations
 

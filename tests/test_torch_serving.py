@@ -41,6 +41,8 @@ COPIED = [
     (jax_sched, sched, "ServiceEstimator"), (jax_sched, sched, "Scheduler"),
     (jax_state, state, "SequenceStateManager"),
     (jax_state, state, "slot_kinds_for"),
+    (jax_state, state, "require_chunkable"),
+    (jax_state, state, "SequenceSnapshot"),
     (jax_quant, quant, "LayerQuantDecision"),
     (jax_quant, quant, "QuantWorkflowResult"),
     (jax_quant, quant, "quantization_workflow"),
