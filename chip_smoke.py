@@ -58,16 +58,28 @@ result line):
              cache; timed beside SDPA with a boolean mask) and a 24-case
              seeded sweep.
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
-             through ``InferenceEngine(device="cuda")``: 8 requests, 32 new
-             tokens each. The kernels' launch counters are zeroed just
+             through ``InferenceEngine(device="cuda")``, its stages
+             captured as CUDA graphs (the card's default): 8 requests, 32
+             new tokens each. The kernels' launch counters are zeroed just
              before and read just after, and both attention kernels must
              have run.
+3b. serve-eager — the same requests through an engine with
+             ``cuda_graphs=False``, in the same run: each kernel's launches
+             must equal the graphed run's and the greedy agreement reach
+             0.95 (identical tokens expected; the first divergent token is
+             printed otherwise); both engines print the mean decode step
+             and prefill call, tok/s, TTFT p50/p99, peak and reserved
+             memory and their graphs captured and replayed per stage; then
+             eight decode stage calls of each engine (one replay each,
+             graphed) are profiled at 4 rows: wall, device busy share,
+             device activities.
 4. serve (quantized) — the same weights and requests through a second
              engine with ``precision="w8a8"`` and an int8 KV cache: the §V
              build step on the card, then serving. The w8a8 and int8-KV
              decode kernels must have run and the bf16 decode kernel not;
              the greedy agreement with phase 3 is printed, not held (the
              logits of random full-width weights are near-flat).
+4a. serve-eager-w8a8 — phase 3b for the quantized engine.
 4b. serve-chunked, serve-chunked-w8a8 — the same weights and requests
              through ``prefill_chunk=128`` engines, bf16 and then w8a8 with
              an int8 KV cache: 8/8 requests of 32 tokens, flash launched at
@@ -85,6 +97,13 @@ result line):
              restore bit for bit over f32 and int8 caches, host paging and
              mid-prefill migration token-identical, and ``reduce_hd128`` in
              w8a8 + int8 KV chunked vs monolithic >= 0.95.
+5c. check-graphs — the reduced f32 config and ``reduce_hd128``, each in
+             its fp type and in w8a8 + int8 KV, monolithic and chunked (8,
+             16): the same requests through a graphed and an eager engine
+             must give identical tokens; the final caches' max abs
+             difference is printed. (check and check-chunked run graphed,
+             so prefix hits, snapshot -> restore, paging and migration
+             interleave with replays there.)
 6. profile — one full-width prefill call, eight decode steps and one
              prefill chunk call through the model layer, fp and then w8a8
              with the int8 KV cache: wall time untraced, then the device
@@ -109,6 +128,11 @@ result line):
              host (plain versions): pooled outputs within the SLS
              tolerances, logits within 2e-3; each card run must launch its
              slab's SLS kernel once a request and the other two not.
+
+In serve-dlrm the dense stage (graphed, one graph per batch size) is also
+timed against an eager twin's on one request's inputs (a call to
+completion, the logits within 2e-3), and one call of each is traced. The
+sparse stage stays eager: the bags' lengths set its work.
 
 Kernel times (``ms``) are CUDA-event times of single calls, each after an
 L2 flush; the device window's times leave out the host's enqueue gap.
@@ -1220,10 +1244,20 @@ def _int8_kv(cfg):
         cfg, quant=dataclasses.replace(cfg.quant, kv_cache_dtype="int8"))
 
 
-def _serve(eng, cfg, label: str):
+def _graph_counts(eng) -> str:
+    ex = eng.executor
+    if not ex.graphs:
+        return "eager (cuda_graphs=False): no graph"
+    secs = {k: round(v, 3) for k, v in ex.capture_s.items()}
+    return (f"CUDA graphs captured per stage {dict(ex.captures)} (seconds "
+            f"capturing, warm-ups apart: {secs}), replayed {dict(ex.replays)}")
+
+
+def _serve(eng, cfg, label: str, base: int):
     """Warm the engine on one request, then serve 8 requests x 32 tokens
     with every launch counter zeroed just before and read just after.
-    Raises unless all 8 got 32 tokens in the vocab. Returns (launches,
+    Raises unless all 8 got 32 tokens in the vocab. ``base``: the bytes
+    allocated on the card before the engine was built. Returns (launches,
     the requests' outputs)."""
     torch.cuda.reset_peak_memory_stats()
     eng.run(_requests(1, 64, 64, 4, cfg.vocab_size, seed=1))    # warm-up
@@ -1244,6 +1278,7 @@ def _serve(eng, cfg, label: str):
                f"{eng.prefill_chunk})" if eng.prefill_chunk else "")
     ttft = tel.ttft_percentiles()
     n_tok = sum(len(r.output) for r in reqs)
+    peak = torch.cuda.max_memory_allocated()
     print(f"{label}: deepseek-7b full width bf16, {cfg.num_layers} layers, "
           f"prompts {sorted(len(r.tokens) for r in reqs)}; served "
           f"{tel.served}/{len(reqs)} in {wall:.3f} s, {n_tok / wall:.1f} "
@@ -1252,7 +1287,11 @@ def _serve(eng, cfg, label: str):
           f"{tel.steps} steps, mean {prefill[0]} "
           f"{stage_ms(tel, prefill[1]):.3f} ms over "
           f"{tel.prefill_batches} calls{chunked}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above "
+          f"what was allocated before the engine was built (caches, stage "
+          f"buffers, graph outputs, temporaries; a w8a8 engine's int8 "
+          f"weights); reserved {torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"GiB (the graphs' pool included)", flush=True)
     if tel.served != len(reqs):
         raise AssertionError(f"served {tel.served} of {len(reqs)}")
     bad = [r.rid for r in reqs if len(r.output) != 32
@@ -1261,6 +1300,7 @@ def _serve(eng, cfg, label: str):
         raise AssertionError(f"requests {bad} did not get 32 tokens in the "
                              f"vocab")
     print(f"{label}: kernel launches {launches}", flush=True)
+    print(f"{label}: {_graph_counts(eng)}", flush=True)
     return launches, [r.output for r in reqs]
 
 
@@ -1271,25 +1311,30 @@ def _require_launched(label: str, launches: dict, names) -> None:
                              f"while serving")
 
 
+SERVE_KW = dict(batch_slots=4, max_len=1024,
+                prefill_buckets=(64, 128, 256, 512), device=DEV)
+
+
 def phase_serve(cfg, params):
-    """Full-width deepseek-7b serving through the engine in bf16; returns
-    the kernels' launch counts of the measured run and its outputs."""
-    eng = InferenceEngine(cfg, params, batch_slots=4, max_len=1024,
-                          prefill_buckets=(64, 128, 256, 512), device=DEV)
-    launches, outputs = _serve(eng, cfg, "serve")
+    """Full-width deepseek-7b serving through the engine in bf16 (its
+    stages graphed, the card's default); returns the kernels' launch counts
+    of the measured run, its outputs and the engine."""
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(cfg, params, **SERVE_KW)
+    launches, outputs = _serve(eng, cfg, "serve", base)
     _require_launched("serve", launches, ("flash_attn", "decode_attn"))
-    return launches, outputs
+    return launches, outputs, eng
 
 
 def phase_serve_quant(cfg, params, ref_outputs):
     """The same weights and requests through ``precision="w8a8"`` with an
-    int8 KV cache; returns the launch counts and the quantized model."""
+    int8 KV cache; returns the launch counts, the quantized model, the
+    outputs and the engine."""
     cfg_q = _int8_kv(cfg)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    eng = InferenceEngine(cfg_q, params, precision="w8a8", batch_slots=4,
-                          max_len=1024, prefill_buckets=(64, 128, 256, 512),
-                          device=DEV)
+    eng = InferenceEngine(cfg_q, params, precision="w8a8", **SERVE_KW)
     torch.cuda.synchronize()
     q = eng.quant
     print(f"serve-w8a8: build step {time.perf_counter() - t0:.1f} s: "
@@ -1297,7 +1342,7 @@ def phase_serve_quant(cfg, params, ref_outputs):
           f"bf16 (calibration disagreement {q.result.metric_delta:.4f}, "
           f"budget 0.05, {q.result.iterations} fall-backs); {q.schemes}",
           flush=True)
-    launches, outputs = _serve(eng, cfg_q, "serve-w8a8")
+    launches, outputs = _serve(eng, cfg_q, "serve-w8a8", base)
     _require_launched("serve-w8a8", launches,
                       ("flash_attn", "w8a8_matmul", "decode_attn_int8"))
     if launches["decode_attn"]:
@@ -1308,7 +1353,47 @@ def phase_serve_quant(cfg, params, ref_outputs):
     print(f"serve-w8a8: greedy-token agreement with the bf16 engine "
           f"{agree:.4f} (printed, not held: random full-width weights give "
           f"near-flat logits)", flush=True)
-    return launches, eng.quant, outputs
+    return launches, eng.quant, outputs, eng
+
+
+def _first_divergence(got, want):
+    """(request, token index, tokens) of the first token where two runs'
+    outputs differ, or None."""
+    for rid, (a, b) in enumerate(zip(got, want)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return rid, i, x, y
+        if len(a) != len(b):
+            return rid, min(len(a), len(b)), None, None
+    return None
+
+
+def phase_serve_eager(label: str, graphed, launches, outputs, cfg, params,
+                      **kw) -> None:
+    """The serve phase's requests through an engine that runs the same
+    stages eagerly (``cuda_graphs=False``), in the same run as the graphed
+    ``graphed``: each kernel's launches must equal the graphed run's and
+    the greedy agreement reach 0.95 (identical tokens expected: a replay
+    runs the kernels the eager stage runs). Then one decode stage call of
+    each engine is profiled at 4 rows."""
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(cfg, params, cuda_graphs=False, **SERVE_KW, **kw)
+    got_launches, got = _serve(eng, cfg, label, base)
+    if got_launches != launches:
+        raise AssertionError(f"{label}: kernel launches {got_launches}, the "
+                             f"graphed engine's {launches}")
+    agree = token_agreement(zip(got, outputs))
+    div = _first_divergence(got, outputs)
+    where = ("tokens identical" if div is None else
+             f"first divergence: request {div[0]} token {div[1]}, eager "
+             f"{div[2]} vs graphed {div[3]}")
+    print(f"{label}: greedy-token agreement with the graphed engine "
+          f"{agree:.4f} ({where}); kernel launches equal", flush=True)
+    if agree < 0.95:
+        raise AssertionError(f"{label}: eager vs graphed agreement {agree} "
+                             f"< 0.95")
+    for e, tag in ((graphed, "graphed"), (eng, "eager")):
+        profile_decode_stage(e, f"{label}: {tag} ")
 
 
 def phase_serve_chunked(cfg, params, mono_outputs, quant=None):
@@ -1319,12 +1404,13 @@ def phase_serve_chunked(cfg, params, mono_outputs, quant=None):
     (near-flat logits of random full-width weights). Returns the launch
     counts."""
     label = "serve-chunked" + ("-w8a8" if quant is not None else "")
-    kw = dict(batch_slots=4, max_len=1024, prefill_buckets=(64, 128, 256, 512),
-              prefill_chunk=128, device=DEV)
+    kw = dict(SERVE_KW, prefill_chunk=128)
     if quant is not None:
         cfg = _int8_kv(cfg)
         kw.update(precision="w8a8", quantized_params=quant)
-    launches, outputs = _serve(InferenceEngine(cfg, params, **kw), cfg, label)
+    base = torch.cuda.memory_allocated()
+    launches, outputs = _serve(InferenceEngine(cfg, params, **kw), cfg, label,
+                               base)
     _require_launched(label, launches, (
         "flash_attn", "flash_attn at a q_off",
         *(("w8a8_matmul", "decode_attn_int8") if quant is not None
@@ -1556,6 +1642,54 @@ def phase_check_chunked():
                              f"monolithic agreement {agree} < 0.95")
 
 
+def _cache_diff(a, b) -> float:
+    """Max abs difference between two engines' caches."""
+    return max((x[k].float() - y[k].float()).abs().max().item()
+               for x, y in zip(a.caches, b.caches) for k in x)
+
+
+def phase_check_graphs():
+    """The reduced f32 config and ``reduce_hd128``, each in its fp type and
+    in w8a8 + int8 KV (one build step on the host, copied to the card),
+    monolithic and ``prefill_chunk`` 8 and 16: the same requests through a
+    graphed and an eager engine on the card must give identical tokens;
+    the final caches' max abs difference is printed."""
+    kw = dict(batch_slots=3, max_len=64, prefill_buckets=(8, 16, 32, 48),
+              device=DEV)
+    for small, name in ((reduce_for_smoke(get_config("deepseek-7b")),
+                         "reduced deepseek-7b"),
+                        (reduce_hd128(get_config("deepseek-7b")),
+                         "reduced deepseek-7b bf16 head_dim 128")):
+        host = model_mod.init_params(small, seed=0, device="cpu")
+        card = copy.deepcopy(host).to(DEV)
+        small_q = _int8_kv(small)
+        qp = build_quantized_params(small_q, host)
+        card_qp = QuantizedParams(copy.deepcopy(qp.params).to(DEV), qp.result,
+                                  qp.quantized_sites, qp.fallback_sites)
+        for prec, c, extra in (
+                (small.param_dtype, small, {}),
+                ("w8a8 + int8 KV", small_q,
+                 dict(precision="w8a8", quantized_params=card_qp))):
+            for chunk in (None, 8, 16):
+                engs = [InferenceEngine(c, card, prefill_chunk=chunk,
+                                        cuda_graphs=graphs, **kw, **extra)
+                        for graphs in (True, False)]
+                outs = [_outputs(e, _requests(6, 3, 40, 8, c.vocab_size,
+                                              seed=3)) for e in engs]
+                label = (f"{name} {prec}, "
+                         f"{'chunk ' + str(chunk) if chunk else 'monolithic'}")
+                div = _first_divergence(*outs)
+                if div is not None:
+                    raise AssertionError(f"check-graphs: {label}: graphed "
+                                         f"and eager tokens differ, first at "
+                                         f"request {div[0]} token {div[1]} "
+                                         f"({div[2]} vs {div[3]})")
+                print(f"check-graphs: {label}: 6 requests token-identical "
+                      f"graphed and eager; final caches max abs difference "
+                      f"{_cache_diff(*engs):.3e}; {_graph_counts(engs[0])}",
+                      flush=True)
+
+
 # ---- profile ----------------------------------------------------------------
 
 MATMUL_KERNEL_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
@@ -1682,6 +1816,39 @@ def profile_chunk(cfg, params, caches, tag: str) -> None:
               f" rows x {n} of {max_len} keys, K and V) {ms:.4f} ms a layer, "
               f"{ms * cfg.num_layers:.3f} ms a call over {cfg.num_layers} "
               f"layers", flush=True)
+
+
+def profile_decode_stage(eng, tag: str, steps: int = 8) -> None:
+    """``steps`` decode stage calls of the engine (one graph replay each
+    when it is graphed) at 4 rows, positions 512, 300, 77 and 1 onward,
+    each fed the last call's tokens: the step's wall time, its device busy
+    share and device activities."""
+    run = eng.executor.get("decode", (eng.precision,), eng._build_decode)
+    B = eng.batch_slots
+    pos = np.array([512, 300, 77, 1][:B], np.int32)
+
+    def decode():
+        toks = np.zeros((B, 1), np.int32)
+        for i in range(steps):
+            toks = run({"tokens": toks, "pos": pos + i,
+                        "active": np.ones(B, bool)})[:, None]
+
+    profile_window(f"{tag}decode stage call, {B} rows at pos "
+                   f"{pos.tolist()}+", decode, steps)
+    if eng.executor.graphs:
+        # the graph alone, start to end on the device (its kernels and the
+        # gaps between them), apart from the stage call's copies
+        replay = run.variants[None].graph.replay
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+        for start, end in events:
+            start.record()
+            replay()
+            end.record()
+        torch.cuda.synchronize()
+        span = sum(a.elapsed_time(b) for a, b in events) / steps
+        print(f"profile: {tag}decode graph replay alone: {span:.3f} ms "
+              f"start to end on the device (CUDA events)", flush=True)
 
 
 def phase_profile(cfg, params, tag: str = ""):
@@ -1824,7 +1991,45 @@ def phase_serve_dlrm():
           f"{lerr:.3e} of the dense stage on it; highest row read {top} "
           f"(byte offset {top * cfg.embed_dim}; 2^32 is {2**32})",
           flush=True)
+    phase_dense_graphs(eng, cfg, asn, params, x["dense"], pooled)
     return launches["sls_int8"], eng, batches[0]
+
+
+def wall_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean host wall time of one call of ``fn`` to its completion (a
+    synchronise after every call)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_dense_graphs(eng, cfg, asn, params, dense_x, pooled) -> None:
+    """The serve engine's dense stage (one graph replay a call) against an
+    eager twin's (``cuda_graphs=False``, the same parameters) on one
+    request's inputs, in the same run: the time of a call to completion,
+    the logits held within 2e-3 of each other, and one traced call each."""
+    eager = DLRMEngine(cfg, asn, params, device=DEV, cuda_graphs=False)
+    B = pooled.shape[0]
+    inputs = {"pooled": pooled, "dense_x": dense_x}
+    outs, ms = {}, {}
+    for e, tag in ((eng, "graphed"), (eager, "eager")):
+        run = e.executor.get("dense", (), e._build_dense)
+        call = lambda run=run: run(inputs, variant=B)
+        outs[tag] = call()
+        ms[tag] = wall_ms(call)
+        profile_window(f"dlrm dense stage, {tag}, batch {B}", call, 1,
+                       shares=DLRM_SHARES)
+    err = compare("serve-dlrm dense stage graphed vs eager", outs["graphed"],
+                  outs["eager"], torch.float32)
+    print(f"serve-dlrm: dense stage, batch {B}: {ms['graphed']:.4f} ms "
+          f"graphed (one replay) vs {ms['eager']:.4f} ms eager, a call to "
+          f"completion; logits max abs difference {err:.3e}; "
+          f"{_graph_counts(eng)}", flush=True)
 
 
 def phase_profile_dlrm(eng, batch) -> None:
@@ -1895,13 +2100,21 @@ def main():
     print(f"init: deepseek-7b full width, "
           f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
           f"params in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches, bf16_outputs = phase_serve(cfg, params)
+    launches, bf16_outputs, eng = phase_serve(cfg, params)
+    phase_serve_eager("serve-eager", eng, launches, bf16_outputs, cfg,
+                      params)
+    del eng
     launches_c = phase_serve_chunked(cfg, params, bf16_outputs)
-    launches_q, quant, w8a8_outputs = phase_serve_quant(cfg, params,
-                                                        bf16_outputs)
+    launches_q, quant, w8a8_outputs, eng = phase_serve_quant(cfg, params,
+                                                             bf16_outputs)
+    phase_serve_eager("serve-eager-w8a8", eng, launches_q, w8a8_outputs,
+                      _int8_kv(cfg), params, precision="w8a8",
+                      quantized_params=quant)
+    del eng
     phase_serve_chunked(cfg, params, w8a8_outputs, quant)
     phase_check(cfg, params)
     phase_check_chunked()
+    phase_check_graphs()
     phase_profile(cfg, params)
     phase_profile(_int8_kv(cfg), quant.params, tag="w8a8+int8kv ")
     # each kernel's launches are those of the serve phase that runs it;

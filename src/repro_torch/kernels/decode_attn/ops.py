@@ -14,8 +14,9 @@ a row reads), and rows of more than one chunk merge their chunks in the
 same launch through an f32 scratch allocated per call and one int32 ticket
 counter per (row, kv head). The two kernels share the counters: they are
 allocated zeroed once per device and every launch of either kernel leaves
-them zero, so launches that run in turn on one stream (the engine's) share
-them; two launches that run at once on different streams must not.
+them zero (a replayed CUDA graph's launches too), so launches that run in
+turn on one stream (the engine's) share them; two launches that run at
+once on different streams must not.
 """
 from __future__ import annotations
 
@@ -80,13 +81,24 @@ def int8_chunk_plan(B: int, K: int, S: int, sms: int) -> int:
 
 
 _TICKETS = {}
+# counters a larger buffer replaced: a captured CUDA graph may still point
+# at them, so they are never freed
+_RETIRED = []
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` int32 ticket counters on ``device``, zero between
-    launches (allocated zeroed once, grown when a call needs more)."""
+    launches (allocated zeroed once, grown when a call needs more; never
+    while a CUDA graph is being captured, since the zeroing would only run
+    at replay: a stage's eager warm-up sizes them first)."""
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"decode ticket counters: {n} needed during a "
+                               f"CUDA graph capture; run the stage once "
+                               f"before capturing it")
+        if t is not None:
+            _RETIRED.append(t)
         t = _TICKETS[device] = torch.zeros(max(n, 4096), dtype=torch.int32,
                                            device=device)
     return t

@@ -5,7 +5,8 @@ tensors, or runs the plain version (``ref.py``) for CPU tensors. There is no
 fallback: a CUDA input the kernel cannot take raises. ``flash_attn.launches``
 counts kernel launches (plain-version calls do not count), and
 ``flash_attn.offset_launches`` those of them given a ``q_off`` (the model's
-chunk path passes one only when some row's offset is not 0).
+chunk path always passes one, so that a chunk stage's launch does not
+depend on its offsets' values).
 """
 from __future__ import annotations
 

@@ -125,32 +125,48 @@ def _cache_entries(cache: Cache, k: torch.Tensor, v: torch.Tensor):
 def fill_cache_from_prefill(cache: Cache, k: torch.Tensor, v: torch.Tensor,
                             rows: torch.Tensor) -> None:
     """Write prefill K/V (B,S,K,hd) in place: batch row j lands in cache row
-    ``rows[j]`` at positions [0, S), for the first ``len(rows)`` rows.
-    Positions past S keep what the row held before; decode writes a
-    position before it attends it, so they are never read. An int8 cache
-    stores the quantized K/V; prefill itself attended the exact ones."""
-    n, S = rows.shape[0], k.shape[1]
-    for name, val in _cache_entries(cache, k[:n], v[:n]):
-        cache[name][rows, :S] = val.to(cache[name].dtype)
-
+    ``rows[j]`` at positions [0, S). A negative ``rows[j]`` marks a padded
+    group row: it repeats row 0's write (the same cache row, the same
+    values), so the write keeps one fixed shape, stays deterministic under
+    repeated indices, and stores only the real rows. Positions past S keep
+    what the row held before; decode writes a position before it attends
+    it, so they are never read. An int8 cache stores the quantized K/V;
+    prefill itself attended the exact ones."""
+    S = k.shape[1]
+    pad = rows < 0
+    src = torch.where(pad, 0, torch.arange(rows.shape[0], device=rows.device))
+    dst = torch.where(pad, rows[0], rows)
+    for name, val in _cache_entries(cache, k, v):
+        cache[name][dst, :S] = val.to(cache[name].dtype)[src]
 
 
 def decode_attention(p: Attention, x: torch.Tensor, cache: Cache,
                      pos: torch.Tensor, cfg: ModelConfig,
-                     rows: Optional[torch.Tensor] = None
+                     rows: Optional[torch.Tensor] = None,
+                     active: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Cache]:
     """x (B,1,d); ``pos`` (B,) int32 tokens already in each row's cache.
-    The new K/V is written in place at ``pos`` for the rows in ``rows``
-    (all rows when None); an inactive row writes nothing, which is what
-    the JAX package's write-back of the old value amounts to. Every row
-    then attends keys [0, pos]; an int8 cache is quantized on the write
-    and read through the int8 decode kernel. Returns (y (B,1,d), cache)."""
+    Every row computes its K/V and writes it in place at ``pos`` (clamped
+    to the cache, as the reference's ``dynamic_update_slice``); a row that
+    ``active`` (B,) bool marks inactive (or that the index tensor ``rows``
+    of active rows leaves out) writes back the value already there, the
+    reference's ``guard``, so its cache stays bit for bit as it was and the
+    step's shapes do not depend on which rows decode. Every row then
+    attends keys [0, pos]; an int8 cache is quantized on the write and read
+    through the int8 decode kernel. Returns (y (B,1,d), cache)."""
+    B = x.shape[0]
     q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None])
-    if rows is None:
-        rows = torch.arange(x.shape[0], device=x.device)
-    at = pos.long()[rows]
-    for name, val in _cache_entries(cache, k_new[rows, 0], v_new[rows, 0]):
-        cache[name][rows, at] = val.to(cache[name].dtype)
+    if rows is not None:
+        active = torch.zeros(B, dtype=torch.bool, device=x.device)
+        active[rows.to(x.device)] = True
+    b = torch.arange(B, device=x.device)
+    at = pos.long().clamp(0, cache["k"].shape[1] - 1)
+    for name, val in _cache_entries(cache, k_new[:, 0], v_new[:, 0]):
+        val = val.to(cache[name].dtype)
+        if active is not None:
+            keep = active.view((B,) + (1,) * (val.dim() - 1))
+            val = torch.where(keep, val, cache[name][b, at])
+        cache[name][b, at] = val
     if "k_scale" in cache:
         o = decode_attn_int8(q[:, 0], cache["k"], cache["k_scale"],
                              cache["v"], cache["v_scale"], pos)
@@ -168,46 +184,71 @@ DEQUANT_TILE = 128
 
 @dataclass
 class ChunkCoords:
-    """Where one prefill chunk call reads and writes, on the device; built
-    once a call by ``chunk_coords`` and shared by every layer."""
+    """Where one prefill chunk call of P rows of C tokens reads and writes,
+    on the device, in shapes fixed by (P, C); shared by every layer."""
     positions: torch.Tensor          # (P,C) int64: start[j] + i
     lens: torch.Tensor               # (P,) int32: start + lengths
-    q_off: Optional[torch.Tensor]    # (P,) int32 start; None if all 0
+    q_off: torch.Tensor              # (P,) int32: start
     kv_rows: torch.Tensor            # (P,) int32 cache rows (slots)
-    write_rows: torch.Tensor         # (n,) int64 cache row of each real token
-    write_pos: torch.Tensor          # (n,) int64 its position in the row
-    src: torch.Tensor                # (n,) int64 its index in the P*C tokens
-    dequant_len: int                 # keys an int8 cache dequantizes a row
+    write_rows: torch.Tensor         # (P*C,) int64 cache row of each write
+    write_pos: torch.Tensor          # (P*C,) int64 its position in the row
+    src: torch.Tensor                # (P*C,) int64 its token of the P*C
+    dequant_len: Optional[int]       # keys an int8 cache dequantizes a row
 
 
-def chunk_coords(slots, start, write_pos, lengths, C: int, max_len: int,
-                 device) -> ChunkCoords:
-    """Host arrays (P,) of a chunk group -> its ``ChunkCoords``. Row j's
-    chunk covers positions start[j] .. start[j]+C-1, of which the first
-    ``lengths[j]`` are real (0: a padded row). Only the real tokens are
-    written, at ``write_pos[j] + i``, and only below ``max_len``: the JAX
-    package scatters all C with out-of-bounds writes dropped, and the
-    positions past a row's real tokens that it writes are rewritten before
-    anything reads them (the next chunk or decode writes a position before
-    attending it)."""
+def chunk_writes(slots, start, write_pos, lengths, C: int, max_len: int,
+                 n_slots: int) -> Tuple[Dict[str, np.ndarray], int]:
+    """Host arrays (P,) of a chunk group -> (the call's coordinates as host
+    arrays of fixed shapes, which ``chunk_coords`` reads; the keys an int8
+    cache dequantizes a row). Row j's chunk covers positions start[j] ..
+    start[j]+C-1, of which the first ``lengths[j]`` are real (0: a padded
+    row). Only the real tokens are written, at ``write_pos[j] + i``, and
+    only below ``max_len``: the JAX package scatters all C with
+    out-of-bounds writes dropped, and the positions past a row's real
+    tokens that it writes are rewritten before anything reads them (the
+    next chunk or decode writes a position before attending it). The write
+    has P*C entries: each entry that is not a real token repeats the call's
+    first real write (the same index, its ``src`` that token), so the
+    cache ends bit for bit as a write of the real tokens alone leaves it.
+    Raises for a slot outside the cache's ``n_slots`` rows, or a call with
+    no token to write."""
     slots, start, write_pos, lengths = (np.asarray(a, np.int64) for a in
                                         (slots, start, write_pos, lengths))
-    j, i = np.nonzero(np.arange(C)[None, :] < lengths[:, None])
-    keep = write_pos[j] + i < max_len
-    j, i = j[keep], i[keep]
+    if not all(0 <= s < n_slots for s in slots.tolist()):
+        raise ValueError(f"chunk slots {slots.tolist()} outside the cache's "
+                         f"{n_slots} rows")
+    i = np.arange(C)[None, :]
+    real = ((i < lengths[:, None])
+            & (write_pos[:, None] + i < max_len)).reshape(-1)
+    if not real.any():
+        raise ValueError("a chunk call must write at least one token below "
+                         f"max_len {max_len}")
+    rows = np.repeat(slots, C)
+    pos = (write_pos[:, None] + i).reshape(-1)
+    src = np.arange(slots.size * C)
+    first = int(np.flatnonzero(real)[0])
     ends = start + lengths
     dequant = -(-int(ends.max(initial=1)) // DEQUANT_TILE) * DEQUANT_TILE
+    return {"slots": slots.astype(np.int32),
+            "start": start.astype(np.int32),
+            "lens": ends.astype(np.int32),
+            "write_rows": np.where(real, rows, rows[first]),
+            "write_pos": np.where(real, pos, pos[first]),
+            "src": np.where(real, src, first)}, \
+        min(max(dequant, 1), max_len)
 
-    def dev(a, dtype=torch.int64):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
+def chunk_coords(t: Dict[str, torch.Tensor], C: int,
+                 dequant_len: Optional[int] = None) -> ChunkCoords:
+    """The device form of ``chunk_writes``' arrays (``t``: the same names as
+    tensors on the device, e.g. a stage's static buffers)."""
+    start = t["start"]
     return ChunkCoords(
-        positions=dev(start[:, None] + np.arange(C)[None, :]),
-        lens=dev(ends, torch.int32),
-        q_off=dev(start, torch.int32) if start.any() else None,
-        kv_rows=dev(slots, torch.int32),
-        write_rows=dev(slots[j]), write_pos=dev(write_pos[j] + i),
-        src=dev(j * C + i), dequant_len=min(max(dequant, 1), max_len))
+        positions=start.long()[:, None]
+        + torch.arange(C, device=start.device)[None, :],
+        lens=t["lens"], q_off=start, kv_rows=t["slots"],
+        write_rows=t["write_rows"], write_pos=t["write_pos"], src=t["src"],
+        dequant_len=dequant_len)
 
 
 def chunk_prefill_attention(p: Attention, x: torch.Tensor, cache: Cache,
@@ -220,8 +261,8 @@ def chunk_prefill_attention(p: Attention, x: torch.Tensor, cache: Cache,
     through the flash kernel: key t is visible to chunk query i of row j
     iff t <= start[j] + i (and t < start[j] + lengths[j]). An fp cache is
     read in place (``kv_rows``); an int8 cache is quantized on the write
-    and its group rows dequantized up to ``cc.dequant_len`` keys. Returns
-    y (P,C,d)."""
+    and its group rows dequantized up to ``cc.dequant_len`` keys. Every
+    shape is fixed by (P, C) and ``cc.dequant_len``. Returns y (P,C,d)."""
     P, C = x.shape[:2]
     q, k_new, v_new = _project_qkv(p, x, cfg, cc.positions)
     k_tok = k_new.reshape(P * C, *k_new.shape[2:])[cc.src]

@@ -28,15 +28,17 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 pos: Optional[torch.Tensor] = None,
                 kv_valid: Optional[torch.Tensor] = None,
                 rows: Optional[torch.Tensor] = None,
-                chunk: Optional[attn.ChunkCoords] = None) -> torch.Tensor:
+                chunk: Optional[attn.ChunkCoords] = None,
+                active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """mode 'full': causal attention over x, no cache; mode 'prefill': the
     same, K/V written into cache rows ``rows``; mode 'chunk': one prompt
     chunk per row against the live cache at the coordinates ``chunk``;
-    mode 'decode': one token per row at ``pos``, K/V written for the
-    active ``rows``. The cache is updated in place."""
+    mode 'decode': one token per row at ``pos``, the rows ``active`` leaves
+    out keeping their cache. The cache is updated in place."""
     h = p.pre_norm(x, cfg.norm_eps)
     if mode == "decode":
-        y, _ = attn.decode_attention(p.attn, h, cache, pos, cfg, rows)
+        y, _ = attn.decode_attention(p.attn, h, cache, pos, cfg,
+                                     active=active)
     elif mode == "chunk":
         y = attn.chunk_prefill_attention(p.attn, h, cache, chunk, cfg)
     elif mode in ("full", "prefill"):

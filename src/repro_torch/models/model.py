@@ -8,7 +8,6 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -87,27 +86,30 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             pos: Optional[torch.Tensor] = None,
             kv_valid: Optional[torch.Tensor] = None,
             cache_rows: Optional[torch.Tensor] = None,
+            chunk: Optional[attn_mod.ChunkCoords] = None,
             active=None) -> Tuple[torch.Tensor, List[attn_mod.Cache]]:
     """Returns (hidden (B,S,d), caches); the caches are updated in place.
+    Every shape follows the inputs' shapes (none follows their values), and
+    nothing waits on the device, so a serving stage built on it can be
+    captured as a CUDA graph.
 
     mode 'full': batch {'tokens' (B,S)}, causal over every position, no
     caches (pass None; the build step's calibration forward).
     mode 'prefill': batch {'tokens' (B,S)} right-padded, ``kv_valid`` (B,S)
     marks real tokens; batch row j's K/V goes to cache row
-    ``cache_rows[j]`` (default row j), for the first ``len(cache_rows)``
-    rows only — padded group rows write nothing.
-    mode 'chunk': batch {'tokens' (P,C)}, one prompt chunk per group row;
-    ``pos`` is ``(slots, start, write_pos, lengths)``, host arrays (P,)
-    (see ``chunk_prefill_step``).
+    ``cache_rows[j]`` (default row j); a negative entry marks a padded
+    group row, which writes nothing of its own.
+    mode 'chunk': batch {'tokens' (P,C)}, one prompt chunk per group row at
+    the coordinates ``chunk`` (see ``chunk_prefill_step``).
     mode 'decode': batch {'tokens' (B,1)} at per-row positions ``pos``
     (B,); ``active`` (B,) bool (host array or tensor) marks the rows really
-    decoding — the others write no K/V.
+    decoding — the others leave their cache as it was.
     """
     device = model_device(params)
     tokens = batch["tokens"].to(device)
     x = vocab_mod.embed_lookup(params.embed, tokens, cfg)
     B, S = tokens.shape
-    positions = rows = chunk = None
+    positions = rows = None
     if mode in ("full", "prefill"):
         positions = torch.arange(S, device=device).expand(B, S)
     if mode == "full":
@@ -117,24 +119,16 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 else cache_rows.to(device))
         if kv_valid is not None:
             kv_valid = kv_valid.to(device)
-    elif mode == "chunk":
-        slots_bk, max_len = caches[0]["k"].shape[:2]
-        if not all(0 <= s < slots_bk for s in np.asarray(pos[0]).tolist()):
-            raise ValueError(f"chunk slots {pos[0]} outside the cache's "
-                             f"{slots_bk} rows")
-        chunk = attn_mod.chunk_coords(*pos, S, max_len, device)
     elif mode == "decode":
         pos = torch.as_tensor(pos, dtype=torch.int32).to(device)
         if pos.dim() == 0:                     # one position for every row
             pos = pos.expand(B).contiguous()
         if active is not None:
-            active = np.asarray(active.cpu() if isinstance(active, torch.Tensor)
-                                else active, bool)
-            rows = torch.from_numpy(np.flatnonzero(active)).to(device)
+            active = torch.as_tensor(active, dtype=torch.bool).to(device)
     for layer, cache in zip(params.layers, caches):
         x = blk.apply_block(layer, x, cfg, mode=mode, cache=cache,
                             positions=positions, pos=pos, kv_valid=kv_valid,
-                            rows=rows, chunk=chunk)
+                            rows=rows, chunk=chunk, active=active)
     return params.final_norm(x, cfg.norm_eps), \
         (None if mode == "full" else caches)
 
@@ -163,10 +157,18 @@ def chunk_prefill_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     row, which writes nothing). K/V is written in place at ``write_pos[j]
     + i`` and queries attend the whole written prefix, so iterating chunks
     is prefix-consistent with a monolithic prefill. ``slots``, ``start``,
-    ``write_pos`` and ``lengths`` are host arrays. Returns (hidden
-    (P,C,d), caches)."""
+    ``write_pos`` and ``lengths`` are host arrays, checked and turned into
+    the call's coordinates on the host (``attention.chunk_writes``).
+    Returns (hidden (P,C,d), caches)."""
+    device = model_device(params)
+    slots_bk, max_len = caches[0]["k"].shape[:2]
+    arrays, dequant = attn_mod.chunk_writes(
+        slots, start, write_pos, lengths, tokens.shape[1], max_len, slots_bk)
+    chunk = attn_mod.chunk_coords(
+        {k: torch.from_numpy(a).to(device) for k, a in arrays.items()},
+        tokens.shape[1], dequant)
     return forward(params, cfg, {"tokens": tokens}, mode="chunk",
-                   caches=caches, pos=(slots, start, write_pos, lengths))
+                   caches=caches, chunk=chunk)
 
 
 def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,

@@ -10,7 +10,12 @@ as a 4-stage instance of the shared N-stage pipeline:
 
 with request N's dense overlapping request N+1's sparse (T2) and request
 N+2's host ingest: the stages enqueue their work on the card and return.
-Stages live in the shared StageExecutor; admission/latency/SLA accounting
+Stages live in the shared StageExecutor. The dense stage is built in static
+form and on the card captured as a CUDA graph, one per batch size (the
+reference's one ``jit`` traces once per shape), unless
+``cuda_graphs=False``. The sparse stage stays eager: a request's lookup
+count (the bags' lengths) sets the SLS kernel's work, and the post stage is
+one cast. Admission/latency/SLA accounting
 flows through the shared Scheduler + Telemetry. The parameters must live
 on ``device`` (default ``"cuda"``; ``"cpu"`` runs the kernels' plain
 versions). Replicas behind a router (``make_replicas``) come with the
@@ -32,7 +37,7 @@ from repro_torch.core.pipeline import Pipeline, PipelineStats
 from repro_torch.core.transfer import (PinnedStaging, SparseBatch,
                                        TransferStats, command_batched_transfer)
 from repro_torch.models import dlrm as dlrm_mod
-from repro_torch.serving.executor import StageExecutor
+from repro_torch.serving.executor import StageExecutor, StaticStage
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.telemetry import Telemetry
 
@@ -50,6 +55,7 @@ class DLRMEngine:
                               # keeps the T2 stage overlap alive within a
                               # step)
     device: Any = "cuda"
+    cuda_graphs: bool = True
     transfer_stats: TransferStats = field(default_factory=TransferStats)
 
     def __post_init__(self):
@@ -63,7 +69,9 @@ class DLRMEngine:
         self.device = have
         self.telemetry = Telemetry()
         self.stats = self.telemetry
-        self.executor = StageExecutor(self.telemetry)
+        self.executor = StageExecutor(
+            self.telemetry,
+            graphs=self.cuda_graphs and self.device.type == "cuda")
         self.scheduler = Scheduler(self.policy, telemetry=self.telemetry,
                                    default_slo_ms=self.slo_ms,
                                    max_queue=self.max_queue,
@@ -80,12 +88,6 @@ class DLRMEngine:
                                             lengths)
             return sparse_fn
 
-        def build_dense():
-            @torch.inference_mode()
-            def dense_fn(params, pooled, dense_x):
-                return dlrm_mod.dense_forward(params, cfg, dense_x, pooled)
-            return dense_fn
-
         def build_post():
             return lambda logits: logits.to(torch.float32)
 
@@ -97,10 +99,27 @@ class DLRMEngine:
                                       self.params, *x["sls"]),
                 "dense": x["dense"]}),
             ("dense", lambda x, req: ex.dispatch(
-                "dense", (), build_dense, self.params, x["pooled"],
-                x["dense"])),
+                "dense", (), self._build_dense,
+                {"pooled": x["pooled"], "dense_x": x["dense"]},
+                variant=x["pooled"].shape[0])),
             ("post", lambda x, req: ex.dispatch("post", (), build_post, x)),
         ])
+
+    def _build_dense(self) -> StaticStage:
+        """The dense stage in static form, one variant per batch size B:
+        pooled (B,T,D) and dense_x (B,F) f32 -> logits (B,)."""
+        cfg = self.cfg
+
+        def buffers(B):
+            zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                               device=self.device)
+            return {"pooled": zeros(B, cfg.num_tables, cfg.embed_dim),
+                    "dense_x": zeros(B, cfg.num_dense_features)}
+
+        return StaticStage(
+            buffers, lambda b, _: dlrm_mod.dense_forward(
+                self.params, cfg, b["dense_x"], b["pooled"]),
+            to_host=False)
 
     def ingest(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """Host->device input path with the paper's T6 optimizations."""

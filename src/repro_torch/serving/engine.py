@@ -19,11 +19,21 @@ mid-prefill migration (``export_prefill`` / ``adopt_prefill``).
 
 The KV cache is one list of preallocated per-layer tensors that prefill
 and decode update in place: a prefill group writes its K/V straight into
-the acquired cache rows, and a decode step writes only the active rows.
-(The JAX engine builds a fresh cache per prefill group, scatters it into
-the slot rows, and donates the cache to every step.) The cache's batch and
-sequence axes are fixed by construction (dims 0 and 1 of every tensor), so
-no shape probing is needed.
+the acquired cache rows, and a decode step writes every row, the inactive
+ones writing back what they held. (The JAX engine builds a fresh cache per
+prefill group, scatters it into the slot rows, and donates the cache to
+every step.) The cache's batch and sequence axes are fixed by construction
+(dims 0 and 1 of every tensor), so no shape probing is needed.
+
+The stages (prefill per ``(bucket, P, precision)``, chunk prefill per
+``(bucket, P, precision)``, decode per ``(precision,)``, the keys the JAX
+engine jits under) are built in static form, and on the card the
+executor captures each as a CUDA graph and replays it: one replay per
+stage call, as the reference makes one dispatch of a jitted executable.
+Everything a stage call depends on is in its input buffers, the caches
+and the weights, so the caches and ``run_params`` are never reassigned.
+``cuda_graphs=False`` runs the same static forms eagerly (to hold the
+graphs against them); the CPU always does.
 
 ``precision="w8a8"`` serves through the §V build step's quantized model
 (``models/quantize.py``): every int8-decided projection runs the w8a8
@@ -46,9 +56,10 @@ from repro_torch.core.bucketing import pick_bucket
 from repro_torch.core.transfer import (SnapshotStaging, TransferStats,
                                        snapshot_device_get,
                                        snapshot_device_put)
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import model as model_mod
 from repro_torch.models.quantize import QuantizedParams, build_quantized_params
-from repro_torch.serving.executor import StageExecutor
+from repro_torch.serving.executor import StageExecutor, StaticStage
 from repro_torch.serving.scheduler import Scheduler, SizeTimePolicy, Ticket
 from repro_torch.serving.state import (SequenceSnapshot, SequenceStateManager,
                                        require_chunkable)
@@ -93,6 +104,7 @@ class InferenceEngine:
                  page_host: bool = False,
                  page_victim: str = "lru",
                  migrate_min_tokens: Optional[int] = None,
+                 cuda_graphs: bool = True,
                  device="cuda"):
         if page_victim not in ("lru", "remaining"):
             raise ValueError(f"page_victim must be 'lru' or 'remaining', "
@@ -144,7 +156,8 @@ class InferenceEngine:
                 | {prefill_chunk}))
 
         self.telemetry = Telemetry()
-        self.executor = StageExecutor(self.telemetry)
+        self.executor = StageExecutor(
+            self.telemetry, graphs=cuda_graphs and self.device.type == "cuda")
         if policy == "sizetime":
             # group on the engine's own buckets, or a "coherent" group
             # still splits into several prefill calls
@@ -156,6 +169,8 @@ class InferenceEngine:
                                    service_ms_est=service_ms_est)
         self.caches = model_mod.init_caches(cfg, batch_slots, max_len,
                                             self.device)
+        # an int8 chunk stage holds one graph per dequantized extent
+        self._int8_kv = "k_scale" in self.caches[0]
         self.states = SequenceStateManager(batch_slots, cfg)
 
         # movable sequence state: one snapshot contract, three consumers
@@ -205,59 +220,84 @@ class InferenceEngine:
     def pos(self) -> np.ndarray:
         return self.states.pos
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
     # ---- stages ----------------------------------------------------------
-    def _build_prefill(self, bucket: int):
-        cfg = self.cfg
+    # Each stage is built in static form (``executor.StaticStage``): input
+    # buffers of the key's shapes and a body over them and the engine's
+    # caches and weights, which stay where they are for the engine's life
+    # (a captured graph holds their addresses). The executor captures the
+    # body as a CUDA graph on the card, or runs it as it is.
+    def _zeros(self, *shape, dtype=torch.int32) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        @torch.inference_mode()
-        def fn(params, caches, tokens, lengths, rows):
+    def _build_prefill(self, bucket: int, P: int) -> StaticStage:
+        cfg, params, caches = self.cfg, self.run_params, self.caches
+
+        def buffers(_):
+            return {"tokens": self._zeros(P, bucket),
+                    "lengths": self._zeros(P),
+                    "rows": self._zeros(P, dtype=torch.int64)}
+
+        def body(b, _):
             """tokens (P,bucket), lengths (P,): group row j prefills into
-            cache row rows[j] (padded rows past len(rows) write nothing).
-            Returns the next tokens (P,) on the host."""
-            valid = torch.arange(bucket, device=tokens.device)[None, :] \
+            cache row rows[j] (-1: a padded row, which writes nothing of
+            its own). Returns the next tokens (P,)."""
+            lengths = b["lengths"]
+            valid = torch.arange(bucket, device=self.device)[None, :] \
                 < lengths[:, None]
-            x, _ = model_mod.forward(params, cfg, {"tokens": tokens},
+            x, _ = model_mod.forward(params, cfg, {"tokens": b["tokens"]},
                                      mode="prefill", caches=caches,
-                                     kv_valid=valid, cache_rows=rows)
-            last = x[torch.arange(x.shape[0], device=x.device),
-                     lengths.long() - 1]
-            return model_mod.greedy_next(params, cfg, last).cpu().numpy()
+                                     kv_valid=valid, cache_rows=b["rows"])
+            last = x[torch.arange(P, device=self.device), lengths.long() - 1]
+            return model_mod.greedy_next(params, cfg, last)
 
-        return fn
+        return StaticStage(buffers, body)
 
-    def _build_chunk(self, bucket: int):
-        cfg = self.cfg
+    def _build_chunk(self, bucket: int, P: int) -> StaticStage:
+        cfg, params, caches = self.cfg, self.run_params, self.caches
 
-        @torch.inference_mode()
-        def fn(params, caches, slots, tokens, start, write_pos, lengths,
-               last_idx):
-            """tokens (P,bucket) on the device; slots, start, write_pos,
-            lengths, last_idx (P,) host arrays. Row j's chunk writes its
-            K/V in place into cache row slots[j] and attends that row;
-            padded rows (lengths 0) write nothing. Returns the next tokens
-            (P,) on the host."""
-            x, _ = model_mod.chunk_prefill_step(params, cfg, tokens, caches,
-                                                slots, start, write_pos,
-                                                lengths)
-            hidden = x[torch.arange(x.shape[0], device=x.device),
-                       torch.from_numpy(last_idx).to(x.device).long()]
-            return model_mod.greedy_next(params, cfg, hidden).cpu().numpy()
+        def buffers(_):
+            return {"tokens": self._zeros(P, bucket),
+                    "last_idx": self._zeros(P),
+                    "slots": self._zeros(P), "start": self._zeros(P),
+                    "lens": self._zeros(P),
+                    **{k: self._zeros(P * bucket, dtype=torch.int64)
+                       for k in ("write_rows", "write_pos", "src")}}
 
-        return fn
+        def body(b, dequant_len):
+            """tokens (P,bucket) and the coordinates of
+            ``attention.chunk_writes``: row j's chunk writes its K/V in
+            place into cache row slots[j] and attends that row; padded
+            rows (lengths 0) write nothing of their own. ``dequant_len``:
+            the keys an int8 cache dequantizes (the variant). Returns the
+            next tokens (P,)."""
+            x, _ = model_mod.forward(
+                params, cfg, {"tokens": b["tokens"]}, mode="chunk",
+                caches=caches,
+                chunk=attn_mod.chunk_coords(b, bucket, dequant_len))
+            hidden = x[torch.arange(P, device=self.device),
+                       b["last_idx"].long()]
+            return model_mod.greedy_next(params, cfg, hidden)
 
-    def _build_decode(self):
-        cfg = self.cfg
+        return StaticStage(buffers, body)
 
-        @torch.inference_mode()
-        def fn(params, caches, tokens, pos_vec, active):
-            hidden, _ = model_mod.decode_step(params, cfg, tokens, caches,
-                                              pos_vec, active=active)
-            return model_mod.greedy_next(params, cfg, hidden).cpu().numpy()
+    def _build_decode(self) -> StaticStage:
+        cfg, params, caches, B = (self.cfg, self.run_params, self.caches,
+                                  self.batch_slots)
 
-        return fn
+        def buffers(_):
+            return {"tokens": self._zeros(B, 1), "pos": self._zeros(B),
+                    "active": self._zeros(B, dtype=torch.bool)}
+
+        def body(b, _):
+            """Every slot's row decodes one token at pos; the rows
+            ``active`` leaves out keep their cache. Returns the next
+            tokens (B,)."""
+            hidden, _ = model_mod.decode_step(params, cfg, b["tokens"],
+                                              caches, b["pos"],
+                                              active=b["active"])
+            return model_mod.greedy_next(params, cfg, hidden)
+
+        return StaticStage(buffers, body)
 
     # ---- movable sequence state: serialize / restore ---------------------
     def snapshot_slot(self, slot: int, length: int, *,
@@ -490,7 +530,8 @@ class InferenceEngine:
         # pad the group to the next power of two (static shapes, like the
         # buckets): stages per bucket stay bounded at log2(slots)+1 and
         # wasted prefill compute under 2x. Padded rows carry zero tokens /
-        # length 1, write no cache row, and their token is discarded.
+        # length 1, write nothing of their own (row -1), and their token is
+        # discarded.
         g = len(group)
         P = 1 << (g - 1).bit_length()
         toks = np.zeros((P, bucket), np.int32)
@@ -499,11 +540,12 @@ class InferenceEngine:
             toks[j, :L] = t.payload.tokens[:L]
             lens[j] = L
         slots = [self.states.acquire(t) for t in group]
+        rows = np.full(P, -1, np.int64)             # padded: no write
+        rows[:g] = slots
         nxt = self.executor.dispatch(
             "prefill", (bucket, P, self.precision),
-            lambda: self._build_prefill(bucket), self.run_params,
-            self.caches, self._to_device(toks), self._to_device(lens),
-            self._to_device(np.asarray(slots, np.int64)))
+            lambda: self._build_prefill(bucket, P),
+            {"tokens": toks, "lengths": lens, "rows": rows})
         now = time.perf_counter()
         for j, (t, slot, L) in enumerate(zip(group, slots, lengths)):
             t.payload.output.append(int(nxt[j]))
@@ -575,11 +617,14 @@ class InferenceEngine:
             wpos[j] = off
             lens[j] = clen
             last[j] = clen - 1
-        slots_padded = np.asarray(slots + [slots[0]] * (P - g), np.int32)
+        coords, dequant = attn_mod.chunk_writes(
+            slots + [slots[0]] * (P - g), start, wpos, lens, bucket,
+            self.max_len, self.batch_slots)
         nxt = self.executor.dispatch(
             "chunk_prefill", (bucket, P, self.precision),
-            lambda: self._build_chunk(bucket), self.run_params, self.caches,
-            slots_padded, self._to_device(toks), start, wpos, lens, last)
+            lambda: self._build_chunk(bucket, P),
+            dict(coords, tokens=toks, last_idx=last),
+            variant=dequant if self._int8_kv else None)
         now = time.perf_counter()
         for j, (t, slot) in enumerate(zip(group, slots)):
             req = t.payload
@@ -605,15 +650,14 @@ class InferenceEngine:
         toks = np.zeros((self.batch_slots, 1), np.int32)
         # inactive rows ride the fixed-shape decode step parked at
         # max_len-1, a position no request attends (decoding stops at
-        # max_len-1), and write no K/V
+        # max_len-1), and write back what their cache held there
         pos_vec = self.states.decode_positions(self.max_len - 1)
-        active_mask = self.states.active_mask()
         for s, t in self.active.items():
             toks[s, 0] = t.payload.output[-1]
         nxt = self.executor.dispatch(
             "decode", (self.precision,), self._build_decode,
-            self.run_params, self.caches,
-            self._to_device(toks), self._to_device(pos_vec), active_mask)
+            {"tokens": toks, "pos": pos_vec,
+             "active": self.states.active_mask()})
         self.telemetry.steps += 1
         for s in list(self.active):
             t = self.active[s]
