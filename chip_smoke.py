@@ -11,6 +11,9 @@ result line):
              (fp32, int8, int4); then ``cuobjdump -sass`` of the flash and
              w8a8 libraries must show ``wgmma`` (GMMA) and TMA load
              (UTMALDG) instructions.
+1b. host-link — pinned host <-> device copy rates (256 MiB copies, CUDA
+             events) beside the H100 spec's nominal rate, which the
+             performance model prices snapshot ships with.
 2. kernels — each kernel against its plain PyTorch version on the card, on
              the JAX package's kernel test cases plus the serving path's
              shapes, with the error, the kernel's time, the plain version's
@@ -112,6 +115,30 @@ result line):
              the chunk call must touch whole cache rows only through views
              and its in-place write (no gather, copy or dequantize of whole
              rows), and over an int8 cache the prefix dequantize is timed.
+6b. fleet  — the fleet layer at full width, the replicas sharing the one
+             card and stepping in turn on one stream (every number is
+             printed beside the card and "replicas share one card", with
+             the kernel launches per replica; every engine prefills one
+             request a call, the reference too, so a request's GEMM shapes
+             are the same in both and its tokens can be held identical):
+             fleet-router — 2 bf16 replicas (4 slots, max_len 1024 each)
+             serve 12 requests x 32 tokens under count and then feedback
+             routing; tokens identical to one engine's on the same trace
+             (printed beside it). fleet-steal — every request hot-spotted
+             onto replica 0, stealing on, replica 0 drained after two
+             rounds: steals > 0, none lost, tokens identical. fleet-mixed
+             — a bf16 and a w8a8 + int8-KV replica (the serve phase's one
+             build step): class-0 requests only on bf16 and identical to
+             one engine's, the rest >= 0.90 agreement, no downgrade.
+             fleet-prefix — a hot-system-prompt trace (a 384-token shared
+             prefix) over 2 chunked replicas with the fleet prefix tier:
+             a hit steered to the holder and a shipped snapshot, the index
+             consistent with both caches, tokens a cold engine's.
+             fleet-autotune — a PerfModel fitted from this run's replayed
+             chunk calls (one request per chunk bucket, each key warmed
+             first) picks the chunk at its knee, which an
+             ``prefill_chunk="auto"`` engine serves with; on the reduced
+             f32 config the auto chunk gives chunk 16's tokens.
 7. serve-dlrm — with the deepseek-7b weights freed: DLRM ``PAPER_COMPLEX``
              at its published widths with every table halved (one shard,
              a 58.6 GB row-wise int8 slab made on the card from a seed)
@@ -121,6 +148,11 @@ result line):
              have run once a request and the other two not; one request's
              pooled output is held against the plain version on the same
              slab, and its logits against the dense stage on that output.
+7b. fleet-dlrm — 2 DLRM replicas over serve-dlrm's one slab: every batch
+             hot-spotted onto replica 0, stealing on, replica 0 drained
+             after its first step; each batch served once, its logits
+             within 2e-3 of the one engine's, the int8 SLS kernel once a
+             batch.
 8. profile-dlrm — one traced pipeline pass of a batch: device busy share,
              the SLS kernel's share, device activities.
 9. check-dlrm — reduced ``PAPER_COMPLEX`` with an fp32, an int8 and an
@@ -138,9 +170,11 @@ Kernel times (``ms``) are CUDA-event times of single calls, each after an
 L2 flush; the device window's times leave out the host's enqueue gap.
 
 The line before the last is a JSON object with one entry per kernel (its
-``launches`` are those of the phases whose path runs it: serve and
+``launches`` are those of the phases whose path runs it, summed: serve and
 serve-chunked for flash, serve for bf16 decode, serve-w8a8, serve-dlrm, or
-check-dlrm for the fp32 and int4 SLS kernels); the last line is
+check-dlrm for the fp32 and int4 SLS kernels, and every fleet phase; each
+phase zeroes the counters just before it and reads them just after); the
+last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA device and
 the repository's ``src/`` beside this file; imports nothing of JAX.
 """
@@ -154,6 +188,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -164,6 +199,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import dlrm_paper  # noqa: E402
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
+from repro_torch.core.backend import DEFAULT_BACKEND  # noqa: E402
 from repro_torch.core.metrics import token_agreement  # noqa: E402
 from repro_torch.data.synthetic import dlrm_batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -185,8 +221,14 @@ from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.quantize import (  # noqa: E402
     QuantizedParams, build_quantized_params)
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.serving.dlrm_engine import DLRMEngine  # noqa: E402
-from repro_torch.serving.engine import InferenceEngine, Request  # noqa: E402
+from repro_torch.serving.dlrm_engine import (  # noqa: E402
+    make_replicas as dlrm_make_replicas)
+from repro_torch.serving.engine import (  # noqa: E402
+    InferenceEngine, Request, make_replicas)
+from repro_torch.serving.perf_model import PerfModel  # noqa: E402
+from repro_torch.serving.router import ReplicaRouter  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
@@ -1992,7 +2034,7 @@ def phase_serve_dlrm():
           f"(byte offset {top * cfg.embed_dim}; 2^32 is {2**32})",
           flush=True)
     phase_dense_graphs(eng, cfg, asn, params, x["dense"], pooled)
-    return launches["sls_int8"], eng, batches[0]
+    return launches["sls_int8"], eng, (cfg, asn, params, batches, outs)
 
 
 def wall_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -2080,6 +2122,528 @@ def phase_check_dlrm() -> dict:
     return launches
 
 
+# ---- the fleet: replicas of one engine sharing the card -----------------
+
+FLEET_NOTE = "replicas share one card"
+AUTOTUNE_LENGTHS = (40, 100, 200, 400)    # one per chunk bucket 64..512
+
+
+def phase_host_link() -> None:
+    """Host <-> device copy rates through pinned memory (256 MiB copies,
+    CUDA events), beside the H100 spec's nominal PCIe 5.0 x16 rate the
+    performance model prices snapshot ships with."""
+    n = 256 * 2**20
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device=DEV)
+    rates = {}
+    for name, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        for _ in range(2):
+            dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(5):
+            dst.copy_(src, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        rates[name] = 5 * n / (start.elapsed_time(end) * 1e-3) / 1e9
+    spec = DEFAULT_BACKEND
+    print(f"host-link: {card_line()}: pinned 256 MiB copies, host->device "
+          f"{rates['h2d']:.2f} GB/s, device->host {rates['d2h']:.2f} GB/s "
+          f"(the {spec.name} spec's nominal {spec.h2d_bw / 1e9:.0f} and "
+          f"{spec.d2h_bw / 1e9:.0f} GB/s)", flush=True)
+
+
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in LAUNCHERS.items()}
+
+
+def _count_per_replica(router) -> list:
+    """Clear each replica's serving stats and wrap its ``step_once`` so the
+    kernel launches of its steps add up in a dict of its own; ``_unwrap``
+    takes the wrappers off. Returns the dicts, one per replica."""
+    per = [dict.fromkeys(LAUNCHERS, 0) for _ in router.replicas]
+    for rep, got in zip(router.replicas, per):
+        rep.telemetry.reset_serving_stats()
+        def counted(step=rep.step_once, got=got):
+            before = _launch_counts()
+            out = step()
+            for k, v in _launch_counts().items():
+                got[k] += v - before[k]
+            return out
+        rep.step_once = counted
+    return per
+
+
+def _unwrap(router) -> None:
+    for rep in router.replicas:
+        rep.__dict__.pop("step_once", None)
+
+
+def _fleet_line(label, router, reqs, wall, per, precisions) -> dict:
+    """Print the fleet's numbers beside the card and the kernel launches
+    per replica; returns the launches summed over the replicas."""
+    tel = router.fleet_telemetry()
+    lat, ttft = tel.latency_percentiles(), tel.ttft_percentiles()
+    n_tok = sum(len(r.output) for r in reqs)
+    print(f"{label}: {len(router.replicas)} replicas {precisions}, "
+          f"{FLEET_NOTE} ({card_line()}), prefill calls of up to "
+          f"{router.replicas[0].max_prefill_batch} requests, routed "
+          f"{router.routed}; served "
+          f"{tel.served}/{len(reqs)} in {wall:.3f} s, {n_tok / wall:.1f} "
+          f"tok/s, latency p50 {lat['p50']:.2f} ms p99 {lat['p99']:.2f} ms, "
+          f"TTFT p50 {ttft['p50']:.2f} ms p99 {ttft['p99']:.2f} ms (all "
+          f"submitted at once); steals {router.steals_per_replica}, "
+          f"drained {tel.drained}, re-homed {router.rehomed}, dead "
+          f"{[i for i, d in enumerate(router.dead) if d]}", flush=True)
+    print(f"{label}: kernel launches per replica {per}", flush=True)
+    lost = [r.rid for r in reqs if not r.done]
+    if lost or tel.served != len(reqs):
+        raise AssertionError(f"{label}: lost requests {lost} (served "
+                             f"{tel.served} of {len(reqs)})")
+    return {k: sum(p[k] for p in per) for k in LAUNCHERS}
+
+
+def _warm(reps, vocab, lengths=(64,)) -> None:
+    """One request of each length through each replica, one at a time
+    (their stages' first calls and captures), then clean serving
+    stats."""
+    for rep in reps:
+        for n in lengths:
+            rep.run(_requests(1, n, n, 4, vocab, seed=1))
+        rep.telemetry.reset_serving_stats()
+
+
+# the router, steal and mixed fleet phases' engines prefill one request a
+# call, as their one-engine reference does, so a request's prefill GEMMs
+# have the same shapes in both (the library picks its kernel, and its sum
+# order, by the row count) and its tokens can be held identical; decode
+# steps always run all 4 rows. phase_fleet_batched serves at the engines'
+# default admission instead
+FLEET_KW = dict(SERVE_KW, max_prefill_batch=1)
+
+
+# a warm-up request per prefill bucket (64, 128, 256, 512): every prefill
+# key of a one-request-a-call engine is captured before the measured runs
+FLEET_WARM = (64, 128, 256, 512)
+
+
+def _one_engine(label, cfg, params, reqs, warm=FLEET_WARM, **kw):
+    """The reference: the same requests through one engine, warmed as the
+    replicas are; its numbers are printed beside the fleet's."""
+    eng = InferenceEngine(cfg, params, **dict(FLEET_KW, **kw))
+    _warm([eng], cfg.vocab_size, warm)
+    return _timed_one(label, eng, reqs)
+
+
+def _timed_one(label, eng, reqs):
+    """Serve ``reqs`` on one warmed engine, print its numbers beside the
+    card and return the outputs."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tel = eng.telemetry
+    lat, ttft = tel.latency_percentiles(), tel.ttft_percentiles()
+    n_tok = sum(len(r.output) for r in reqs)
+    print(f"{label}: one engine, the reference ({card_line()}), prefill "
+          f"calls of up to {eng.max_prefill_batch} requests: served "
+          f"{tel.served}/{len(reqs)} in {wall:.3f} s, {n_tok / wall:.1f} "
+          f"tok/s, latency p50 {lat['p50']:.2f} ms p99 {lat['p99']:.2f} ms, "
+          f"TTFT p50 {ttft['p50']:.2f} ms p99 {ttft['p99']:.2f} ms",
+          flush=True)
+    return [r.output for r in reqs]
+
+
+def _fleet_requests(vocab, classes=False):
+    reqs = _requests(12, 64, 512, 32, vocab, seed=2)
+    if classes:
+        for r in reqs:
+            r.priority = int(r.rid % 4 != 0)    # every fourth is class 0
+    return reqs
+
+
+def phase_fleet_router(cfg, params, reps, want) -> dict:
+    """fleet-router: two bf16 replicas behind ``ReplicaRouter`` serve the
+    same 12 requests as one engine, under count and then feedback
+    routing, the replicas stepping in turn on one stream (so the decode
+    kernels' shared ticket counters see one launch at a time): the
+    tokens must be ``want``, one engine's. Returns the launches of both
+    runs."""
+    total = dict.fromkeys(LAUNCHERS, 0)
+    for route in ("count", "feedback"):
+        label = f"fleet-router ({route})"
+        router = ReplicaRouter(reps, route=route)
+        reqs = _fleet_requests(cfg.vocab_size)
+        per = _count_per_replica(router)
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            router.submit(r)
+        router.run_until_drained()
+        wall = time.perf_counter() - t0
+        _unwrap(router)
+        got = _fleet_line(label, router, reqs, wall, per, router.precisions)
+        _require_launched(label, got, ("flash_attn", "decode_attn"))
+        _check_tokens(label, [r.output for r in reqs], want, "one engine's")
+        print(f"{label}: tokens identical to one engine's; step-time EWMA "
+              f"per replica {[round(e * 1e3, 3) for e in router.ewma_s]} "
+              f"ms", flush=True)
+        total = {k: total[k] + got[k] for k in total}
+    return total
+
+
+def phase_fleet_batched(cfg, params) -> dict:
+    """fleet-router at the engines' default admission (a prefill call
+    takes up to ``batch_slots`` requests, as in the serve phases and the
+    launcher's fleet): the serve phase's 8 requests through one engine and
+    then through two bf16 replicas under count routing, each side warmed
+    by one pass of the same requests so the measured pass replays captured
+    graphs. A request shares its prefill call with other rows in the fleet
+    than in one engine, and the library's GEMMs pick their kernel, and
+    their sum order, by the row count: the tokens are held by greedy
+    agreement >= 0.95, the bound serve-eager holds two bf16 paths to.
+    Returns the fleet's launches."""
+    label = "fleet-router (count, default admission)"
+
+    def trace():
+        return _requests(8, 64, 512, 32, cfg.vocab_size, seed=0)
+
+    one = InferenceEngine(cfg, params, **SERVE_KW)
+    one.run(trace())
+    one.telemetry.reset_serving_stats()
+    want = _timed_one(label, one, trace())
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    reps = make_replicas(cfg, params, 2, **SERVE_KW)
+    warm = ReplicaRouter(reps, route="count")
+    for r in trace():
+        warm.submit(r)
+    warm.run_until_drained()
+    router = ReplicaRouter(reps, route="count")
+    reqs = trace()
+    per = _count_per_replica(router)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        router.submit(r)
+    router.run_until_drained()
+    wall = time.perf_counter() - t0
+    _unwrap(router)
+    got = _fleet_line(label, router, reqs, wall, per, router.precisions)
+    _require_launched(label, got, ("flash_attn", "decode_attn"))
+    outs = [r.output for r in reqs]
+    agree = token_agreement(zip(outs, want))
+    same = sum(a == b for a, b in zip(outs, want))
+    div = _first_divergence(outs, want)
+    where = ("" if div is None else f"; first divergence: request {div[0]} "
+             f"token {div[1]}, fleet {div[2]} vs one engine {div[3]}")
+    print(f"{label}: greedy-token agreement with one engine {agree:.4f}, "
+          f"{same} of {len(reqs)} requests token-identical{where}",
+          flush=True)
+    if agree < 0.95:
+        raise AssertionError(f"{label}: agreement {agree:.4f} with one "
+                             f"engine < 0.95")
+    return got
+
+
+def _check_tokens(label, got, want, what) -> None:
+    div = _first_divergence(got, want)
+    if div is not None:
+        raise AssertionError(f"{label}: tokens differ from {what}: request "
+                             f"{div[0]} token {div[1]}, {div[2]} vs "
+                             f"{div[3]}")
+
+
+def phase_fleet_steal(cfg, reps, want) -> dict:
+    """fleet-steal: every request hot-spotted onto replica 0 with stealing
+    on, replica 0 drained after two rounds (the launcher's
+    ``--verify-steal`` drive): tickets stolen, none lost, and the tokens
+    one engine's."""
+    label = "fleet-steal"
+    router = ReplicaRouter(reps, steal=True)
+    reqs = _fleet_requests(cfg.vocab_size)
+    per = _count_per_replica(router)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tel = serve_launcher.drive_steal(router, reqs)
+    wall = time.perf_counter() - t0
+    _unwrap(router)
+    got = _fleet_line(label, router, reqs, wall, per, router.precisions)
+    _require_launched(label, got, ("flash_attn", "decode_attn"))
+    if tel.steals == 0 or tel.drained == 0:
+        raise AssertionError(f"{label}: {tel.steals} stolen, {tel.drained} "
+                             f"re-homed by the drain")
+    _check_tokens(label, [r.output for r in reqs], want, "one engine's")
+    print(f"{label}: {tel.steals} stolen, {tel.drained} re-homed by the "
+          f"drain, 0 lost, tokens identical to one engine's", flush=True)
+    return got
+
+
+def phase_fleet_mixed(cfg, params, quant, bf16_rep, want) -> dict:
+    """fleet-mixed: a bf16 replica and a w8a8 replica with an int8 KV cache
+    (the serve phase's quantized weights: one build step for the fleet).
+    Class-0 requests land only on bf16 and decode one bf16 engine's
+    tokens; the others agree with it >= 0.90; none is lost and no
+    precision downgrade is counted."""
+    label = "fleet-mixed"
+    w8 = InferenceEngine(_int8_kv(cfg), params, precision="w8a8",
+                         quantized_params=quant, **FLEET_KW)
+    _warm([w8], cfg.vocab_size, FLEET_WARM)
+    router = ReplicaRouter([bf16_rep, w8])
+    reqs = _fleet_requests(cfg.vocab_size, True)
+    on_w8 = set()
+    submit = w8.submit
+    def recorded(r, **kw):
+        on_w8.add(r.rid)
+        return submit(r, **kw)
+    w8.submit = recorded
+    per = _count_per_replica(router)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_launcher._verify_quant_fleet(router, reqs, None)
+    wall = time.perf_counter() - t0
+    _unwrap(router)
+    del w8.submit
+    got = _fleet_line(label, router, reqs, wall, per, router.precisions)
+    _require_launched(label, per[0], ("flash_attn", "decode_attn"))
+    _require_launched(label, per[1], ("flash_attn", "w8a8_matmul",
+                                      "decode_attn_int8"))
+    if per[1]["decode_attn"] or per[0]["w8a8_matmul"]:
+        raise AssertionError(f"{label}: a kernel ran on the wrong replica "
+                             f"{per}")
+    high = [i for i, r in enumerate(reqs) if r.priority == 0]
+    _check_tokens(label, [reqs[i].output for i in high],
+                  [want[i] for i in high], "one bf16 engine's")
+    # the guardrail holds the w8a8 replica alone: the class-1 requests the
+    # bf16 replica served match one bf16 engine by construction
+    low = [i for i, r in enumerate(reqs) if r.rid in on_w8]
+    if not low:
+        raise AssertionError(f"{label}: the w8a8 replica served nothing")
+    agree = token_agreement([(reqs[i].output, want[i]) for i in low])
+    if agree < serve_launcher.QUANT_AGREEMENT_THRESHOLD:
+        raise AssertionError(f"{label}: agreement {agree:.4f} below "
+                             f"{serve_launcher.QUANT_AGREEMENT_THRESHOLD}")
+    print(f"{label}: {len(high)} class-0 requests all on bf16 and "
+          f"token-identical to one bf16 engine; the {len(low)} requests "
+          f"the w8a8 replica served agree {agree:.4f} with it (guardrail "
+          f"{serve_launcher.QUANT_AGREEMENT_THRESHOLD}); 0 downgrades, 0 "
+          f"lost", flush=True)
+    del w8, router
+    return got
+
+
+def phase_fleet_prefix(cfg, params) -> dict:
+    """fleet-prefix: a hot-system-prompt trace (a 384-token shared prefix)
+    over two chunked replicas (chunk 128) with the fleet-shared prefix
+    tier: a populate pass on one replica, then the rest at once. A remote
+    hit must be steered to the holder and a snapshot shipped, nothing
+    lost, the fleet index consistent with both caches, and the tokens a
+    cold engine's."""
+    label = "fleet-prefix"
+    kw = dict(SERVE_KW, prefill_chunk=128)
+    args = types.SimpleNamespace(prefill_chunk=128, requests=10,
+                                 new_tokens=16)
+
+    def trace():
+        return serve_launcher._prefix_requests(args, cfg)
+
+    want = _one_engine(label, cfg, params, trace(), warm=(64,),
+                       prefill_chunk=128, max_prefill_batch=None)
+    reps = make_replicas(cfg, params, 2, prefix_cache=8, **kw)
+    _warm(reps, cfg.vocab_size)
+    router = ReplicaRouter(reps, fleet_prefix=True, prefix_host_entries=32,
+                           perf_model=PerfModel.for_params(params))
+    reqs = trace()
+    per = _count_per_replica(router)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    router.submit(reqs[0])                  # populate one replica
+    router.run_until_drained()
+    for r in reqs[1:]:
+        router.submit(r)
+    router.run_until_drained()
+    wall = time.perf_counter() - t0
+    _unwrap(router)
+    got = _fleet_line(label, router, reqs, wall, per, router.precisions)
+    _require_launched(label, got, ("flash_attn", "decode_attn"))
+    router.prefix_index.check_consistent(
+        [set(dict(r.export_prefix_cache())) for r in reps])
+    tel = router.fleet_telemetry()
+    steered = tel.prefix_remote_hits - tel.prefix_shipped \
+        - tel.prefix_recomputed
+    _check_tokens(label, [r.output for r in reqs], want, "a cold engine's")
+    print(f"{label}: {tel.prefix_remote_hits} remote hits ({steered} "
+          f"steered to the holder, {tel.prefix_shipped} shipped, "
+          f"{tel.prefix_recomputed} priced-out recomputes), "
+          f"{tel.prefix_host_hits} host-tier fault-ins, {tel.prefix_hits} "
+          f"local hits; 0 lost, index consistent, tokens identical to a cold "
+          f"engine's; snapshot and restore bytes per replica "
+          f"{[r.transfer_stats.bytes_partial for r in reps]}", flush=True)
+    if steered < 1 or tel.prefix_shipped < 1:
+        raise AssertionError(f"{label}: {steered} steered, "
+                             f"{tel.prefix_shipped} shipped")
+    return got
+
+
+def phase_fleet_autotune(cfg, params) -> dict:
+    """fleet-autotune: a PerfModel fitted from this run's replayed chunk
+    calls at full width (a chunk-512 engine, one request per chunk bucket,
+    each key warmed up first) picks the chunk at its knee on the ladder;
+    an engine with ``prefill_chunk="auto"`` serves with it. Then the same
+    on the reduced f32 config, where the auto chunk must give chunk 16's
+    tokens."""
+    label = "fleet-autotune"
+    t0 = time.perf_counter()
+    pm, ladder = serve_launcher.autotune_model(
+        cfg, params, SERVE_KW, lengths=AUTOTUNE_LENGTHS)
+    knee = pm.suggest_prefill_chunk(ladder)
+    # each calibration call holds one request of a ladder bucket: the
+    # measured median of a cell is its overhead factor times its floor
+    fit = [(n, round(1e3 * pm.predict_dispatch_s("chunk_prefill", n), 3),
+            round(1e3 * pm.cell_overhead("chunk_prefill", bucket=n)
+                  * pm.flop_floor_s(n), 3)) for n in ladder]
+    eng = InferenceEngine(cfg, params, prefill_chunk="auto", perf_model=pm,
+                          **SERVE_KW)
+    print(f"{label}: deepseek-7b full width bf16 ({card_line()}), "
+          f"calibration {time.perf_counter() - t0:.2f} s from replayed "
+          f"calls only; fitted {pm.fitted_terms()}; (tokens, predicted ms, "
+          f"measured median ms) {fit}; knee {knee} on {ladder}; auto chunk "
+          f"{eng.prefill_chunk} on {eng.buckets}", flush=True)
+    _warm([eng], cfg.vocab_size)
+    reqs = _requests(8, 64, 512, 32, cfg.vocab_size, seed=0)
+    _zero_launches()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    got = _launch_counts()
+    _require_launched(label, got, ("flash_attn", "decode_attn"))
+    chunk = eng.prefill_chunk
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    hand = InferenceEngine(cfg, params, prefill_chunk=chunk, **SERVE_KW)
+    _warm([hand], cfg.vocab_size)
+    twin = _requests(8, 64, 512, 32, cfg.vocab_size, seed=0)
+    hand.run(twin)
+    _check_tokens(label, [r.output for r in reqs],
+                  [r.output for r in twin],
+                  f"a hand-set chunk-{chunk} engine's")
+    print(f"{label}: full width, 8 requests served with the auto chunk; "
+          f"tokens identical to a hand-set chunk-{chunk} engine's; kernel "
+          f"launches {got}", flush=True)
+    del hand
+    small = reduce_for_smoke(get_config("deepseek-7b"))
+    card = model_mod.init_params(small, seed=0, device=DEV)
+    kw = dict(batch_slots=2, max_len=64, prefill_buckets=(8, 16, 32),
+              device=DEV)
+    spm, sladder = serve_launcher.autotune_model(small, card, kw,
+                                                 lengths=(6, 12, 30))
+    auto = InferenceEngine(small, card, prefill_chunk="auto",
+                           perf_model=spm, **kw)
+    ref = InferenceEngine(small, card, prefill_chunk=16, **kw)
+    outs = [_outputs(e, _requests(8, 4, 40, 6, small.vocab_size, seed=9))
+            for e in (auto, ref)]
+    _check_tokens(label, *outs, "chunk 16's on the reduced config")
+    print(f"{label}: reduced f32 config on the card, auto chunk "
+          f"{auto.prefill_chunk} on {auto.buckets} (knee of "
+          f"{spm.fitted_terms()} on {sladder}): 8 requests token-identical "
+          f"to chunk 16", flush=True)
+    return got
+
+
+def phase_fleet_lm(cfg, params, quant) -> dict:
+    """The LM fleet phases at full width; returns their launches summed."""
+    want = _one_engine("fleet-router", cfg, params,
+                       _fleet_requests(cfg.vocab_size))
+    gc.collect()
+    torch.cuda.empty_cache()
+    reps = make_replicas(cfg, params, 2, **FLEET_KW)
+    _warm(reps, cfg.vocab_size, FLEET_WARM)
+    phases = [phase_fleet_router(cfg, params, reps, want),
+              phase_fleet_steal(cfg, reps, want),
+              phase_fleet_mixed(cfg, params, quant, reps[0], want)]
+    del reps
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.append(phase_fleet_batched(cfg, params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.append(phase_fleet_prefix(cfg, params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases.append(phase_fleet_autotune(cfg, params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: sum(p[k] for p in phases) for k in LAUNCHERS}
+
+
+def phase_fleet_dlrm(cfg, asn, params, batches, outs) -> int:
+    """fleet-dlrm: two DLRM replicas over the serve phase's one slab,
+    every batch hot-spotted onto replica 0, stealing on and replica 0
+    drained after its first step: each batch served once, its logits
+    within 2e-3 of the one engine's. Returns the int8 SLS launches."""
+    label = "fleet-dlrm"
+    got = {}
+    reps = dlrm_make_replicas(
+        cfg, asn, params, 2, device=DEV,
+        on_result=lambda b, v: got.setdefault(id(b), []).append(v))
+    for rep in reps:
+        rep.serve(batches, pipelined=True, warm=True)
+        rep.telemetry.reset_serving_stats()
+    router = ReplicaRouter(reps, steal=True)
+    per = _count_per_replica(router)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        reps[0].submit(b)
+    rounds = 0
+    while router.has_work:
+        router.maybe_steal()
+        for i, rep in enumerate(reps):
+            if not router.dead[i] and rep.has_work:
+                rep.step_once()
+        rounds += 1
+        if rounds == 1:
+            router.drain_replica(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _unwrap(router)
+    tel = router.fleet_telemetry()
+    lat = tel.latency_percentiles()
+    served = [r.telemetry.served for r in reps]
+    print(f"{label}: 2 replicas sharing one slab, {FLEET_NOTE} "
+          f"({card_line()}): served {served} of {len(batches)} batches of "
+          f"{DLRM_BATCH} in {wall:.3f} s "
+          f"({len(batches) * DLRM_BATCH / wall:.0f} items/s, latency p50 "
+          f"{lat['p50']:.3f} ms p99 {lat['p99']:.3f} ms), {tel.steals} "
+          f"stolen, {tel.drained} re-homed by the drain; kernel launches "
+          f"per replica {per}", flush=True)
+    if tel.served != len(batches) or tel.steals == 0 or tel.drained == 0:
+        raise AssertionError(f"{label}: served {tel.served}, {tel.steals} "
+                             f"stolen, {tel.drained} drained")
+    err = 0.0
+    for b, want in zip(batches, outs):
+        if len(got.get(id(b), ())) != 1:
+            raise AssertionError(f"{label}: a batch was served "
+                                 f"{len(got.get(id(b), ()))} times")
+        err = max(err, compare(f"{label} logits", got[id(b)][0], want,
+                               torch.float32))
+    total = sum(p["sls_int8"] for p in per)
+    _require_sls(label, {k: sum(p[k] for p in per) for k in LAUNCHERS},
+                 "sls_int8", len(batches))
+    print(f"{label}: every batch's logits within {err:.3e} of the one "
+          f"engine's (tol {TOL[torch.float32]})", flush=True)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2092,6 +2656,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     phase_build()
+    phase_host_link()
     main_path = phase_kernels()
     cfg = get_config("deepseek-7b")
     t0 = time.perf_counter()
@@ -2117,19 +2682,24 @@ def main():
     phase_check_graphs()
     phase_profile(cfg, params)
     phase_profile(_int8_kv(cfg), quant.params, tag="w8a8+int8kv ")
-    # each kernel's launches are those of the serve phase that runs it;
-    # flash's are the monolithic and the chunked bf16 serves'
+    # each kernel's launches are those of the serve phases that run it
+    # (flash's: the monolithic and the chunked bf16 serves') and of the
+    # fleet phases
     launches.update({k: launches_q[k] for k in ("w8a8_matmul",
                                                 "decode_attn_int8")})
     launches["flash_attn"] += launches_c["flash_attn"]
+    fleet = phase_fleet_lm(cfg, params, quant)
+    for k in ("flash_attn", "decode_attn", "w8a8_matmul", "decode_attn_int8"):
+        launches[k] += fleet[k]
     # the DLRM slab needs the card: drop every deepseek-7b tensor first
     del params, quant
     gc.collect()
     torch.cuda.empty_cache()
     print(f"freed deepseek-7b: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB still allocated", flush=True)
-    launches["sls_int8"], eng, batch = phase_serve_dlrm()
-    phase_profile_dlrm(eng, batch)
+    launches["sls_int8"], eng, served = phase_serve_dlrm()
+    launches["sls_int8"] += phase_fleet_dlrm(*served)
+    phase_profile_dlrm(eng, served[3][0])
     del eng
     gc.collect()
     torch.cuda.empty_cache()

@@ -16,7 +16,9 @@ counter per (row, kv head). The two kernels share the counters: they are
 allocated zeroed once per device and every launch of either kernel leaves
 them zero (a replayed CUDA graph's launches too), so launches that run in
 turn on one stream (the engine's) share them; two launches that run at
-once on different streams must not.
+once on different streams must not. The replicas of a fleet on one card
+share them too: the router steps its replicas in turn, every stage on the
+current stream (``serving/router.py``), so their launches never overlap.
 """
 from __future__ import annotations
 

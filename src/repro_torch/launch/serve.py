@@ -19,6 +19,23 @@ exits non-zero unless every output is token-identical. ``--prefix-cache N``
 ``--verify-prefix`` replays a hot-system-prompt trace through the warm
 cache and exits non-zero unless it hits and every output is
 token-identical to a cold engine's.
+
+The fleet: ``--replicas N`` fronts N engine replicas with the
+``ReplicaRouter`` (``--route count|feedback``, ``--steal``); on the card the
+replicas share the one device and step in turn on one stream, so every
+fleet time includes the siblings' compute. ``--verify-steal`` hot-spots the
+trace onto replica 0, drains it mid-run and exits non-zero unless work was
+stolen and nothing was lost. ``--replica-precisions fp32,w8a8`` serves a
+mixed fleet (the quantized weights built once); with ``--verify-quant`` it
+checks that every class-0 request landed on fp32. ``--verify-fleet-prefix``
+serves the hot-system-prompt trace through the fleet-shared prefix tier
+and checks remote hits, nothing lost and token identity with a cold
+engine. ``--prefill-chunk auto`` picks the chunk at the performance
+model's efficiency knee; ``--verify-autotune`` first fits the model from
+this run's own replayed chunk calls, then checks the chunk is on the
+ladder, at or below the fitted knee and token-identical to chunk 16.
+``--elastic-smoke`` runs the elastic controller on the fleet simulator
+(no model, no device). ``--service-ms-est`` turns on feasibility shedding.
 """
 from __future__ import annotations
 
@@ -35,10 +52,21 @@ from repro_torch.kernels import _build
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import model as model_mod
 from repro_torch.serving.dlrm_engine import DLRMEngine
-from repro_torch.serving.engine import InferenceEngine, Request
+from repro_torch.serving.dlrm_engine import make_replicas as dlrm_replicas
+from repro_torch.serving.engine import InferenceEngine, Request, make_replicas
+from repro_torch.serving.perf_model import PerfModel
+from repro_torch.serving.router import ReplicaRouter
 
 # the JAX launcher's greedy-token-agreement guardrail for w8a8 serving
 QUANT_AGREEMENT_THRESHOLD = 0.90
+
+# the hand-set chunk the autotune check must be token-identical to
+AUTOTUNE_REF_CHUNK = 16
+# prompt lengths of the autotune calibration: one per chunk bucket of a
+# chunk-128 engine (16, 32, 64, 128), each served once to warm its stage
+# key and then CALIBRATION_PASSES times
+CALIBRATION_LENGTHS = (12, 30, 60, 120)
+CALIBRATION_PASSES = 3
 
 
 def _lm_requests(args, cfg):
@@ -68,6 +96,29 @@ def _prefix_requests(args, cfg):
         reqs.append(Request(i, np.concatenate([prefix, tail]),
                             max_new_tokens=args.new_tokens))
     return reqs
+
+
+def autotune_model(cfg, params, kw, precision="fp32",
+                   lengths=CALIBRATION_LENGTHS):
+    """(PerfModel, calibration ladder): a model fitted from this process's
+    own stage calls. A chunked engine whose chunk is the top bucket serves
+    one request per length of ``lengths`` (each lands in its own chunk
+    bucket), once to warm the key up and CALIBRATION_PASSES more times; the model
+    is fitted from those replayed chunk calls (and the decode steps)
+    alone (``InferenceEngine.observe_stages``)."""
+    top = max(b for b in kw["prefill_buckets"] if b <= kw["max_len"])
+    eng = InferenceEngine(cfg, params, precision=precision,
+                          **dict(kw, prefill_chunk=top, prefix_cache=None,
+                                 perf_model=None))
+    rng = np.random.default_rng(5)
+    for k in range(CALIBRATION_PASSES + 1):
+        for i, n in enumerate(lengths):
+            eng.run([Request(1000 * k + i,
+                             rng.integers(0, cfg.vocab_size, n)
+                             .astype(np.int32),
+                             max_new_tokens=1)])
+    pm = eng.observe_stages(PerfModel.for_params(params))
+    return pm, eng.chunk_buckets
 
 
 def _verify_prefix(args, cfg, params, kw):
@@ -109,8 +160,6 @@ def serve_lm(args):
         t0 = time.perf_counter()
         _build.build_all()
         print(f"CUDA kernels built in {time.perf_counter() - t0:.1f}s")
-    if args.verify_quant and args.precision != "w8a8":
-        raise SystemExit("--verify-quant needs --precision w8a8")
     if args.verify_chunked and not args.prefill_chunk:
         raise SystemExit("--verify-chunked needs --prefill-chunk")
     if args.prefix_cache and not args.prefill_chunk:
@@ -119,12 +168,67 @@ def serve_lm(args):
     kw = dict(batch_slots=args.slots, max_len=args.max_len,
               prefill_buckets=(16, 32, 64, 128), policy=args.policy,
               slo_ms=args.slo_ms, max_queue=args.max_queue,
+              service_ms_est=args.service_ms_est,
               prefill_chunk=args.prefill_chunk,
               prefix_cache=args.prefix_cache, device=args.device)
     if args.verify_prefix:
+        if args.replicas > 1:
+            raise SystemExit("--verify-prefix runs single-engine only "
+                             "(drop --replicas)")
         return _verify_prefix(args, cfg, params, kw)
-    eng = InferenceEngine(cfg, params, precision=args.precision, **kw)
+    if args.verify_fleet_prefix:
+        return _verify_fleet_prefix(args, cfg, params, kw)
     reqs = _lm_requests(args, cfg)
+    if args.replicas > 1:
+        if args.verify_chunked:
+            raise SystemExit("--verify-chunked runs single-engine only "
+                             "(drop --replicas)")
+        if args.verify_autotune:
+            raise SystemExit("--verify-autotune runs single-engine only "
+                             "(drop --replicas)")
+        precisions = [p.strip() for p in args.replica_precisions.split(",")] \
+            if args.replica_precisions \
+            else [args.precision] * args.replicas
+        if args.verify_quant and len(set(precisions)) < 2:
+            raise SystemExit("--verify-quant with --replicas needs a mixed "
+                             "--replica-precisions fleet (e.g. fp32,w8a8)")
+        router = ReplicaRouter(make_replicas(cfg, params, args.replicas,
+                                             precisions=precisions, **kw),
+                               route=args.route, steal=args.steal)
+        if args.verify_steal:
+            return _verify_steal(router, reqs, args)
+        if args.verify_quant:
+            return _verify_quant_fleet(router, reqs, args)
+        t0 = time.perf_counter()
+        for r in reqs:
+            router.submit(r)
+        router.run_until_drained()
+        tel = router.fleet_telemetry()
+        wall = time.perf_counter() - t0
+        print(f"fleet served {tel.served} requests in {wall:.2f}s on "
+              f"{args.device} across {args.replicas} replicas "
+              f"(routed {router.routed}, shed {router.shed})")
+        print(router.report())
+        return tel
+    if args.verify_steal:
+        raise SystemExit("--verify-steal needs --replicas >= 2 --steal")
+    if args.replica_precisions:
+        raise SystemExit("--replica-precisions needs --replicas >= 2")
+    if args.verify_quant and args.precision != "w8a8":
+        raise SystemExit("--verify-quant needs --precision w8a8 "
+                         "(or a mixed --replica-precisions fleet)")
+    fitted_knee = None
+    if args.verify_autotune:
+        if args.prefill_chunk != "auto":
+            raise SystemExit("--verify-autotune needs --prefill-chunk auto")
+        t0 = time.perf_counter()
+        pm, ladder = autotune_model(cfg, params, kw, args.precision)
+        fitted_knee = pm.suggest_prefill_chunk(ladder)
+        kw["perf_model"] = pm
+        print(f"autotune: fitted {pm.fitted_terms()} from this run's "
+              f"replayed calls in {time.perf_counter() - t0:.2f}s; knee "
+              f"{fitted_knee} on {ladder}")
+    eng = InferenceEngine(cfg, params, precision=args.precision, **kw)
     t0 = time.perf_counter()
     eng.run(reqs)
     wall = time.perf_counter() - t0
@@ -147,6 +251,29 @@ def serve_lm(args):
                              f"monolithic for requests {bad}")
         print(f"verify-chunked OK: {len(reqs)} requests token-identical "
               f"to monolithic prefill")
+    if args.verify_autotune:
+        chosen = eng.prefill_chunk
+        if chosen not in eng.buckets:
+            raise SystemExit(f"FAIL: auto chunk {chosen} is not on the "
+                             f"bucket ladder {eng.buckets}")
+        if chosen > fitted_knee:
+            raise SystemExit(f"FAIL: auto chunk {chosen} above the fitted "
+                             f"efficiency knee {fitted_knee}")
+        ref = InferenceEngine(cfg, params, precision=args.precision,
+                              **dict(kw, perf_model=None,
+                                     prefill_chunk=AUTOTUNE_REF_CHUNK))
+        ref_reqs = _lm_requests(args, cfg)
+        ref.run(ref_reqs)
+        bad = [r.rid for r, m in zip(reqs, ref_reqs)
+               if r.output != m.output]
+        if bad:
+            raise SystemExit(f"FAIL: auto-chunk outputs diverge from the "
+                             f"hand-set chunk {AUTOTUNE_REF_CHUNK} for "
+                             f"requests {bad}")
+        print(f"verify-autotune OK: auto chunk {chosen} on ladder "
+              f"{eng.buckets} (<= fitted knee {fitted_knee}); {len(reqs)} "
+              f"requests token-identical to hand-set chunk "
+              f"{AUTOTUNE_REF_CHUNK}")
     if args.verify_quant:
         ref = InferenceEngine(cfg, params, precision="fp32", **kw)
         ref_reqs = _lm_requests(args, cfg)
@@ -166,6 +293,172 @@ def serve_lm(args):
     return tel
 
 
+def _verify_fleet_prefix(args, cfg, params, kw):
+    """A multi-replica fleet with the fleet-shared prefix tier under the
+    hot-system-prompt trace: a populate pass lands the shared prefix on
+    one replica, the rest of the trace routes through the steering path
+    and must produce remote hits (steered or shipped), lose nothing and
+    stay token-identical to a cold single engine. Exits non-zero on any
+    violation."""
+    if args.replicas < 2:
+        raise SystemExit("--verify-fleet-prefix needs --replicas >= 2")
+    if not args.prefix_cache:
+        raise SystemExit("--verify-fleet-prefix needs --prefix-cache")
+    pm = PerfModel.for_params(params)
+    reqs = _prefix_requests(args, cfg)
+    router = ReplicaRouter(make_replicas(cfg, params, args.replicas,
+                                         precisions=[args.precision]
+                                         * args.replicas, **kw),
+                           route=args.route, steal=args.steal,
+                           perf_model=pm, fleet_prefix=True,
+                           prefix_host_entries=4 * args.prefix_cache)
+    # populate pass: the first request warms ONE replica's cache and
+    # registers it in the fleet index
+    router.submit(reqs[0])
+    router.run_until_drained()
+    for r in reqs[1:]:
+        router.submit(r)
+    router.run_until_drained()
+    tel = router.fleet_telemetry()
+    lost = [r.rid for r in reqs if not r.done]
+    if lost:
+        raise SystemExit(f"FAIL: fleet-prefix run lost requests {lost}")
+    cold = InferenceEngine(cfg, params, precision=args.precision,
+                           **dict(kw, prefix_cache=None))
+    ref = _prefix_requests(args, cfg)
+    cold.run(ref)
+    bad = [r.rid for r, m in zip(reqs, ref) if r.output != m.output]
+    if bad:
+        raise SystemExit(f"FAIL: fleet-prefix outputs diverge from cold "
+                         f"prefill for requests {bad}")
+    if tel.prefix_remote_hits == 0:
+        raise SystemExit("FAIL: no remote prefix hits on a hot-system-"
+                         "prompt trace across the fleet")
+    if tel.prefix_hits == 0:
+        raise SystemExit("FAIL: no prefix-cache hits after steering")
+    print(f"verify-fleet-prefix OK: {len(reqs)} requests across "
+          f"{args.replicas} replicas (routed {router.routed}), "
+          f"{tel.prefix_remote_hits} remote hits "
+          f"({tel.prefix_shipped} shipped, {tel.prefix_recomputed} "
+          f"priced-out recomputes, {tel.prefix_host_hits} host-tier "
+          f"fault-ins), {tel.prefix_hits} local hits, 0 lost, outputs "
+          f"token-identical to cold prefill")
+    print(router.report())
+    return tel
+
+
+def _verify_quant_fleet(router, reqs, args):
+    """A mixed fp32 + w8a8 fleet under the priority policy must route
+    every class-0 request to an fp32 replica while one is live, lose
+    nothing and count no precision downgrade. Exits non-zero on any
+    violation."""
+    if not any(r.priority == 0 for r in reqs):
+        raise SystemExit("FAIL: trace has no class-0 requests — the pin "
+                         "check would be vacuous (use --policy priority "
+                         "and enough --requests)")
+    misrouted = []
+    for r in reqs:
+        before = list(router.routed)
+        router.submit(r)
+        j = next(i for i in range(len(router.replicas))
+                 if router.routed[i] != before[i])
+        if r.priority == 0 and router.precisions[j] != "fp32":
+            misrouted.append(r.rid)
+    router.run_until_drained()
+    tel = router.fleet_telemetry()
+    lost = [r.rid for r in reqs if not r.done]
+    if lost:
+        raise SystemExit(f"FAIL: mixed-precision fleet lost requests "
+                         f"{lost}")
+    if misrouted:
+        raise SystemExit(f"FAIL: class-0 requests {misrouted} routed to "
+                         f"an int8 replica while fp32 was live")
+    if tel.precision_rehomed:
+        raise SystemExit(f"FAIL: {tel.precision_rehomed} precision "
+                         f"downgrades counted with fp32 live throughout")
+    high = sum(r.priority == 0 for r in reqs)
+    print(f"verify-quant OK: mixed fleet {router.precisions} served "
+          f"{tel.served} requests (routed {router.routed}), all {high} "
+          f"class-0 on fp32, 0 lost, 0 downgrades")
+    print(router.report())
+    return tel
+
+
+def drive_steal(router, reqs, drain_at=2):
+    """Hot-spot every request onto replica 0 (bypassing the balancer) and
+    drive the fleet in steal rounds, one step per live replica a round;
+    replica 0 is drained after round ``drain_at``."""
+    for r in reqs:
+        router.replicas[0].submit(r)
+    rounds = 0
+    while router.has_work:
+        router.maybe_steal()
+        for i, rep in enumerate(router.replicas):
+            if not router.dead[i] and rep.has_work:
+                rep.step_once()
+        rounds += 1
+        if rounds == drain_at:
+            router.drain_replica(0)         # the replica dies mid-run
+    return router.fleet_telemetry()
+
+
+def _verify_steal(router, reqs, args):
+    """A hot-keyed stream lands every request on replica 0, so only
+    stealing puts the siblings to work; replica 0 is then drained mid-run
+    and its outstanding load must move to the survivors with none lost.
+    Exits non-zero on any violation."""
+    if not args.steal:
+        raise SystemExit("--verify-steal needs --steal")
+    tel = drive_steal(router, reqs)
+    lost = [r.rid for r in reqs if not r.done]
+    if lost:
+        raise SystemExit(f"FAIL: fault drain lost requests {lost}")
+    if tel.steals == 0:
+        raise SystemExit("FAIL: no steals under a hot-keyed stream")
+    if tel.drained == 0:
+        raise SystemExit("FAIL: mid-run kill drained nothing")
+    print(f"verify-steal OK: {len(reqs)} requests, {tel.steals} stolen, "
+          f"{tel.drained} re-homed by the kill, 0 lost")
+    print(router.report())
+    return tel
+
+
+def elastic_smoke():
+    """The elastic scenario on the deterministic fleet simulator: a flash
+    crowd with a FleetController in the loop and a replica frozen
+    mid-crowd. Checks scale-up under the crowd, scale-down through the
+    trough, exactly one missed-heartbeat fault drain, nothing lost, and
+    both wins over the fixed fleet (less shedding, fewer replica-seconds).
+    Exits non-zero on any violation. Virtual clock: no model, no device."""
+    from repro_torch.serving.fleet_sim import elastic_vs_fixed
+    r = elastic_vs_fixed(kill_at_frac=0.33)
+    ctl, el = r["controller"], r["elastic"]
+    checks = [
+        (ctl.scale_ups >= 1, "no scale-up under the flash crowd"),
+        (ctl.scale_downs >= 1, "no scale-down through the trough"),
+        (ctl.faults_drained == 1,
+         f"expected exactly 1 fault drain, got {ctl.faults_drained}"),
+        (r["zero_lost"], f"lost tickets: elastic {el['lost']}, "
+                         f"fixed {r['fixed']['lost']}"),
+        (r["shed_improved"], f"elastic shed {el['shed']} not below "
+                             f"fixed {r['fixed']['shed']}"),
+        (r["capacity_improved"],
+         f"elastic burned {r['replica_seconds_elastic']:.1f} replica-s "
+         f"vs fixed {r['replica_seconds_fixed']:.1f}"),
+    ]
+    bad = [msg for ok, msg in checks if not ok]
+    if bad:
+        raise SystemExit("FAIL: elastic smoke: " + "; ".join(bad))
+    print(f"elastic-smoke OK: {el['completed']} served, shed "
+          f"{el['shed']} (fixed {r['fixed']['shed']}), "
+          f"{r['replica_seconds_elastic']:.1f} replica-s "
+          f"(fixed {r['replica_seconds_fixed']:.1f}), +{ctl.scale_ups} "
+          f"up / -{ctl.scale_downs} down / {ctl.faults_drained} fault "
+          f"drain, 0 lost")
+    print(ctl.report())
+    return ctl
+
+
 def serve_dlrm(args):
     cfg = dlrm_paper.reduce_for_smoke(dlrm_paper.PAPER_COMPLEX) if args.smoke \
         else dlrm_paper.PAPER_COMPLEX_ONE_CARD
@@ -176,11 +469,31 @@ def serve_dlrm(args):
     asn = dlrm_mod.make_assignment(cfg, 1)
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = dlrm_mod.init_dlrm(cfg, asn, gen, args.device, quantize=True)
-    eng = DLRMEngine(cfg, asn, params, policy=args.policy,
-                     slo_ms=args.slo_ms, max_queue=args.max_queue,
-                     device=args.device)
+    kw = dict(policy=args.policy, slo_ms=args.slo_ms,
+              max_queue=args.max_queue, service_ms_est=args.service_ms_est,
+              device=args.device)
     batches = [next(dlrm_batches(cfg, 64, seed=s))
                for s in range(args.requests)]
+    if args.replicas > 1:
+        # the replicas share one slab (one copy of the tables on the card)
+        router = ReplicaRouter(dlrm_replicas(cfg, asn, params,
+                                             args.replicas, **kw),
+                               route=args.route, steal=args.steal)
+        # full-trace warm-up per replica, excluded from latency and
+        # transfer stats
+        for rep in router.replicas:
+            rep.serve(batches, pipelined=True, warm=True)
+            rep.telemetry.reset_serving_stats()
+        for b in batches:
+            router.submit(b)
+        router.run_until_drained()
+        tel = router.fleet_telemetry()
+        print(f"fleet served {tel.served} batches x64 on {args.device} "
+              f"across {args.replicas} replicas (routed {router.routed}, "
+              f"shed {router.shed})")
+        print(router.report())
+        return tel
+    eng = DLRMEngine(cfg, asn, params, **kw)
     # full-trace warm-up (first calls of every stage), excluded from
     # latency + transfer stats, as the JAX launcher does
     eng.serve(batches, pipelined=True, warm=True)
@@ -191,6 +504,10 @@ def serve_dlrm(args):
           f"{eng.transfer_stats.bytes_saved_frac*100:.0f}% bytes")
     print(tel.report())
     return tel
+
+
+def _service_est(v: str):
+    return v if v == "auto" else float(v)
 
 
 def _chunk_arg(v: str):
@@ -210,21 +527,51 @@ def main(argv=None):
                     choices=("fifo", "edf", "sizetime", "priority"))
     ap.add_argument("--slo-ms", type=float, default=None,
                     help="per-request latency SLA for EDF + miss accounting")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="front N engine replicas with the ReplicaRouter "
+                         "(on the card they share the one device)")
+    ap.add_argument("--route", default="count",
+                    choices=("count", "feedback"),
+                    help="router cost: ticket counts or EWMA of measured "
+                         "per-replica step time")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bounded queue: shed submits past this depth")
+    ap.add_argument("--service-ms-est", type=_service_est, default=None,
+                    help="per-ticket service estimate for deadline-"
+                         "feasibility shedding (a number, or 'auto' to "
+                         "calibrate from live telemetry)")
+    ap.add_argument("--steal", action="store_true",
+                    help="cross-replica work stealing: idle replicas pull "
+                         "pending fresh tickets from backlogged siblings")
+    ap.add_argument("--verify-steal", action="store_true",
+                    help="hot-spot all requests onto replica 0, drain it "
+                         "mid-run, and check nonzero steals and zero lost "
+                         "requests")
     ap.add_argument("--precision", default="fp32", choices=("fp32", "w8a8"),
                     help="w8a8: serve the calibrated int8 weights")
+    ap.add_argument("--replica-precisions", default=None,
+                    help="comma list, one per replica (e.g. fp32,w8a8): a "
+                         "mixed fleet where the router pins class-0 "
+                         "traffic to fp32 replicas")
     ap.add_argument("--verify-quant", action="store_true",
-                    help="replay on an unquantized engine and check the "
-                         "greedy-token agreement guardrail")
+                    help="single engine: replay on an unquantized engine "
+                         "and check the greedy-token agreement guardrail; "
+                         "mixed fleet: check class-0 routes to fp32 with "
+                         "zero lost")
     ap.add_argument("--prefill-chunk", type=_chunk_arg, default=None,
                     help="split prompts into N-token chunks interleaved "
-                         "with decode steps (LM only); 'auto' needs the "
-                         "performance model, which the port does not have "
-                         "yet")
+                         "with decode steps (LM only); 'auto' picks the "
+                         "chunk at the performance model's efficiency "
+                         "knee")
     ap.add_argument("--verify-chunked", action="store_true",
                     help="replay the trace monolithically and check that "
                          "chunked outputs are token-identical")
+    ap.add_argument("--verify-autotune", action="store_true",
+                    help="with --prefill-chunk auto: fit the performance "
+                         "model from this run's replayed chunk calls, then "
+                         "check the chosen chunk is on the ladder, at or "
+                         "below the fitted knee, and token-identical to "
+                         "chunk 16")
     ap.add_argument("--prefix-cache", type=int, default=None,
                     help="prefix cache capacity (entries): snapshot prompt "
                          "prefixes at chunk granularity and admit later "
@@ -234,12 +581,25 @@ def main(argv=None):
                     help="replay a hot-system-prompt trace through the "
                          "warm prefix cache and check nonzero hits with "
                          "outputs token-identical to a cold engine")
+    ap.add_argument("--verify-fleet-prefix", action="store_true",
+                    help="a fleet with the shared prefix tier under a "
+                         "hot-system-prompt trace: check remote hits, zero "
+                         "lost and outputs token-identical to cold prefill "
+                         "(needs --replicas >= 2)")
+    ap.add_argument("--elastic-smoke", action="store_true",
+                    help="run the elastic fleet-controller scenario on the "
+                         "deterministic fleet simulator (flash crowd and a "
+                         "mid-crowd freeze) and check scale-up, scale-down "
+                         "and the fault drain with zero lost; ignores the "
+                         "engine flags")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full-config", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, or cpu for the "
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
+    if args.elastic_smoke:
+        return elastic_smoke()
     if args.arch == "dlrm":
         return serve_dlrm(args)
     return serve_lm(args)

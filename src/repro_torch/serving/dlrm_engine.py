@@ -18,15 +18,17 @@ count (the bags' lengths) sets the SLS kernel's work, and the post stage is
 one cast. Admission/latency/SLA accounting
 flows through the shared Scheduler + Telemetry. The parameters must live
 on ``device`` (default ``"cuda"``; ``"cpu"`` runs the kernels' plain
-versions). Replicas behind a router (``make_replicas``) come with the
-fleet layer.
+versions). ``make_replicas`` builds N engines over one slab, for a
+``ReplicaRouter`` (the router hooks: ``inflight``, ``free_slots``,
+``steal_eligible``, ``drain_tickets``); ``on_result`` sees every served
+batch with its logits.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +59,10 @@ class DLRMEngine:
     device: Any = "cuda"
     cuda_graphs: bool = True
     transfer_stats: TransferStats = field(default_factory=TransferStats)
+    # called with each batch ``step_once`` serves and its logits, as they
+    # realize (a fleet's check holds them against one engine's): the
+    # scheduler's Ticket, a copy of the reference's, carries no result
+    on_result: Optional[Callable[[Dict[str, np.ndarray], Any], None]] = None
 
     def __post_init__(self):
         cfg, asn = self.cfg, self.assignment
@@ -143,19 +149,48 @@ class DLRMEngine:
                                      slo_ms=slo_ms,
                                      priority=priority or 0)
 
+    # ---- replica protocol (ReplicaRouter) --------------------------------
+    @property
+    def inflight(self) -> int:
+        return 0          # the pipeline pass in step_once is synchronous
+
+    @property
+    def free_slots(self) -> int:
+        """Steal admission cap (router hook): the pipeline pass is
+        synchronous, so capacity is the per-step admission group."""
+        return self.step_group
+
     @property
     def has_work(self) -> bool:
         return self.scheduler.depth > 0
 
+    def steal_eligible(self, t) -> bool:
+        """Steal veto (router hook): a pending batch holds no device state
+        yet, so every fresh ticket may move."""
+        return not t.continuation
+
+    def drain_tickets(self):
+        """Fault-drain hook: the whole pending queue (nothing is in flight
+        between steps), reset to fresh for re-homing."""
+        out = self.scheduler.steal_pending(None, include_continuations=True)
+        for t in out:
+            t.reset_fresh()
+        return out
+
     def step_once(self) -> List[Any]:
-        """Admit one policy-formed group (at most ``step_group`` batches)
-        and run it through the 4-stage pipeline, completing tickets as
-        outputs realize."""
+        """Admit one policy-formed group (at most ``step_group`` batches,
+        so a routed fleet interleaves replica steps) and run it through
+        the 4-stage pipeline, completing tickets as outputs realize."""
         group = self.scheduler.admit(min(self.scheduler.depth,
                                          self.step_group))
         if not group:
             return []
-        done = lambda i, _v: self.scheduler.complete(group[i])
+
+        def done(i, logits):
+            self.scheduler.complete(group[i])
+            if self.on_result is not None:
+                self.on_result(group[i].payload, logits)
+
         outs, _ = self._pipeline.run([t.payload for t in group],
                                      on_result=done)
         return outs
@@ -220,3 +255,12 @@ class DLRMEngine:
             self._collect_transfer_stats = True
             self.telemetry.stage_calls = calls
             self.telemetry.stage_dispatch_s = disp
+
+
+def make_replicas(cfg: DLRMConfig, assignment: TableAssignment, params: Any,
+                  n: int, **engine_kw) -> List[DLRMEngine]:
+    """N DLRM engine replicas over one set of (quantized) tables and dense
+    weights: one slab on the card, a queue and a pipeline each. Front them
+    with ``ReplicaRouter``."""
+    return [DLRMEngine(cfg, assignment, params, **engine_kw)
+            for _ in range(n)]

@@ -35,6 +35,13 @@ and the weights, so the caches and ``run_params`` are never reassigned.
 ``cuda_graphs=False`` runs the same static forms eagerly (to hold the
 graphs against them); the CPU always does.
 
+Behind a ``ReplicaRouter`` an engine is one replica (``make_replicas``):
+``free_slots``, ``steal_eligible`` and ``drain_tickets`` are the router's
+hooks, and ``attach_prefix_index`` joins the fleet-shared prefix tier.
+``perf_model`` (by default sized from the weights) prices
+``prefill_chunk="auto"``; ``observe_stages`` fits it from the engine's own
+replayed stage calls.
+
 ``precision="w8a8"`` serves through the §V build step's quantized model
 (``models/quantize.py``): every int8-decided projection runs the w8a8
 kernel, and ``run_params`` is what the stages run on. The KV cache format
@@ -60,6 +67,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import model as model_mod
 from repro_torch.models.quantize import QuantizedParams, build_quantized_params
 from repro_torch.serving.executor import StageExecutor, StaticStage
+from repro_torch.serving.perf_model import PerfModel
 from repro_torch.serving.scheduler import Scheduler, SizeTimePolicy, Ticket
 from repro_torch.serving.state import (SequenceSnapshot, SequenceStateManager,
                                        require_chunkable)
@@ -100,6 +108,7 @@ class InferenceEngine:
                  quantized_params: Optional[QuantizedParams] = None,
                  quant_budget: float = 0.05,
                  prefill_chunk: Optional[int | str] = None,
+                 perf_model: Optional[PerfModel] = None,
                  prefix_cache: Optional[int] = None,
                  page_host: bool = False,
                  page_victim: str = "lru",
@@ -141,10 +150,18 @@ class InferenceEngine:
         self.buckets = tuple(b for b in prefill_buckets if b <= max_len)
         # default admits up to all free slots at once; 1 = per-request
         self.max_prefill_batch = max_prefill_batch or batch_slots
+        # the analytic performance model, sized from the fp weights: it
+        # prices the auto prefill chunk, the estimator's cold-start priors
+        # and the router's per-precision costs; ``observe_stages`` fits it
+        # from this engine's replayed stage calls
+        self.perf_model = (perf_model if perf_model is not None
+                           else PerfModel.for_params(params))
         if prefill_chunk == "auto":
-            raise NotImplementedError(
-                "prefill_chunk='auto' needs the performance model "
-                "(serving/perf_model.py), which the port does not have yet")
+            # the chunk at the model's per-bucket efficiency knee (chunked
+            # prefill is token-identical for any chunk, so this moves only
+            # the latency/efficiency trade)
+            prefill_chunk = self.perf_model.suggest_prefill_chunk(
+                self.buckets)
         self.prefill_chunk = prefill_chunk
         if prefill_chunk is not None:
             if prefill_chunk < 1:
@@ -166,7 +183,8 @@ class InferenceEngine:
         self.scheduler = Scheduler(policy, telemetry=self.telemetry,
                                    default_slo_ms=slo_ms,
                                    max_queue=max_queue,
-                                   service_ms_est=service_ms_est)
+                                   service_ms_est=service_ms_est,
+                                   perf_model=self.perf_model)
         self.caches = model_mod.init_caches(cfg, batch_slots, max_len,
                                             self.device)
         # an int8 chunk stage holds one graph per dequantized extent
@@ -187,9 +205,11 @@ class InferenceEngine:
         # submit-time hits waiting for their first chunk admission:
         # id(ticket) -> snapshot to restore into the acquired slot
         self._pending_restore: Dict[int, SequenceSnapshot] = {}
-        # the fleet-shared prefix tier comes with the fleet layer; until
-        # then the cache is per-engine
+        # the fleet-shared prefix tier: the router installs its
+        # FleetPrefixIndex here (attach_prefix_index); None keeps the cache
+        # per-engine
         self._prefix_index = None
+        self._replica_id: Optional[int] = None
         self.page_host = page_host
         self.page_victim = page_victim
         # slot -> decode-step stamp of its most recent token (LRU paging)
@@ -342,7 +362,8 @@ class InferenceEngine:
         """Longest cached prefix STRICTLY below the request's prefill
         length, at chunk granularity: the final chunk always recomputes,
         so a hit emits its first token through the same math as a cold
-        prefill (token-identical by construction)."""
+        prefill (token-identical by construction). With a fleet index
+        attached, a local miss falls through to its shared host-RAM tier."""
         total = self._prefill_len(req)
         L = ((total - 1) // self.prefill_chunk) * self.prefill_chunk
         while L >= self.prefill_chunk:
@@ -351,18 +372,31 @@ class InferenceEngine:
             if snap is not None:
                 self._prefix_cache.move_to_end(key)          # LRU touch
                 return snap
+            if self._prefix_index is not None:
+                snap = self._prefix_index.host_get(key)
+                if snap is not None:
+                    self._prefix_store(key, snap)
+                    self.telemetry.record_prefix_host_hit()
+                    return snap
             L -= self.prefill_chunk
         return None
 
     def _prefix_store(self, key, snap: SequenceSnapshot) -> None:
         """Put one snapshot into the LRU (dedup by content key, bounded by
-        ``prefix_cache`` entries)."""
+        ``prefix_cache`` entries) and keep the fleet index exact: an insert
+        registers this replica as a holder, an eviction deregisters it and
+        parks the evicted snapshot in the shared host-RAM tier."""
         if key in self._prefix_cache:
             self._prefix_cache.move_to_end(key)
             return
         self._prefix_cache[key] = snap
+        if self._prefix_index is not None:
+            self._prefix_index.add(key, self._replica_id)
         while len(self._prefix_cache) > self.prefix_cache:
-            self._prefix_cache.popitem(last=False)
+            old_key, old_snap = self._prefix_cache.popitem(last=False)
+            if self._prefix_index is not None:
+                self._prefix_index.discard(old_key, self._replica_id)
+                self._prefix_index.host_insert(old_key, old_snap)
 
     def _prefix_insert(self, req: Request, slot: int) -> None:
         """Admit the slot's written prefix into the cache at a chunk
@@ -372,6 +406,48 @@ class InferenceEngine:
             self._prefix_cache.move_to_end(key)
             return
         self._prefix_store(key, self.snapshot_slot(slot, req.prefill_pos))
+
+    # ---- fleet-shared prefix tier (ReplicaRouter hooks) -------------------
+    def attach_prefix_index(self, index, replica_id: int) -> None:
+        """Join a fleet-wide prefix tier: ``index`` is the router's
+        ``FleetPrefixIndex``; every local insert and eviction is mirrored
+        there and local misses fault in from its host-RAM tier."""
+        self._prefix_index = index
+        self._replica_id = replica_id
+
+    def prefix_keys(self, req: Request) -> List[Tuple[int, str]]:
+        """Candidate prefix keys of a request, longest first (the router's
+        steering probe): the walk of ``_prefix_lookup``, on tokens only,
+        so any replica of the same config gives the same keys."""
+        if not self.prefix_cache or req.prefill_pos:
+            return []
+        total = self._prefill_len(req)
+        L = ((total - 1) // self.prefill_chunk) * self.prefill_chunk
+        out = []
+        while L >= self.prefill_chunk:
+            out.append(self._prefix_key(req.tokens, L))
+            L -= self.prefill_chunk
+        return out
+
+    def prefix_snapshot(self, key) -> Optional[SequenceSnapshot]:
+        """Holder side of a ship: the local snapshot of ``key``
+        (LRU-touched), or None if this replica no longer holds it."""
+        snap = self._prefix_cache.get(key)
+        if snap is not None:
+            self._prefix_cache.move_to_end(key)
+        return snap
+
+    def prefix_accept(self, key, snap: SequenceSnapshot) -> None:
+        """Landing side of a ship: a sibling's snapshot (host tensors of
+        the same shapes) enters this replica's cache, so the request the
+        router submits here next hits locally."""
+        self._prefix_store(key, snap)
+
+    def export_prefix_cache(self) -> List[Tuple[Tuple[int, str],
+                                                SequenceSnapshot]]:
+        """Drain hook: the local cache's entries, oldest first. They are
+        host-side, so they outlive the replica in the shared tier."""
+        return list(self._prefix_cache.items())
 
     # ---- host-RAM paging (consumer 2) ------------------------------------
     def _page_out_one(self) -> bool:
@@ -479,6 +555,13 @@ class InferenceEngine:
         return self.states.inflight + len(self._paged)
 
     @property
+    def free_slots(self) -> int:
+        """Free slots: how many stolen tickets this replica could start
+        now (the router's steal cap). Paged sessions reserve their
+        fault-back slots."""
+        return max(self.states.free_count - len(self._paged), 0)
+
+    @property
     def has_work(self) -> bool:
         return bool(self.scheduler.depth or self.states.inflight
                     or self._paged)
@@ -489,6 +572,46 @@ class InferenceEngine:
         engine's cache; only fresh, not-yet-started tickets may leave."""
         return self.states.steal_eligible(t) \
             and id(t) not in self._pending_restore
+
+    def drain_tickets(self) -> List[Ticket]:
+        """Fault-drain hook (``ReplicaRouter.drain_replica``): every
+        accepted, unfinished ticket (the pending queue, continuations
+        included, the in-flight slots and the paged sessions), reset to
+        fresh, since the replica's cache state is given up; each request
+        restarts from token zero on its new home and greedy decoding
+        gives the same output. Clears every slot. Telemetry keeps the
+        work this replica did; only ``served`` counts deliveries."""
+        out = self.scheduler.steal_pending(None, include_continuations=True)
+        out.extend(self.states.evict_all())
+        out.extend(t for t, _ in self._paged.values())
+        self._paged.clear()
+        self._pending_restore.clear()
+        self._last_decode.clear()
+        for t in out:
+            req: Request = t.payload
+            req.output = []
+            req.prefill_pos = 0
+            req.done = False
+            t.reset_fresh()
+        return out
+
+    def observe_stages(self, perf_model: Optional[PerfModel] = None) \
+            -> PerfModel:
+        """Fit ``perf_model`` (default: the engine's) from this engine's
+        own stage calls: every call but each stage key's first (the
+        warm-up, and on the card the capture), timed to completion by the
+        executor. A prefill or chunk call is a ``(bucket, P)`` cell, a
+        decode step a ``batch_slots``-token cell, at the engine's
+        precision. Returns the model."""
+        pm = perf_model if perf_model is not None else self.perf_model
+        for (stage, key), times in sorted(
+                self.executor.warm_call_s.items()):
+            bucket, batch = ((self.batch_slots, 1) if stage == "decode"
+                             else (key[0], key[1]))
+            for seconds in times:
+                pm.observe(stage, bucket=bucket, batch=batch,
+                           precision=self.precision, seconds=seconds)
+        return pm
 
     def step_once(self):
         """One engine tick. Chunked: at most ONE chunk group, then one
@@ -683,3 +806,26 @@ class InferenceEngine:
             self.step_once()
         self.telemetry.record_serving_window(time.perf_counter() - t0)
         return list(requests)
+
+
+def make_replicas(cfg: ModelConfig, params: model_mod.Model, n: int,
+                  precisions: Optional[Sequence[str]] = None,
+                  quant_budget: float = 0.05,
+                  **engine_kw) -> List[InferenceEngine]:
+    """N LM engine replicas over one set of weights (distinct KV caches and
+    queues; front them with ``ReplicaRouter``). ``precisions`` gives each
+    its precision (``"fp32"`` / ``"w8a8"``); the quantized weights are
+    built ONCE and every w8a8 replica runs them, and they share the fp
+    tensors the build step leaves fp with the fp replicas."""
+    if precisions is None:
+        precisions = ["fp32"] * n
+    if len(precisions) != n:
+        raise ValueError(f"precisions has {len(precisions)} entries for "
+                         f"{n} replicas")
+    qp = None
+    if any(p == "w8a8" for p in precisions):
+        qp = build_quantized_params(cfg, params, budget=quant_budget)
+    return [InferenceEngine(cfg, params, precision=p,
+                            quantized_params=qp if p == "w8a8" else None,
+                            **engine_kw)
+            for p in precisions]

@@ -41,15 +41,18 @@ replay adds that much; a graphed stage counts what its eager run counts.
 
 ``stage_dispatch_s`` is each call's wall time to completion (the stages
 end in a copy of their output to the host, or DLRM's in a device copy the
-pipeline waits on).
+pipeline waits on). ``warm_call_s`` keeps those times per stage key for
+every call but each variant's first (the warm-up and the capture): the
+replays, which the performance model is fitted from.
 """
 from __future__ import annotations
 
 import gc
 import time
-from collections import Counter
+from collections import Counter, deque
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Hashable, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, Hashable, Optional, Set, \
+    Tuple
 
 import torch
 
@@ -60,6 +63,8 @@ from repro_torch.kernels.w8a8.ops import w8a8_matmul
 from repro_torch.serving.telemetry import Telemetry
 
 StageKey = Tuple[str, Hashable]
+# the most recent warm calls kept per stage key
+WARM_CALLS_KEPT = 256
 
 # every launch counter of the kernel wrappers, as (wrapper, attribute)
 COUNTERS = tuple((fn, "launches") for fn in (
@@ -195,6 +200,10 @@ class StageExecutor:
         self.captures: Counter = Counter()     # stage -> graphs captured
         self.capture_s: Counter = Counter()    # stage -> seconds capturing
         self.replays: Counter = Counter()      # stage -> graph replays
+        # (stage, key) -> wall seconds of its recent calls after each
+        # variant's first
+        self.warm_call_s: Dict[StageKey, Deque[float]] = {}
+        self._called: Set[Tuple[str, Hashable, Hashable]] = set()
         self._cache: Dict[StageKey, Callable] = {}
 
     def get(self, stage: str, key: Hashable,
@@ -212,11 +221,19 @@ class StageExecutor:
 
     def dispatch(self, stage: str, key: Hashable,
                  build_fn: Callable[[], Any], *args, **kw) -> Any:
-        """get() + call, recording per-stage dispatch count/time."""
+        """get() + call, recording per-stage dispatch count/time (and the
+        time of a warm call per key)."""
         fn = self.get(stage, key, build_fn)
         t0 = time.perf_counter()
         out = fn(*args, **kw)
-        self.telemetry.record_dispatch(stage, time.perf_counter() - t0)
+        seconds = time.perf_counter() - t0
+        self.telemetry.record_dispatch(stage, seconds)
+        call = (stage, key, kw.get("variant"))
+        if call in self._called:
+            self.warm_call_s.setdefault(
+                (stage, key), deque(maxlen=WARM_CALLS_KEPT)).append(seconds)
+        else:
+            self._called.add(call)
         return out
 
     def compiles_for(self, stage: str) -> int:

@@ -1,7 +1,8 @@
 """Request scheduler of the port: a copy of ``repro/serving/scheduler.py``
 (the JAX package's shared request scheduler), kept so that the port never
 imports the JAX package. ``perf_model`` stays an optional duck-typed
-argument (any object with ``service_ratio``); the port passes none.
+argument (any object with ``service_ratio``); the LM engine passes its
+``PerfModel``, as the reference's does.
 
 The shared request scheduler is the Glow runtime's multi-request queue
 (paper §IV-C) factored out of the engines.

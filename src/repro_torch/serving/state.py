@@ -4,12 +4,12 @@
 ``repro/serving/state.py``, kept so that the port never imports the JAX
 package. A *slot* is one batch row of the engine's preallocated KV cache;
 at every instant the slots partition into exactly free | active |
-prefilling. The engine uses every move of the manager but ``evict_all``
-(the fault drain, which comes with the fleet layer, as does
-``FleetPrefixIndex``).
+prefilling. ``FleetPrefixIndex`` is the fleet-shared prefix tier the
+router owns (a copy of the reference's, pure host-side bookkeeping).
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -244,3 +244,103 @@ class SequenceStateManager:
         assert free | active | prefilling == set(range(self.batch_slots)), \
             (free, active, prefilling)
 
+
+class FleetPrefixIndex:
+    """Fleet-wide prefix-cache directory + shared host-RAM tier.
+
+    The router owns one of these per fleet; every replica's local prefix
+    cache registers its inserts/evicts here. Two structures, both pure
+    host-side bookkeeping (no jax):
+
+    - **holders**: prefix key ``(L, sha1)`` -> the replica indices whose
+      LOCAL cache currently holds the snapshot, in insertion order.
+      ``ReplicaRouter.submit`` consults this to steer hit traffic to a
+      holder (or ship the holder's snapshot to wherever load balancing
+      lands the request). The directory is advisory for routing but its
+      consistency is load-bearing for the ship path — it must never name
+      a replica that does not hold the key (``drain_replica`` purges dead
+      holders; local LRU evictions call ``discard``).
+
+    - **host tier**: a capacity-bounded LRU of key -> ``SequenceSnapshot``
+      in shared host RAM. Engines insert ON EVICTION from their local
+      LRU (a prefix evicted from one card survives for the fleet) and
+      fault in from it on a local miss. Lookups do NOT remove the entry:
+      the tier is shared, another replica may want the same prefix.
+
+    Capacity is counted in entries, not bytes — snapshot sizes are
+    uniform per (arch, L) and the callers size the tier in prefixes.
+    """
+
+    def __init__(self, host_capacity: int = 0):
+        self._holders: Dict[Any, List[int]] = {}
+        self.host: "OrderedDict[Any, Any]" = OrderedDict()
+        self.host_capacity = int(host_capacity)
+        self.host_evicted = 0     # entries dropped off the host tier's LRU
+
+    # ---- holder directory ------------------------------------------------
+    def add(self, key, replica: int) -> None:
+        """Replica ``replica``'s local cache now holds ``key``."""
+        held = self._holders.setdefault(key, [])
+        if replica not in held:
+            held.append(replica)
+
+    def discard(self, key, replica: int) -> None:
+        """Replica ``replica`` evicted ``key`` from its local cache."""
+        held = self._holders.get(key)
+        if held is None:
+            return
+        try:
+            held.remove(replica)
+        except ValueError:
+            pass
+        if not held:
+            del self._holders[key]
+
+    def holders(self, key) -> List[int]:
+        """Replica indices holding ``key``, insertion order (copy)."""
+        return list(self._holders.get(key, ()))
+
+    def purge_replica(self, replica: int) -> None:
+        """A replica died or drained: no key may name it afterwards."""
+        for key in list(self._holders):
+            self.discard(key, replica)
+
+    # ---- shared host-RAM tier --------------------------------------------
+    def host_insert(self, key, snapshot) -> None:
+        """Insert-on-evict: a snapshot leaving a local LRU (or a drained
+        card) lands here so the fleet keeps it. Bounded: oldest entries
+        fall off once ``host_capacity`` is exceeded (capacity 0 disables
+        the tier entirely)."""
+        if self.host_capacity <= 0:
+            return
+        self.host[key] = snapshot
+        self.host.move_to_end(key)
+        while len(self.host) > self.host_capacity:
+            self.host.popitem(last=False)
+            self.host_evicted += 1
+
+    def host_get(self, key):
+        """Fault-in on local miss: the snapshot if the host tier holds
+        it (LRU-bumped, NOT removed — the tier is fleet-shared), else
+        None."""
+        snap = self.host.get(key)
+        if snap is not None:
+            self.host.move_to_end(key)
+        return snap
+
+    # ---- invariant surface (tests) ---------------------------------------
+    def check_consistent(self, local_keys: List[set]) -> None:
+        """Assert the directory invariant against ground truth:
+        ``local_keys[i]`` is the set of prefix keys replica ``i``'s local
+        cache actually holds. The index must name exactly the true
+        holders — never a replica that evicted or drained the key."""
+        for key, held in self._holders.items():
+            assert len(held) == len(set(held)), (key, held)
+            for r in held:
+                assert 0 <= r < len(local_keys), (key, r)
+                assert key in local_keys[r], \
+                    f"index names replica {r} for {key} but it is not held"
+        for r, keys in enumerate(local_keys):
+            for key in keys:
+                assert r in self._holders.get(key, ()), \
+                    f"replica {r} holds {key} but the index does not know"

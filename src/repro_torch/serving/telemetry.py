@@ -1,8 +1,8 @@
 """Serving telemetry: a copy of ``Telemetry`` and ``percentile`` from
 ``repro/serving/telemetry.py``, kept so that the port never imports the JAX
-package. The counters of features the port has not taken over yet (the
-fleet: steals, routing, the shared prefix tier) stay, at zero, so that the
-two summaries keep the same keys.
+package: the same counters (the fleet's steals, drains, re-homes and
+shared prefix tier included), so that the two summaries keep the same
+keys, and ``merged`` pools a fleet's replicas.
 """
 from __future__ import annotations
 

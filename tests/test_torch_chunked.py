@@ -329,9 +329,15 @@ def test_chunked_int8_kv_engine_agrees_with_monolithic(smoke, monolithic,
 
 
 def test_chunked_engine_rejects_auto_and_orphan_prefix_cache(smoke):
-    cfg, params = smoke[1], smoke[3]
-    with pytest.raises(NotImplementedError, match="performance model"):
-        InferenceEngine(cfg, params, prefill_chunk="auto", device="cpu")
+    """``prefill_chunk="auto"`` is no longer refused now that the port has
+    the performance model: unmeasured, it takes the model's cold knee on
+    the bucket ladder, the chunk the JAX engine takes. A prefix cache
+    without chunks is still refused."""
+    jcfg, cfg, jparams, params = smoke
+    eng = InferenceEngine(cfg, params, prefill_chunk="auto", device="cpu")
+    assert eng.prefill_chunk in eng.buckets
+    assert eng.prefill_chunk == JaxEngine(jcfg, jparams,
+                                          prefill_chunk="auto").prefill_chunk
     with pytest.raises(ValueError, match="requires prefill_chunk"):
         InferenceEngine(cfg, params, prefix_cache=4, device="cpu")
 

@@ -19,7 +19,8 @@ against the writes they replace.
   indexing, a copy to the host).
 - The executor's bookkeeping with the capture stubbed: one build per key,
   the launch counters advanced at every replay by what the capture saw, a
-  failing capture raising every time and never answering eagerly.
+  failing capture raising every time and never answering eagerly. Every
+  test here leaves the launch counters as it found them.
 """
 import dataclasses
 
@@ -48,6 +49,16 @@ from repro_torch.serving.executor import StageExecutor, StaticStage
 
 TOL = 2e-3
 MAX_LEN, C = 40, 8
+
+
+@pytest.fixture(autouse=True)
+def _restore_launch_counters(monkeypatch):
+    """Every kernel wrapper's launch counter is module-global, and the
+    stub stages below raise them: pin each to its value before the test,
+    so teardown puts it back and no later test in the process sees the
+    launches this file pretended to make."""
+    for fn, name in executor_mod.COUNTERS:
+        monkeypatch.setattr(fn, name, getattr(fn, name))
 
 
 def _int8_kv(cfg):

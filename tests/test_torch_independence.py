@@ -63,6 +63,15 @@ def test_module_list_covers_the_dlrm_path():
             "repro_torch.serving.dlrm_engine"} <= set(_modules())
 
 
+def test_module_list_covers_the_fleet_path():
+    """The blocked-import check walks the fleet layer's modules too."""
+    assert {"repro_torch.core.backend", "repro_torch.runtime",
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.serving.router", "repro_torch.serving.perf_model",
+            "repro_torch.serving.controller",
+            "repro_torch.serving.fleet_sim"} <= set(_modules())
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_neither_jax_nor_repro(path):

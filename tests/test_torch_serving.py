@@ -2,8 +2,10 @@
 (scheduler, telemetry, slot-state manager), of the quantization workflow
 and token agreement, and of the DLRM slice's jax-free parts (config,
 partitioner, click-log batches, transfer bookkeeping, pipeline helpers)
-stay copies: the same code, and the same decisions on the same seeded
-operation sequences."""
+and of the fleet layer's jax-free modules (backend spec, failure
+detector, fleet prefix index, router, performance model, controller,
+fleet simulator, and the engines' replica hooks) stay copies: the same
+code, and the same decisions on the same seeded operation sequences."""
 import ast
 import inspect
 import textwrap
@@ -13,22 +15,38 @@ import pytest
 import torch
 
 from repro.configs import dlrm_paper as jax_dlrm_cfg
+from repro.core import backend as jax_backend
 from repro.core import metrics as jax_metrics
 from repro.core import partitioner as jax_part
 from repro.core import pipeline as jax_pipe
 from repro.core import quantization as jax_quant
 from repro.core import transfer as jax_transfer
 from repro.data import synthetic as jax_synth
+from repro.runtime import fault_tolerance as jax_ft
+from repro.serving import controller as jax_ctl
+from repro.serving import dlrm_engine as jax_dlrm_engine
+from repro.serving import engine as jax_engine
+from repro.serving import fleet_sim as jax_fs
+from repro.serving import perf_model as jax_pm
+from repro.serving import router as jax_router
 from repro.serving import scheduler as jax_sched
 from repro.serving import state as jax_state
 from repro.serving import telemetry as jax_tel
 from repro_torch.configs import dlrm_paper as dlrm_cfg
+from repro_torch.core import backend
 from repro_torch.core import metrics
 from repro_torch.core import partitioner as part
 from repro_torch.core import pipeline as pipe
 from repro_torch.core import quantization as quant
 from repro_torch.core import transfer
 from repro_torch.data import synthetic as synth
+from repro_torch.runtime import fault_tolerance as ft
+from repro_torch.serving import controller as ctl
+from repro_torch.serving import dlrm_engine
+from repro_torch.serving import engine
+from repro_torch.serving import fleet_sim as fs
+from repro_torch.serving import perf_model as pm
+from repro_torch.serving import router
 from repro_torch.serving import scheduler as sched
 from repro_torch.serving import state
 from repro_torch.serving import telemetry as tel
@@ -58,11 +76,35 @@ COPIED = [
     (jax_transfer, transfer, "pack_sparse_inputs"),
     (jax_pipe, pipe, "PipelineStats"), (jax_pipe, pipe, "TwoStagePipeline"),
     (jax_pipe, pipe, "steady_state_speedup"),
-]
+    (jax_backend, backend, "BackendSpec"),
+    (jax_ft, ft, "HostState"), (jax_ft, ft, "DeadHostBeat"),
+    (jax_ft, ft, "HeartbeatMonitor"),
+    (jax_state, state, "FleetPrefixIndex"),
+    (jax_router, router, "ReplicaRouter"), (jax_router, router, "spread"),
+    (jax_pm, pm, "_median"), (jax_pm, pm, "PerfModel"),
+    (jax_ctl, ctl, "ControllerConfig"), (jax_ctl, ctl, "Decision"),
+    (jax_ctl, ctl, "FleetController"),
+] + [(jax_fs, fs, name) for name in (
+    "SimSnapshot", "SimReplica", "FleetSim", "Arrival", "_poisson_times",
+    "diurnal_trace", "flash_crowd_trace", "hot_burst_trace",
+    "multi_tenant_trace", "run_elastic", "run_fixed", "elastic_vs_fixed")]
+# the engines' replica hooks: methods and properties of the port's engines
+# that keep the reference's code
+COPIED_HOOKS = [(jax_engine.InferenceEngine, engine.InferenceEngine, name)
+                for name in ("attach_prefix_index", "prefix_keys",
+                             "prefix_snapshot", "prefix_accept",
+                             "export_prefix_cache", "_prefix_store",
+                             "_prefix_lookup", "free_slots",
+                             "drain_tickets", "steal_eligible")] + [
+    (jax_dlrm_engine.DLRMEngine, dlrm_engine.DLRMEngine, name)
+    for name in ("inflight", "free_slots", "steal_eligible",
+                 "drain_tickets", "submit")]
 # nested functions written in torch in the copy (the workflow's default
-# per-layer error); test_quantization_workflow_decides_like_the_original
-# holds its numbers to the original's
-TORCH_REWRITTEN = {"default_err"}
+# per-layer error; the performance model's weight count);
+# test_quantization_workflow_decides_like_the_original and
+# test_torch_fleet.py::test_for_params_counts_the_weights_like_the_reference
+# hold their numbers to the original's
+TORCH_REWRITTEN = {"default_err", "for_params"}
 # the array type of an annotation in the original, and in the copy
 ARRAY_TYPES = (("jax", "Array"), ("torch", "Tensor"))
 
@@ -70,11 +112,17 @@ ARRAY_TYPES = (("jax", "Array"), ("torch", "Tensor"))
 def _code(obj) -> str:
     """The object's source as an AST dump without docstrings (comments
     are not in the AST), without the nested functions the copy rewrites
-    in torch, and with ``jax.Array`` read as ``torch.Tensor``: the code,
-    not its prose."""
+    in torch, with ``jax.Array`` read as ``torch.Tensor`` and an import
+    from ``repro_torch`` read as one from ``repro``: the code, not its
+    prose."""
+    if isinstance(obj, property):
+        obj = obj.fget
     tree = ast.parse(textwrap.dedent(inspect.getsource(obj)))
     (jax_mod, jax_attr), (torch_mod, torch_attr) = ARRAY_TYPES
     for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module \
+                and node.module.split(".")[0] == "repro_torch":
+            node.module = "repro" + node.module[len("repro_torch"):]
         if isinstance(node, ast.Attribute) and node.attr == jax_attr \
                 and isinstance(node.value, ast.Name) \
                 and node.value.id == jax_mod:
@@ -98,6 +146,12 @@ def _code(obj) -> str:
                          ids=[c[2] for c in COPIED])
 def test_copy_has_the_original_code(orig, copy, name):
     assert _code(getattr(copy, name)) == _code(getattr(orig, name))
+
+
+@pytest.mark.parametrize("orig,copy,name", COPIED_HOOKS,
+                         ids=[f"{c[1].__name__}.{c[2]}" for c in COPIED_HOOKS])
+def test_replica_hook_has_the_original_code(orig, copy, name):
+    assert _code(copy.__dict__[name]) == _code(orig.__dict__[name])
 
 
 def _drive_scheduler(mod, policy, seed):
