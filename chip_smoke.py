@@ -59,7 +59,15 @@ result line):
              outside the cache (0 for those rows only), deepseek-7b's chunk
              call (4 x 128 at offsets 384, 128, 0, 256 over a 4 x 1024
              cache; timed beside SDPA with a boolean mask) and a 24-case
-             seeded sweep.
+             seeded sweep. gemma2-27b's shapes (bf16, G 2, hd 128, softcap
+             50): flash prefill B 4, S = T = 4608 with uneven lens, once
+             with window 4096 (a local layer) and once without (a global
+             one); its chunk calls (4 x 512) over a ring gathered into
+             position order (T 4608, query offset up to the window) and in
+             place over a 5120-row cache at offsets past the window, with
+             and without the window; both decode kernels on a 4096-slot ring
+             (pos clamped to 4095) and a 5120-row global cache. SDPA has no
+             softcap, so these have no library time.
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``, its stages
              captured as CUDA graphs (the card's default): 8 requests, 32
@@ -139,7 +147,30 @@ result line):
              first) picks the chunk at its knee, which an
              ``prefill_chunk="auto"`` engine serves with; on the reduced
              f32 config the auto chunk gives chunk 16's tokens.
-7. serve-dlrm — with the deepseek-7b weights freed: DLRM ``PAPER_COMPLEX``
+6c. check-gemma2 — with the deepseek-7b weights freed: gemma2-27b cut to
+             4 layers (local, global, local, global) of d_model 256, head_dim
+             128, G 2, window 64, both softcaps (``reduce_gemma2``), in f32
+             and bf16, each fp and w8a8 + int8 KV, prompts of 40-200 tokens:
+             card vs host >= 0.95; chunked (8, 16) vs monolithic identical
+             in f32 fp, >= 0.95 elsewhere; graphed == eager tokens
+             (monolithic, chunk 16); a prefix hit over a 96-token shared
+             prompt vs a cold engine (identical in f32) and snapshot ->
+             restore bit for bit over fp and int8 rings.
+6d. serve-gemma2 — full-width gemma2-27b in bf16 (46 layers, d_model 4608,
+             32/16 heads of 128, d_ff 36864, vocab 256000; 54.5 GB of random
+             weights from seed 0), 4 slots, max_len 5120, graphed and warmed
+             on the same requests: 8 prompts x 32 new tokens, long and short
+             in turn (4 of 4100-4600 tokens, past the 4096 window, and 4 of
+             71-445). All served with 32 tokens each; flash, flash with a
+             window and bf16 decode launched. Then the graphed decode stage
+             is profiled with its rings full, and a 4600-token prefill must
+             give finite hidden states.
+6e. serve-gemma2-chunked — the same through ``prefill_chunk=512``: flash at
+             a query offset and with a window; the agreement with 6d printed,
+             not held. One chunk call at offsets past the window is
+             profiled, and the local layers' ring gather timed alone. The
+             gemma2-27b weights are then freed.
+7. serve-dlrm — with the LM weights freed: DLRM ``PAPER_COMPLEX``
              at its published widths with every table halved (one shard,
              a 58.6 GB row-wise int8 slab made on the card from a seed)
              through ``DLRMEngine(device="cuda")``: a full-trace warm-up,
@@ -170,8 +201,9 @@ Kernel times (``ms``) are CUDA-event times of single calls, each after an
 L2 flush; the device window's times leave out the host's enqueue gap.
 
 The line before the last is a JSON object with one entry per kernel (its
-``launches`` are those of the phases whose path runs it, summed: serve and
-serve-chunked for flash, serve for bf16 decode, serve-w8a8, serve-dlrm, or
+``launches`` are those of the phases whose path runs it, summed: serve,
+serve-chunked, serve-gemma2 and serve-gemma2-chunked for flash, serve and
+both gemma2 serves for bf16 decode, serve-w8a8, serve-dlrm, or
 check-dlrm for the fp32 and int4 SLS kernels, and every fleet phase; each
 phase zeroes the counters just before it and reads them just after); the
 last line is
@@ -352,9 +384,46 @@ def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
 
-def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, **kw):
-    """One flash case on the card; returns the measurement dict."""
-    q = _randn(gen, (B, S, H, hd), dtype)
+# gemma2-27b's softcapped cases scale q by this (a power of two: exact in
+# either type), so that the logits (std ~16 against ~1 at randn's size)
+# reach the softcap's nonlinear range, as gemma2's do: at std 1,
+# 50*tanh(x/50) differs from x by ~x^3/7500, far below every tolerance
+SOFTCAP_Q_SCALE = 16.0
+
+
+def softcap_live(name: str, plain, cap: float, want: torch.Tensor,
+                 dtype) -> torch.Tensor:
+    """The plain version ``plain(softcap)`` with no softcap and with 0.6x
+    ``cap`` must each differ from ``want`` (its output at ``cap``) past the
+    case's tolerance, so that a kernel that skipped the softcap or applied
+    another one would fail the case. Returns the output with no softcap
+    (the reference of a softcap-free stand-in)."""
+    tol = TOL[dtype]
+    want = want.float()
+    fracs = {}
+    for other in (0.0, 0.6 * cap):
+        out = plain(other)
+        fracs[other] = ((out.float() - want).abs()
+                        > tol + tol * want.abs()).float().mean().item()
+        if other == 0.0:
+            uncapped = out
+    print(f"{name}: the softcap is live: share of outputs past the "
+          f"tolerance with softcap 0 {fracs[0.0]:.4f}, with "
+          f"{0.6 * cap:g} {fracs[0.6 * cap]:.4f}", flush=True)
+    if not all(fracs.values()):
+        raise AssertionError(f"{name}: the plain version gives the same "
+                             f"output within the tolerance with softcap "
+                             f"{cap}, 0 and {0.6 * cap:g} ({fracs}): the "
+                             f"case cannot tell them apart")
+    return uncapped
+
+
+def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, q_scale=1.0,
+               **kw):
+    """One flash case on the card; returns the measurement dict. With a
+    softcap and a ``q_scale`` past 1, the softcap is shown live
+    (``softcap_live``) and SDPA without it timed as a stand-in."""
+    q = _randn(gen, (B, S, H, hd), dtype) * q_scale
     k = _randn(gen, (B, S, K, hd), dtype)
     v = _randn(gen, (B, S, K, hd), dtype)
     lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32,
@@ -363,6 +432,14 @@ def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, **kw):
     torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, lens_t, **kw)
     err = compare(f"flash_attn[{name}]", got, want, dtype)
+    cap = kw.get("softcap", 0.0)
+    uncapped = None
+    if cap and q_scale != 1.0:
+        uncapped = softcap_live(
+            f"flash_attn[{name}]",
+            lambda c: flash_attention_ref(q, k, v, lens_t,
+                                          **{**kw, "softcap": c}),
+            cap, want, dtype)
     # the work these inputs need: the (query, key) pairs the mask keeps
     causal, window = kw.get("causal", True), kw.get("window", 0)
     pos = torch.arange(S, device=DEV)
@@ -378,31 +455,50 @@ def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, **kw):
     flops = 4.0 * pairs * H * hd
     nbytes = elem * (2 * q.numel() + 2 * K * hd * n_valid.sum().item())
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    library_ms = library_err = None
-    if not kw.get("softcap"):       # SDPA has no logit softcap
-        # (B,heads,S,hd) layout, kv heads repeated per group, outside the
-        # timed call
+    library = None
+    if not cap or uncapped is not None:
+        # SDPA, (B,heads,S,hd) layout, kv heads repeated per group, outside
+        # the timed call; it has no logit softcap, so with one it is a
+        # stand-in held against the plain version without it
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
                   .contiguous() for x in (k, v))
         m4 = mask[:, None]
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
-        library_err = (lib_out.transpose(1, 2).float()
-                       - want.float()).abs().max().item()
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=m4))
+
+        def library_call():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+
+        # held on the query rows that see a key: SDPA and the plain
+        # version differ on a row the mask leaves empty
+        seen = mask.any(-1)
+        library = (library_call, library_call().transpose(1, 2)[seen],
+                   (want if uncapped is None else uncapped)[seen])
+
     def call():
         return flash_attn(q, k, v, lens_t, **kw)
 
-    def library_call():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
-
-    return dict(max_abs_err=err, library_err=library_err, ms=time_ms(call),
+    return dict(max_abs_err=err, ms=time_ms(call),
                 plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, lens_t,
                                                              **kw)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                call=call,
-                library_call=None if library_ms is None else library_call)
+                bound_ms=bound_ms, bound_by=bound_by, call=call,
+                **_library(library, stand_in=uncapped is not None))
+
+
+def _library(library, stand_in: bool) -> dict:
+    """The library keys of a measurement dict from (its timed callable, its
+    output, the plain version's output it is held against) or None: a
+    call that computes the same function fills ``library_*``; SDPA
+    without the softcap of a softcapped case fills ``standin_*``, and
+    ``library_ms`` stays None (no single call computes the function)."""
+    if library is None:
+        return dict(library_ms=None, library_err=None, library_call=None)
+    fn, out, ref = library
+    err = (out.float() - ref.float()).abs().max().item()
+    ms = time_ms(fn)
+    if stand_in:
+        return dict(library_ms=None, library_err=None, library_call=None,
+                    standin_ms=ms, standin_err=err, standin_call=fn)
+    return dict(library_ms=ms, library_err=err, library_call=fn)
 
 
 def chunk_mask(start, lengths, C: int, T: int, window: int = 0):
@@ -420,14 +516,15 @@ def chunk_mask(start, lengths, C: int, T: int, window: int = 0):
 
 def flash_chunk_case(name, gen, Bk, T, H, K, hd, C, dtype, slots, start,
                      lengths, window=0, softcap=0.0, measure=False,
-                     quiet=False):
+                     quiet=False, q_scale=1.0):
     """Prefill chunks through flash at query offsets ``start`` over rows
     ``slots`` of a (Bk, T) cache, held against the plain version on the
     same inputs; with ``measure``, timed beside its bound and SDPA (a
     boolean mask over the gathered rows, the gather outside the timed
-    call) and returned as a measurement dict, else its error."""
+    call) and returned as a measurement dict, else its error. A softcap
+    with a ``q_scale`` past 1 is shown live, as in ``flash_case``."""
     P = len(slots)
-    q = _randn(gen, (P, C, H, hd), dtype)
+    q = _randn(gen, (P, C, H, hd), dtype) * q_scale
     k, v = (_randn(gen, (Bk, T, K, hd), dtype) for _ in range(2))
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=DEV)
     lens = i32([s + n for s, n in zip(start, lengths)])
@@ -437,6 +534,13 @@ def flash_chunk_case(name, gen, Bk, T, H, K, hd, C, dtype, slots, start,
     torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, lens, **kw)
     err = compare(f"flash_attn[{name}]", got, want, dtype)
+    uncapped = None
+    if softcap and q_scale != 1.0:
+        uncapped = softcap_live(
+            f"flash_attn[{name}]",
+            lambda c: flash_attention_ref(q, k, v, lens,
+                                          **{**kw, "softcap": c}),
+            softcap, want, dtype)
     if not measure:
         if not quiet:
             print(f"flash_attn {name}: max abs err {err:.3e}", flush=True)
@@ -448,25 +552,27 @@ def flash_chunk_case(name, gen, Bk, T, H, K, hd, C, dtype, slots, start,
     nbytes = elem * (2 * q.numel() + 2 * K * hd * lens.sum().item())
     bound_ms, bound_by = bound(flops, nbytes, dtype)
     rows = i32(slots).long()
-    qt = q.transpose(1, 2).contiguous()
-    kt, vt = (x[rows].repeat_interleave(H // K, dim=2).transpose(1, 2)
-              .contiguous() for x in (k, v))
-    m4 = mask[:, None]
 
     def call():
         return flash_attn(q, k, v, lens, **kw)
 
-    def library_call():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+    library = None
+    if not softcap or uncapped is not None:   # SDPA: see flash_case
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x[rows].repeat_interleave(H // K, dim=2).transpose(1, 2)
+                  .contiguous() for x in (k, v))
+        m4 = mask[:, None]
 
-    library_err = (library_call().transpose(1, 2).float()
-                   - want.float()).abs().max().item()
-    return dict(max_abs_err=err, library_err=library_err, ms=time_ms(call),
+        def library_call():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+
+        library = (library_call, library_call().transpose(1, 2),
+                   want if uncapped is None else uncapped)
+    return dict(max_abs_err=err, ms=time_ms(call),
                 plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, lens,
                                                              **kw)),
-                bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=time_ms(library_call), call=call,
-                library_call=library_call)
+                bound_ms=bound_ms, bound_by=bound_by, call=call,
+                **_library(library, stand_in=uncapped is not None))
 
 
 def flash_bad_row(gen) -> None:
@@ -496,8 +602,11 @@ CHUNK_MAIN = dict(slots=[0, 1, 2, 3], start=[384, 128, 0, 256],
                   lengths=[128, 128, 77, 1])
 
 
-def decode_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
-    q = _randn(gen, (B, H, hd), dtype)
+def decode_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0,
+                q_scale=1.0):
+    """One decode case on the card (a softcap with a ``q_scale`` past 1
+    shown live, as in ``flash_case``); returns the measurement dict."""
+    q = _randn(gen, (B, H, hd), dtype) * q_scale
     k = _randn(gen, (B, S, K, hd), dtype)
     v = _randn(gen, (B, S, K, hd), dtype)
     pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
@@ -505,34 +614,39 @@ def decode_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
     torch.cuda.synchronize()
     want = decode_attn_ref(q, k, v, pos_t, softcap=softcap)
     err = compare(f"decode_attn[{name}]", got, want, dtype)
+    uncapped = None
+    if softcap and q_scale != 1.0:
+        uncapped = softcap_live(
+            f"decode_attn[{name}]",
+            lambda c: decode_attn_ref(q, k, v, pos_t, softcap=c), softcap,
+            want, dtype)
     keys = sum(min(p, S - 1) + 1 for p in pos)
     elem = q.element_size()
     flops = 4.0 * H * hd * keys
     nbytes = elem * (q.numel() + 2 * K * hd * keys) + 4 * B * H * hd
     bound_ms, bound_by = bound(flops, nbytes, dtype)
-    library_ms = library_err = None
-    if not softcap:
+    library = None
+    if not softcap or uncapped is not None:   # SDPA: see flash_case
         qt = q[:, :, None].contiguous()                         # (B,H,1,hd)
         kt, vt = (x.repeat_interleave(H // K, dim=2).transpose(1, 2)
                   .contiguous() for x in (k, v))                # (B,H,S,hd)
         m4 = (torch.arange(S, device=DEV)[None, :]
               <= pos_t[:, None])[:, None, None]                 # (B,1,1,S)
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
-        library_err = (lib_out[:, :, 0].float() - want).abs().max().item()
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=m4))
+
+        def library_call():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
+
+        library = (library_call, library_call()[:, :, 0],
+                   want if uncapped is None else uncapped)
+
     def call():
         return decode_attn(q, k, v, pos_t, softcap=softcap)
 
-    def library_call():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m4)
-
-    return dict(max_abs_err=err, library_err=library_err, ms=time_ms(call),
+    return dict(max_abs_err=err, ms=time_ms(call),
                 plain_ms=time_ms(lambda: decode_attn_ref(q, k, v, pos_t,
                                                          softcap=softcap)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                call=call,
-                library_call=None if library_ms is None else library_call)
+                bound_ms=bound_ms, bound_by=bound_by, call=call,
+                **_library(library, stand_in=uncapped is not None))
 
 
 def _int8(gen, shape):
@@ -619,14 +733,22 @@ def _int8_cache(gen, B, S, K, hd):
     return kq, ks, vq, vs
 
 
-def decode_int8_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
-    q = _randn(gen, (B, H, hd), dtype)
+def decode_int8_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0,
+                     q_scale=1.0):
+    """One int8 decode case on the card (a softcap with a ``q_scale`` past
+    1 shown live, as in ``flash_case``); returns the measurement dict."""
+    q = _randn(gen, (B, H, hd), dtype) * q_scale
     cache = _int8_cache(gen, B, S, K, hd)
     pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
     got = decode_attn_int8(q, *cache, pos_t, softcap=softcap)
     torch.cuda.synchronize()
     want = decode_attn_int8_ref(q, *cache, pos_t, softcap=softcap)
     err = compare(f"decode_attn_int8[{name}]", got, want, dtype)
+    if softcap and q_scale != 1.0:
+        softcap_live(f"decode_attn_int8[{name}]",
+                     lambda c: decode_attn_int8_ref(q, *cache, pos_t,
+                                                    softcap=c),
+                     softcap, want, dtype)
     keys = sum(min(p, S - 1) + 1 for p in pos)
     flops = 4.0 * H * hd * keys
     # q once, int8 K and V plus their two fp16 scales up to pos, f32 out
@@ -647,6 +769,11 @@ def decode_int8_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0):
 def _show(kernel, name, r):
     lib = ("n/a" if r["library_ms"] is None else
            f"{r['library_ms']:.4f} (its max_abs_err {r['library_err']:.3e})")
+    if "standin_ms" in r:
+        lib += (f" (no call has the softcap); SDPA without it, a stand-in, "
+                f"{r['standin_ms']:.4f} (its max_abs_err "
+                f"{r['standin_err']:.3e} against the plain version without "
+                f"the softcap)")
     print(f"{kernel}[{name}]: max_abs_err={r['max_abs_err']:.3e} "
           f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
           f"library_ms={lib} bound_us={r['bound_ms'] * 1e3:.2f} "
@@ -883,6 +1010,32 @@ def split_group_cases() -> dict:
                               (7, 64, bf16), (8, 128, f32))}
 
 
+# gemma2-27b decode at 4 rows, G 2, softcap 50: a local layer's 4096-slot
+# ring (pos clamped to 4095 once full, the model's ring rule) and a global
+# layer's 5120-row cache
+GEMMA2_DECODE = {
+    "gemma2_ring_B4_H32_K16_hd128_S4096_cap50": (
+        4, 32, 16, 128, 4096, [4095, 4095, 4095, 300], torch.bfloat16, 50.0),
+    "gemma2_global_B4_H32_K16_hd128_S5120_cap50": (
+        4, 32, 16, 128, 5120, [4700, 4200, 4127, 350], torch.bfloat16, 50.0),
+}
+
+
+def _q_scale(name: str) -> float:
+    """gemma2-27b's cases (every one softcapped) scale q into the softcap's
+    range; the others keep randn's size."""
+    return SOFTCAP_Q_SCALE if name.startswith("gemma2") else 1.0
+
+
+def _gemma2_fns(device_fns: dict, kernel: str, name: str, r: dict) -> None:
+    """A gemma2-27b case's kernel call, and its SDPA stand-in if it has one,
+    into the device-time window; the case keeps neither."""
+    device_fns[f"{kernel} {name}"] = r.pop("call")
+    if "standin_call" in r:
+        device_fns[f"SDPA without the softcap (stand-in) {name}"] = \
+            r.pop("standin_call")
+
+
 def phase_kernels() -> dict:
     """Every case of both kernels; returns the main-path measurements."""
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -912,16 +1065,29 @@ def phase_kernels() -> dict:
         # deepseek-7b prefill: 4 prompts of a 512 bucket, right-padded
         "main_B4_S512_H32_hd128": (4, 512, 32, 32, 128, bf16,
                                    [512, 300, 77, 1], {}),
+        # gemma2-27b prefill, 4 prompts of a 4608 bucket, right-padded: a
+        # local layer (window 4096, which starts up to 4 tiles in, with the
+        # softcap: the first case that checks them together) and a global
+        # one (the softcap alone)
+        "gemma2_local_B4_S4608_H32_K16_hd128_w4096_cap50": (
+            4, 4608, 32, 16, 128, bf16, [4608, 4400, 4100, 300],
+            {"window": 4096, "softcap": 50.0}),
+        "gemma2_global_B4_S4608_H32_K16_hd128_cap50": (
+            4, 4608, 32, 16, 128, bf16, [4608, 4400, 4100, 300],
+            {"softcap": 50.0}),
     }
     device_fns = {}
     main = {}
     for name, (B, S, H, K, hd, dt, lens, kw) in flash_cases.items():
-        r = flash_case(name, gen, B, S, H, K, hd, dt, lens, **kw)
+        r = flash_case(name, gen, B, S, H, K, hd, dt, lens,
+                       q_scale=_q_scale(name), **kw)
         _show("flash_attn", name, r)
         if name.startswith("main"):
             main["flash_attn"] = r
             device_fns["flash_attn " + name] = r["call"]
             device_fns["SDPA " + name] = r["library_call"]
+        if name.startswith("gemma2"):
+            _gemma2_fns(device_fns, "flash_attn", name, r)
     # prefill chunks at query offsets over a larger cache: offsets off the
     # 128-key tile, a short last chunk and a padded row (lengths 0,
     # repeating the first slot), G 4 and 8 at hd 64 and 128, the CUDA-core
@@ -957,6 +1123,26 @@ def phase_kernels() -> dict:
     main["flash_attn_chunk"] = r
     device_fns["flash_attn " + name] = r["call"]
     device_fns["SDPA (boolean mask) " + name] = r["library_call"]
+    # gemma2-27b's chunk calls (prefill_chunk 512, 4 rows). A local layer
+    # attends its ring gathered into position order with the chunk after
+    # it (4096 + 512 keys) at query offset n = min(start, 4096), window
+    # 4096 and softcap 50; a global layer its cache rows in place at
+    # offsets past the window, softcap 50; and the same in-place read with
+    # the window too (offsets past it, the kernel's domain)
+    for name, (T, start, lengths, window) in {
+            "gemma2_local_chunk_P4_C512_T4608_w4096_cap50": (
+                4608, [4096, 4096, 2100, 0], [512, 300, 512, 77], 4096),
+            "gemma2_global_chunk_P4_C512_T5120_cap50": (
+                5120, [4608, 4096, 512, 0], [512, 504, 512, 71], 0),
+            "gemma2_window_chunk_P4_C512_T5120_w4096_cap50": (
+                5120, [4608, 4096, 4097, 0], [512, 504, 23, 71], 4096)
+    }.items():
+        r = flash_chunk_case(name, gen, 4, T, 32, 16, 128, 512, bf16,
+                             slots=[0, 1, 2, 3], start=start,
+                             lengths=lengths, window=window, softcap=50.0,
+                             measure=True, q_scale=_q_scale(name))
+        _show("flash_attn", name, r)
+        _gemma2_fns(device_fns, "flash_attn", name, r)
     # the JAX package's cases (repro/kernels/decode_attn/ops.py), scalar
     # pos broadcast to every row, then deepseek-7b decode at per-row pos
     decode_cases = {
@@ -969,6 +1155,7 @@ def phase_kernels() -> dict:
         "main_B4_S1024_H32_hd128": (4, 32, 32, 128, 1024,
                                     [1023, 600, 31, 0], bf16, 0.0),
     }
+    decode_cases.update(GEMMA2_DECODE)
     # the split-S kernel's edges (64-key chunks at these sizes): pos 0, one
     # short of a chunk's end, on it, one past it, and at and past S-1; G
     # from 1 to 8 and hd from 16 to 128 in both types; softcap; and f32 at
@@ -988,12 +1175,15 @@ def phase_kernels() -> dict:
                                         [1023, 511, 128, 127], bf16, 30.0)})
     decode_cases.update(split_group_cases())
     for name, (B, H, K, hd, S, pos, dt, cap) in decode_cases.items():
-        r = decode_case(name, gen, B, H, K, hd, S, pos, dt, cap)
+        r = decode_case(name, gen, B, H, K, hd, S, pos, dt, cap,
+                        q_scale=_q_scale(name))
         _show("decode_attn", name, r)
         if name.startswith("main"):
             main["decode_attn"] = r
             device_fns["decode_attn " + name] = r["call"]
             device_fns["SDPA " + name] = r["library_call"]
+        if name.startswith("gemma2"):
+            _gemma2_fns(device_fns, "decode_attn", name, r)
     # the JAX package's cases (repro/kernels/w8a8/ops.py), then deepseek-7b's
     # dense projections at decode (4 rows) and prefill (4 x 512 rows)
     w8a8_cases = {
@@ -1046,6 +1236,7 @@ def phase_kernels() -> dict:
         "main_B4_S1024_H32_hd128": (4, 32, 32, 128, 1024,
                                     [1023, 600, 31, 0], bf16, 0.0),
     }
+    decode_int8_cases.update(GEMMA2_DECODE)
     # the split-S kernel's edges (64-key chunks at these sizes): pos 0, one
     # short of a chunk's end, on it, one past it, and at and past S-1; G
     # from 1 to 8 and hd from 16 to 128 in both query types; softcap
@@ -1062,11 +1253,14 @@ def phase_kernels() -> dict:
                                    f32, 0.0)})
     decode_int8_cases.update(split_group_cases())
     for name, (B, H, K, hd, S, pos, dt, cap) in decode_int8_cases.items():
-        r = decode_int8_case(name, gen, B, H, K, hd, S, pos, dt, cap)
+        r = decode_int8_case(name, gen, B, H, K, hd, S, pos, dt, cap,
+                             q_scale=_q_scale(name))
         _show("decode_attn_int8", name, r)
         if name.startswith("main"):
             main["decode_attn_int8"] = r
             device_fns["decode_attn_int8 " + name] = r["call"]
+        if name.startswith("gemma2"):
+            _gemma2_fns(device_fns, "decode_attn_int8", name, r)
     main.update(sls_cases(gen, device_fns))
     device_window(device_fns)
     for r in main.values():         # let the main shapes' tables go
@@ -1295,16 +1489,21 @@ def _graph_counts(eng) -> str:
             f"capturing, warm-ups apart: {secs}), replayed {dict(ex.replays)}")
 
 
-def _serve(eng, cfg, label: str, base: int):
-    """Warm the engine on one request, then serve 8 requests x 32 tokens
-    with every launch counter zeroed just before and read just after.
-    Raises unless all 8 got 32 tokens in the vocab. ``base``: the bytes
-    allocated on the card before the engine was built. Returns (launches,
-    the requests' outputs)."""
+def _serve(eng, cfg, label: str, base: int, trace=None, warm=None,
+           model: str = "deepseek-7b"):
+    """Warm the engine (by default on one request; ``warm()``: the
+    requests to warm it with), then serve 8 requests x 32 tokens (by
+    default 64-512 tokens long; ``trace()``: the requests) with every
+    launch counter zeroed just before and read just after. Raises unless
+    all 8 got 32 tokens in the vocab. ``base``: the bytes allocated on the
+    card before the engine was built. Returns (launches, the requests'
+    outputs)."""
     torch.cuda.reset_peak_memory_stats()
-    eng.run(_requests(1, 64, 64, 4, cfg.vocab_size, seed=1))    # warm-up
+    eng.run(warm() if warm is not None
+            else _requests(1, 64, 64, 4, cfg.vocab_size, seed=1))
     eng.telemetry.reset_serving_stats()
-    reqs = _requests(8, 64, 512, 32, cfg.vocab_size, seed=0)
+    reqs = trace() if trace is not None \
+        else _requests(8, 64, 512, 32, cfg.vocab_size, seed=0)
     _zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1313,6 +1512,7 @@ def _serve(eng, cfg, label: str, base: int):
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in LAUNCHERS.items()}
     launches["flash_attn at a q_off"] = flash_attn.offset_launches
+    launches["flash_attn with a window"] = flash_attn.window_launches
     tel = eng.telemetry
     prefill = ("chunk call", "chunk_prefill") if eng.prefill_chunk \
         else ("prefill call", "prefill")
@@ -1321,7 +1521,7 @@ def _serve(eng, cfg, label: str, base: int):
     ttft = tel.ttft_percentiles()
     n_tok = sum(len(r.output) for r in reqs)
     peak = torch.cuda.max_memory_allocated()
-    print(f"{label}: deepseek-7b full width bf16, {cfg.num_layers} layers, "
+    print(f"{label}: {model} full width bf16, {cfg.num_layers} layers, "
           f"prompts {sorted(len(r.tokens) for r in reqs)}; served "
           f"{tel.served}/{len(reqs)} in {wall:.3f} s, {n_tok / wall:.1f} "
           f"tok/s, TTFT p50 {ttft['p50']:.2f} ms p99 {ttft['p99']:.2f} ms, "
@@ -1543,9 +1743,11 @@ def _outputs(eng, reqs):
     return [r.output for r in reqs]
 
 
-def _prefix_trace(vocab, n=6):
-    """Requests sharing a 24-token system prompt (3 chunks of 8)."""
-    shared = np.random.default_rng(0).integers(0, vocab, 24).astype(np.int32)
+def _prefix_trace(vocab, n=6, shared_len=24):
+    """Requests sharing a ``shared_len``-token system prompt (by default 3
+    chunks of 8)."""
+    shared = np.random.default_rng(0).integers(
+        0, vocab, shared_len).astype(np.int32)
     rng = np.random.default_rng(3)
     return [Request(i, np.concatenate([shared, rng.integers(0, vocab, int(L))])
                     .astype(np.int32), max_new_tokens=6)
@@ -1558,24 +1760,30 @@ def _check_identical(label: str, got, want) -> None:
         raise AssertionError(f"check-chunked: {label}: requests {bad} differ")
 
 
-def _check_round_trip(small, card, kw) -> None:
+def _check_round_trip(small, card, kw, n: int = 16,
+                      label: str = "check-chunked") -> None:
     """Snapshot -> restore into another slot -> snapshot, bit for bit, on
-    the card; the restored row past the prefix is zero."""
+    the card, of an ``n``-token prefix (prompts of n to n + 4 tokens); a
+    restored positional row past the prefix is zero (a ring moves
+    whole)."""
     eng = InferenceEngine(small, card, prefill_chunk=8, device=DEV, **kw)
-    eng.run(_requests(3, 16, 20, 4, small.vocab_size, seed=6))
-    src = eng.snapshot_slot(0, 16)
-    live = [{k: t[0, :16].cpu() for k, t in c.items()} for c in eng.caches]
+    eng.run(_requests(3, n, n + 4, 4, small.vocab_size, seed=6))
+    src = eng.snapshot_slot(0, n)
+    live = [{k: (t[0, :n] if positional else t[0]).cpu()
+             for k, t in c.items()}
+            for c, positional in zip(eng.caches, eng._positional)]
     eng.restore_slot(src, 2)
-    back = eng.snapshot_slot(2, 16)
-    for a, b, c, layer in zip(src.leaves, back.leaves, live, eng.caches):
+    back = eng.snapshot_slot(2, n)
+    for a, b, c, layer, positional in zip(src.leaves, back.leaves, live,
+                                          eng.caches, eng._positional):
         for k in a:
             if not (torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])
-                    and not layer[k][2, 16:].any().item()):
-                raise AssertionError(f"check-chunked: {k} row did not "
+                    and not (positional and layer[k][2, n:].any().item())):
+                raise AssertionError(f"{label}: {k} row did not "
                                      f"round-trip bit for bit")
     st = eng.transfer_stats
     dtype = eng.caches[0]["k"].dtype
-    print(f"check-chunked: {dtype} cache, snapshot -> restore bit for bit "
+    print(f"{label}: {dtype} cache, snapshot -> restore bit for bit "
           f"({src.bytes_partial} of {src.bytes_full} row bytes shipped; "
           f"{st.num_transfers_batched} batched copies for "
           f"{st.num_transfers_naive} tensors)", flush=True)
@@ -1746,10 +1954,20 @@ LM_SHARES = {"matmul kernels": MATMUL_KERNEL_NAMES,
              "w8a8_splitk_kernel (M <= 16)": ("w8a8_splitk_kernel",)}
 
 
-def profile_window(label: str, fn, steps: int, shares=LM_SHARES) -> None:
+def _device_events(prof) -> list:
+    """The trace's device-side activities (kernels, copies, memsets),
+    averaged by name: an aten op's own device time counts the kernels it
+    launched a second time."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def profile_window(label: str, fn, steps: int, shares=LM_SHARES):
     """Device busy share of ``fn`` (which ends in a host copy or a wait): its
     wall time untraced, then its kernels' device time from one traced run,
-    with the share of each group of kernel names in ``shares``."""
+    with the share of each group of kernel names in ``shares``. Returns
+    the trace, None if it holds no device activity."""
     fn()                                                     # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1761,16 +1979,12 @@ def profile_window(label: str, fn, steps: int, shares=LM_SHARES) -> None:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    # device-side activities only (kernels, copies, memsets): an aten op's
-    # own device time counts the kernels it launched a second time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation]
+    events = _device_events(prof)
     if not events:
         print(f"profile: {label}: wall {wall_ms / steps:.3f} ms per step; "
               f"device time not measured (the trace holds no device "
               f"activity)", flush=True)
-        return
+        return None
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
 
     def share(names):
@@ -1790,6 +2004,7 @@ def profile_window(label: str, fn, steps: int, shares=LM_SHARES) -> None:
     for e in top:
         print(f"profile: {label}:   {e.self_device_time_total / 1e3 / steps:8.3f}"
               f" ms/step x{e.count // steps:<4d} {e.key[:90]}", flush=True)
+    return prof
 
 
 # what may touch a whole cache tensor (B, max_len, K, hd) in a chunk call:
@@ -1860,14 +2075,15 @@ def profile_chunk(cfg, params, caches, tag: str) -> None:
               f"layers", flush=True)
 
 
-def profile_decode_stage(eng, tag: str, steps: int = 8) -> None:
+def profile_decode_stage(eng, tag: str, steps: int = 8,
+                         pos=(512, 300, 77, 1)) -> None:
     """``steps`` decode stage calls of the engine (one graph replay each
-    when it is graphed) at 4 rows, positions 512, 300, 77 and 1 onward,
-    each fed the last call's tokens: the step's wall time, its device busy
-    share and device activities."""
+    when it is graphed) at 4 rows, positions ``pos`` onward, each fed the
+    last call's tokens: the step's wall time, its device busy share and
+    device activities."""
     run = eng.executor.get("decode", (eng.precision,), eng._build_decode)
     B = eng.batch_slots
-    pos = np.array([512, 300, 77, 1][:B], np.int32)
+    pos = np.array(pos[:B], np.int32)
 
     def decode():
         toks = np.zeros((B, 1), np.int32)
@@ -1932,6 +2148,235 @@ def phase_profile(cfg, params, tag: str = ""):
     profile_chunk(cfg, params, caches, tag)
 
 
+# ---- gemma2-27b ---------------------------------------------------------------
+
+# 4 slots of 5120 positions (the 23 global layers' K/V 3.9 GB, the 23 rings
+# of 4096 slots 3.1 GB); the bucket ladder reaches the longest prompt
+GEMMA2_KW = dict(batch_slots=4, max_len=5120,
+                 prefill_buckets=(128, 256, 512, 1024, 2048, 4096, 4608),
+                 device=DEV)
+
+
+def gemma2_requests(vocab: int):
+    """The gemma2 serve phases' traffic: 8 prompts x 32 new tokens, long
+    and short in turn: 4 of 4100-4600 tokens (past the 4096 window, so a
+    prefill wraps every ring and every decode attends a full ring) and 4
+    of 71-445."""
+    rng = np.random.default_rng(0)
+    lens = np.stack([rng.integers(4100, 4601, 4),
+                     rng.integers(71, 446, 4)], 1).reshape(-1)
+    return [Request(i, rng.integers(0, vocab, int(L)).astype(np.int32),
+                    max_new_tokens=32) for i, L in enumerate(lens)]
+
+
+def _free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_gemma2(cfg, params, kw=GEMMA2_KW,
+                       decode_pos=(4600, 4400, 300, 100)):
+    """Full-width gemma2-27b serving in bf16, graphed, warmed on the same
+    requests first (so every stage key is captured before the measured
+    run): flash with a window (the local layers) and the bf16 decode kernel
+    must have run. Then the graphed decode stage is profiled at positions
+    ``decode_pos`` (rings full), the engine is freed and one prefill of
+    the longest prompt must give finite hidden states. Returns (launches,
+    outputs)."""
+    label = "serve-gemma2"
+    trace = lambda: gemma2_requests(cfg.vocab_size)
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(cfg, params, **kw)
+    launches, outputs = _serve(eng, cfg, label, base, trace=trace,
+                               warm=trace, model=cfg.name)
+    _require_launched(label, launches, ("flash_attn",
+                                        "flash_attn with a window",
+                                        "decode_attn"))
+    profile_decode_stage(eng, f"{label}: graphed ", pos=decode_pos)
+    del eng
+    _free_card()
+    prompt = max(trace(), key=lambda r: len(r.tokens)).tokens
+    with torch.inference_mode():
+        h, _ = model_mod.prefill(params, cfg, {"tokens": torch.from_numpy(
+            prompt)[None].to(DEV)}, max_len=kw["max_len"])
+    if h.shape != (1, cfg.d_model) or not torch.isfinite(h).all():
+        raise AssertionError(f"{label}: prefill hidden {tuple(h.shape)} is "
+                             f"not finite")
+    print(f"{label}: a {len(prompt)}-token prefill's last hidden "
+          f"{tuple(h.shape)} finite, rms "
+          f"{h.float().pow(2).mean().sqrt().item():.4f}", flush=True)
+    return launches, outputs
+
+
+def phase_serve_gemma2_chunked(cfg, params, mono_outputs, kw=GEMMA2_KW,
+                               chunk: int = 512):
+    """The same requests through ``prefill_chunk=chunk``: chunks that cross
+    the window, the local layers' flash over their gathered rings and the
+    global layers' at offsets past 4096. Flash at a query offset and with
+    a window must have run; the agreement with the monolithic serve is
+    printed, not held (near-flat logits of random full-width weights).
+    Returns the launches."""
+    label = "serve-gemma2-chunked"
+    trace = lambda: gemma2_requests(cfg.vocab_size)
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(cfg, params, prefill_chunk=chunk, **kw)
+    launches, outputs = _serve(eng, cfg, label, base, trace=trace,
+                               warm=trace, model=cfg.name)
+    _require_launched(label, launches, (
+        "flash_attn", "flash_attn at a q_off", "flash_attn with a window",
+        "decode_attn"))
+    agree = token_agreement(zip(outputs, mono_outputs))
+    print(f"{label}: greedy-token agreement with the monolithic engine's "
+          f"outputs {agree:.4f} (printed, not held: near-flat logits of "
+          f"random full-width weights)", flush=True)
+    profile_gemma2_chunk(cfg, params, eng.caches, chunk)
+    return launches
+
+
+def profile_gemma2_chunk(cfg, params, caches, C: int,
+                         start=(4096, 4608, 2048, 512)) -> None:
+    """One full-width chunk call through the model layer on a served
+    engine's caches (4 rows of ``C`` at offsets ``start``, the rings
+    full): its device time and shares, and from the same trace the part
+    the local layers' ring gather takes (its profiler spans)."""
+    slots, start = [0, 1, 2, 3], list(start)
+    lengths = [C] * 4
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (4, C), generator=gen,
+                         device=DEV, dtype=torch.int32)
+
+    @torch.inference_mode()
+    def chunk():
+        x, _ = model_mod.chunk_prefill_step(params, cfg, toks, caches, slots,
+                                            start, start, lengths)
+        return model_mod.greedy_next(params, cfg, x[:, -1]).cpu()
+
+    label = "serve-gemma2-chunked"
+    prof = profile_window(f"{label}: chunk call, 4x{C} at offsets {start}",
+                          chunk, 1)
+    if prof is None:
+        return
+    # the local layers' gather spans (``attention.RING_GATHER_SPAN``): the
+    # device time of the kernels their ops launched
+    spans = [e for e in prof.events()
+             if e.name == attn_mod.RING_GATHER_SPAN
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    ms = sum(e.device_time_total for e in spans) / 1e3
+    n_local = sum(kind == "local" for kind in cfg.layer_kinds())
+    if len(spans) != n_local or not ms:
+        print(f"profile: {label}: local ring gather not measured "
+              f"({len(spans)} gather spans in the trace for {n_local} local "
+              f"layers, {ms:.3f} ms device time)", flush=True)
+        return
+    call_ms = sum(e.self_device_time_total
+                  for e in _device_events(prof)) / 1e3
+    print(f"profile: {label}: local ring gather, from the chunk call's "
+          f"trace ({n_local} spans, one a local layer): {ms:.3f} ms of the "
+          f"call's {call_ms:.3f} ms device time ({100 * ms / call_ms:.1f}%),"
+          f" {ms / n_local:.4f} ms a layer", flush=True)
+
+
+def reduce_gemma2(dtype: str):
+    """gemma2-27b cut to 4 layers (local, global, local, global) of d_model
+    256: 4 heads of head_dim 128 over 2 kv heads (gemma2's G 2), d_ff 512,
+    vocab 256, window 64; both softcaps, the sandwich norms, the embedding
+    multiplier and GeGLU as at full width; in ``dtype``."""
+    return dataclasses.replace(
+        reduce_for_smoke(get_config("gemma2-27b")), num_layers=4,
+        d_model=256, num_heads=4, num_kv_heads=2, head_dim=128, d_ff=512,
+        window_size=64, param_dtype=dtype, activation_dtype=dtype)
+
+
+def phase_check_gemma2(kw=None):
+    """``reduce_gemma2`` in f32 and bf16, each fp and w8a8 + int8 KV (one
+    build step on the host, copied to the card), prompts of 40-200 tokens
+    (rings of 64 wrap): card vs host greedy agreement >= 0.95; chunked (8,
+    16) vs monolithic on the card identical in fp, >= 0.95 in w8a8 + int8
+    KV (an int8 chunk attends the dequantized prefix, where a monolithic
+    prefill attends the exact K/V); graphed == eager tokens, monolithic
+    and chunk 16, the caches' difference printed. Then, fp in each type: a
+    prefix hit over a 96-token shared prompt identical to a cold engine,
+    and snapshot -> restore bit for bit over fp and int8 caches."""
+    label = "check-gemma2"
+    kw = kw or dict(batch_slots=3, max_len=256,
+                    prefill_buckets=(64, 128, 256))
+    for dtype in ("float32", "bfloat16"):
+        small = reduce_gemma2(dtype)
+        host = model_mod.init_params(small, seed=0, device="cpu")
+        card = copy.deepcopy(host).to(DEV)
+        small_q = _int8_kv(small)
+        qp = build_quantized_params(small_q, host)
+        card_qp = QuantizedParams(copy.deepcopy(qp.params).to(DEV),
+                                  qp.result, qp.quantized_sites,
+                                  qp.fallback_sites)
+        legs = (("fp", small, {}, {}),
+                (f"w8a8 + int8 KV ({qp.quantized_sites} sites int8)",
+                 small_q, dict(precision="w8a8", quantized_params=card_qp),
+                 dict(precision="w8a8", quantized_params=qp)))
+        for prec, c, on_card, on_host in legs:
+            name = f"reduced gemma2-27b {dtype} {prec}"
+            trace = lambda: _requests(6, 40, 200, 8, c.vocab_size, seed=3)
+            mono = _outputs(InferenceEngine(c, card, device=DEV, **kw,
+                                            **on_card), trace())
+            on_cpu = _outputs(InferenceEngine(c, host, device="cpu", **kw,
+                                              **on_host), trace())
+            agree = token_agreement(zip(mono, on_cpu))
+            print(f"{label}: {name}, card vs host greedy-token agreement "
+                  f"{agree:.4f} over 6 requests", flush=True)
+            if agree < 0.95:
+                raise AssertionError(f"{label}: {name}: card/host agreement "
+                                     f"{agree} < 0.95")
+            exact = not on_card
+            for chunk in (8, 16):
+                eng = InferenceEngine(c, card, prefill_chunk=chunk,
+                                      device=DEV, **kw, **on_card)
+                got = _outputs(eng, trace())
+                agree = token_agreement(zip(got, mono))
+                div = _first_divergence(got, mono)
+                print(f"{label}: {name}, chunk {chunk} vs monolithic "
+                      f"greedy-token agreement {agree:.4f} "
+                      f"({'tokens identical' if div is None else div}; "
+                      f"{eng.telemetry.continuations} continuations)",
+                      flush=True)
+                if (exact and div is not None) or agree < 0.95:
+                    raise AssertionError(f"{label}: {name}: chunk {chunk} "
+                                         f"vs monolithic: {div}, agreement "
+                                         f"{agree}")
+            for chunk in (None, 16):
+                engs = [InferenceEngine(c, card, prefill_chunk=chunk,
+                                        cuda_graphs=graphs, device=DEV, **kw,
+                                        **on_card)
+                        for graphs in (True, False)]
+                div = _first_divergence(*(_outputs(e, trace())
+                                          for e in engs))
+                where = f"chunk {chunk}" if chunk else "monolithic"
+                if div is not None:
+                    raise AssertionError(f"{label}: {name}, {where}: graphed "
+                                         f"and eager tokens differ: {div}")
+                print(f"{label}: {name}, {where}: 6 requests token-identical "
+                      f"graphed and eager; final caches max abs difference "
+                      f"{_cache_diff(*engs):.3e}", flush=True)
+        ckw = dict(kw, prefill_chunk=8)
+        shared = lambda: _prefix_trace(small.vocab_size, shared_len=96)
+        cold = _outputs(InferenceEngine(small, card, device=DEV, **ckw),
+                        shared())
+        warm = InferenceEngine(small, card, prefix_cache=16, device=DEV,
+                               **ckw)
+        warm.run(shared())
+        warm.telemetry.reset_serving_stats()
+        got = _outputs(warm, shared())
+        agree = token_agreement(zip(got, cold))
+        print(f"{label}: reduced gemma2-27b {dtype}, prefix cache over a "
+              f"96-token shared prompt: {warm.telemetry.prefix_hits} hits, "
+              f"agreement with a cold engine {agree:.4f}", flush=True)
+        if not warm.telemetry.prefix_hits or got != cold:
+            raise AssertionError(f"{label}: {dtype} prefix hits "
+                                 f"{warm.telemetry.prefix_hits}, agreement "
+                                 f"with cold {agree}")
+        for c in (small, _int8_kv(small)):
+            _check_round_trip(c, card, kw, n=100, label=label)
+
+
 # ---- DLRM -------------------------------------------------------------------
 
 DLRM_REQUESTS, DLRM_BATCH = 64, 64
@@ -1943,6 +2388,7 @@ def _zero_launches() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
     flash_attn.offset_launches = 0
+    flash_attn.window_launches = 0
 
 
 def _require_sls(label: str, launches: dict, kind: str, n: int) -> None:
@@ -2691,11 +3137,29 @@ def main():
     fleet = phase_fleet_lm(cfg, params, quant)
     for k in ("flash_attn", "decode_attn", "w8a8_matmul", "decode_attn_int8"):
         launches[k] += fleet[k]
-    # the DLRM slab needs the card: drop every deepseek-7b tensor first
+    # gemma2-27b needs the card: drop every deepseek-7b tensor first
     del params, quant
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free_card()
     print(f"freed deepseek-7b: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB still allocated", flush=True)
+    phase_check_gemma2()
+    g2cfg = get_config("gemma2-27b")
+    t0 = time.perf_counter()
+    g2 = model_mod.init_params(g2cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"init: gemma2-27b full width, "
+          f"{sum(p.numel() for p in g2.parameters()) / 1e9:.3f} B params, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches_g, g2_outputs = phase_serve_gemma2(g2cfg, g2)
+    _free_card()
+    launches_gc = phase_serve_gemma2_chunked(g2cfg, g2, g2_outputs)
+    for k in ("flash_attn", "decode_attn"):
+        launches[k] += launches_g[k] + launches_gc[k]
+    # the DLRM slab needs the card: drop the gemma2-27b weights
+    del g2
+    _free_card()
+    print(f"freed gemma2-27b: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB still allocated", flush=True)
     launches["sls_int8"], eng, served = phase_serve_dlrm()
     launches["sls_int8"] += phase_fleet_dlrm(*served)

@@ -1,16 +1,18 @@
 """Config registry of the port: ``get_config("deepseek-7b")``.
 
-Only the architectures the port serves are registered; the others join
+Only the architectures the port serves are registered (deepseek-7b, all
+global; gemma2-27b, local and global layers in turn); the others join
 with the slices that port their block kinds."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import deepseek_7b
-from repro_torch.configs.base import (ATTN_GLOBAL, ModelConfig, QuantConfig,
-                                      reduce_for_smoke)
+from repro_torch.configs import deepseek_7b, gemma2_27b
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ModelConfig,
+                                      QuantConfig, reduce_for_smoke)
 
-_REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in (deepseek_7b.CONFIG,)}
+_REGISTRY: Dict[str, ModelConfig] = {
+    c.name: c for c in (deepseek_7b.CONFIG, gemma2_27b.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -21,5 +23,5 @@ def get_config(name: str) -> ModelConfig:
             from None
 
 
-__all__ = ["ATTN_GLOBAL", "ModelConfig", "QuantConfig", "get_config",
-           "reduce_for_smoke"]
+__all__ = ["ATTN_GLOBAL", "ATTN_LOCAL", "ModelConfig", "QuantConfig",
+           "get_config", "reduce_for_smoke"]

@@ -3,10 +3,11 @@
 ``flash_attn`` checks its inputs, then launches the CUDA kernel for CUDA
 tensors, or runs the plain version (``ref.py``) for CPU tensors. There is no
 fallback: a CUDA input the kernel cannot take raises. ``flash_attn.launches``
-counts kernel launches (plain-version calls do not count), and
+counts kernel launches (plain-version calls do not count),
 ``flash_attn.offset_launches`` those of them given a ``q_off`` (the model's
 chunk path always passes one, so that a chunk stage's launch does not
-depend on its offsets' values).
+depend on its offsets' values), and ``flash_attn.window_launches`` those
+given a sliding window (a local layer's).
 """
 from __future__ import annotations
 
@@ -106,8 +107,10 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, err, "flash_attn")
     flash_attn.launches += 1
     flash_attn.offset_launches += q_off is not None
+    flash_attn.window_launches += window > 0
     return o
 
 
 flash_attn.launches = 0
 flash_attn.offset_launches = 0
+flash_attn.window_launches = 0

@@ -1,5 +1,7 @@
-"""Residual block of the global kind: pre-norm attention then a pre-norm
-MLP (counterpart of the ``global`` path of ``repro/models/blocks.py``)."""
+"""Residual attention block of the global or local kind: pre-norm attention
+then a pre-norm MLP, each output normed again before its residual add when
+``cfg.post_attn_norm`` is set (gemma2's sandwich norms) — the attention
+path of ``repro/models/blocks.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,13 +16,19 @@ from repro_torch.models.mlp import MLP, apply_mlp
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device,
+                 kind: str):
         super().__init__()
+        self.kind = kind
         dt = dtype_of(cfg.param_dtype)
         self.pre_norm = RMSNorm(cfg.d_model, dt, device)
         self.attn = attn.Attention(cfg, gen, device)
+        if cfg.post_attn_norm:
+            self.post_norm = RMSNorm(cfg.d_model, dt, device)
         self.pre_mlp_norm = RMSNorm(cfg.d_model, dt, device)
         self.mlp = MLP(cfg, gen, device)
+        if cfg.post_attn_norm:
+            self.post_mlp_norm = RMSNorm(cfg.d_model, dt, device)
 
 
 def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
@@ -35,18 +43,27 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     chunk per row against the live cache at the coordinates ``chunk``;
     mode 'decode': one token per row at ``pos``, the rows ``active`` leaves
     out keeping their cache. The cache is updated in place."""
+    kind = p.kind
     h = p.pre_norm(x, cfg.norm_eps)
     if mode == "decode":
         y, _ = attn.decode_attention(p.attn, h, cache, pos, cfg,
-                                     active=active)
+                                     active=active, kind=kind)
     elif mode == "chunk":
-        y = attn.chunk_prefill_attention(p.attn, h, cache, chunk, cfg)
+        y = attn.chunk_prefill_attention(p.attn, h, cache, chunk, cfg, kind)
     elif mode in ("full", "prefill"):
-        y, (k, v) = attn.full_attention(p.attn, h, cfg, positions, kv_valid)
+        y, (k, v) = attn.full_attention(p.attn, h, cfg, positions, kv_valid,
+                                        kind=kind)
         if mode == "prefill":
-            attn.fill_cache_from_prefill(cache, k, v, rows)
+            attn.fill_cache_from_prefill(
+                cache, k, v, rows, kind,
+                None if kv_valid is None else kv_valid.sum(-1))
     else:
         raise ValueError(f"mode must be 'full', 'prefill', 'chunk' or "
                          f"'decode', got {mode!r}")
+    if cfg.post_attn_norm:
+        y = p.post_norm(y, cfg.norm_eps)
     x = x + y
-    return x + apply_mlp(p.mlp, p.pre_mlp_norm(x, cfg.norm_eps), cfg)
+    y = apply_mlp(p.mlp, p.pre_mlp_norm(x, cfg.norm_eps), cfg)
+    if cfg.post_attn_norm:
+        y = p.post_mlp_norm(y, cfg.norm_eps)
+    return x + y

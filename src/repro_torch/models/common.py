@@ -1,9 +1,10 @@
-"""Shared model utilities: parameter init, RMSNorm, activations, RoPE and
-vocab padding (counterpart of ``repro/models/common.py``)."""
+"""Shared model utilities: parameter init, RMSNorm, activations, the logit
+softcap, RoPE and vocab padding (counterpart of
+``repro/models/common.py``)."""
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +67,13 @@ def activation_fn(name: str):
         "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
         "relu": F.relu,
     }[name]
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """``cap * tanh(x / cap)`` in f32, back in x.dtype; identity for None."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
 
 
 def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float):

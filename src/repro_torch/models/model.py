@@ -1,6 +1,7 @@
-"""Model assembly for the port: an all-global dense LM (embedding, a stack
-of global blocks, final RMSNorm, greedy head) — the path deepseek-7b serving
-runs in ``repro/models/model.py``. The JAX package scans stacked layer
+"""Model assembly for the port: a dense attention LM (embedding, a stack of
+global and local blocks in the order of ``cfg.layer_kinds()``, final
+RMSNorm, greedy head) — the path deepseek-7b and gemma2-27b serving run in
+``repro/models/model.py``. The JAX package scans stacked layer
 parameters with ``jax.lax.scan``; here the layers are an ``nn.ModuleList``
 walked by a Python loop, and the caches a list with one dict per layer.
 """
@@ -11,7 +12,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTN_GLOBAL, ModelConfig
+from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import RMSNorm, dtype_of, mk_param
@@ -21,8 +22,8 @@ from repro_torch.sharding import vocab as vocab_mod
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a config that uses a feature the port does not have yet."""
     unsupported = {
-        "block kinds other than global":
-            set(cfg.block_pattern) != {ATTN_GLOBAL},
+        "block kinds other than global and local":
+            not set(cfg.block_pattern) <= {ATTN_GLOBAL, ATTN_LOCAL},
         "mixture of experts": cfg.moe is not None,
         "SSM blocks": cfg.ssm is not None,
         "recurrent blocks": cfg.recurrent is not None,
@@ -32,12 +33,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "q/k/v/o biases": cfg.qkv_bias or cfg.o_bias,
         "non-gated or biased MLP": not cfg.glu or cfg.mlp_bias,
         "layernorm": cfg.norm_type != "rmsnorm",
-        "post-attention norms": cfg.post_attn_norm,
-        "logit softcaps": cfg.attn_logit_softcap is not None
-        or cfg.final_logit_softcap is not None,
-        "embedding multiplier": cfg.embedding_multiplier is not None,
-        "int8 KV cache on local rings": cfg.quant.kv_cache_dtype == "int8"
-        and set(cfg.block_pattern) != {ATTN_GLOBAL},
         "embedding inputs": cfg.input_kind != "tokens",
     }
     missing = [name for name, used in unsupported.items() if used]
@@ -53,8 +48,8 @@ class Model(nn.Module):
         dt = dtype_of(cfg.param_dtype)
         Vp = vocab_mod.padded_vocab(cfg)
         self.embed = mk_param((Vp, cfg.d_model), dt, device, gen)
-        self.layers = nn.ModuleList(blk.Block(cfg, gen, device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(blk.Block(cfg, gen, device, kind)
+                                    for kind in cfg.layer_kinds())
         self.final_norm = RMSNorm(cfg.d_model, dt, device)
         if not cfg.tie_embeddings:
             self.lm_head = mk_param((Vp, cfg.d_model), dt, device, gen)
@@ -75,11 +70,22 @@ def model_device(params: Model) -> torch.device:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cuda") -> List[attn_mod.Cache]:
-    """One preallocated K/V cache dict per layer (int8 values and fp16
-    scales when ``cfg.quant.kv_cache_dtype == "int8"``)."""
-    return [attn_mod.init_kv_cache(cfg, batch, max_len, device)
-            for _ in range(cfg.num_layers)]
+    """One preallocated K/V cache dict per layer, a ring of
+    ``min(window_size, max_len)`` slots for a local layer (int8 values and
+    fp16 scales when ``cfg.quant.kv_cache_dtype == "int8"``)."""
+    return [attn_mod.init_kv_cache(cfg, batch, max_len, device, kind)
+            for kind in cfg.layer_kinds()]
 
+
+def cache_extents(cfg: ModelConfig, caches
+                  ) -> Tuple[Optional[int], Optional[int]]:
+    """(positions a global layer's row holds, slots a local layer's ring
+    holds) of ``init_caches``' caches, None for a kind the model has no
+    layer of: the bounds of a chunk call's writes (``chunk_writes``), read
+    here by the engine and by ``chunk_prefill_step`` alike."""
+    extent = {kind: c["k"].shape[1]
+              for c, kind in zip(caches, cfg.layer_kinds())}
+    return extent.get(ATTN_GLOBAL), extent.get(ATTN_LOCAL)
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, mode: str, caches: Optional[List[attn_mod.Cache]],
@@ -161,9 +167,10 @@ def chunk_prefill_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     the call's coordinates on the host (``attention.chunk_writes``).
     Returns (hidden (P,C,d), caches)."""
     device = model_device(params)
-    slots_bk, max_len = caches[0]["k"].shape[:2]
+    max_len, ring = cache_extents(cfg, caches)
     arrays, dequant = attn_mod.chunk_writes(
-        slots, start, write_pos, lengths, tokens.shape[1], max_len, slots_bk)
+        slots, start, write_pos, lengths, tokens.shape[1], max_len,
+        caches[0]["k"].shape[0], ring=ring)
     chunk = attn_mod.chunk_coords(
         {k: torch.from_numpy(a).to(device) for k, a in arrays.items()},
         tokens.shape[1], dequant)

@@ -23,7 +23,8 @@ the acquired cache rows, and a decode step writes every row, the inactive
 ones writing back what they held. (The JAX engine builds a fresh cache per
 prefill group, scatters it into the slot rows, and donates the cache to
 every step.) The cache's batch and sequence axes are fixed by construction
-(dims 0 and 1 of every tensor), so no shape probing is needed.
+(dims 0 and 1 of every tensor; a local layer's dim 1 is its ring of
+``min(window_size, max_len)`` slots), so no shape probing is needed.
 
 The stages (prefill per ``(bucket, P, precision)``, chunk prefill per
 ``(bucket, P, precision)``, decode per ``(precision,)``, the keys the JAX
@@ -58,7 +59,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_GLOBAL, ModelConfig
 from repro_torch.core.bucketing import pick_bucket
 from repro_torch.core.transfer import (SnapshotStaging, TransferStats,
                                        snapshot_device_get,
@@ -187,6 +188,16 @@ class InferenceEngine:
                                    perf_model=self.perf_model)
         self.caches = model_mod.init_caches(cfg, batch_slots, max_len,
                                             self.device)
+        # a chunk call's bounds: the global rows' positions and the local
+        # rings' slots (None for a kind the model lacks)
+        self._global_len, self._ring = model_mod.cache_extents(cfg,
+                                                               self.caches)
+        # per layer: is its state positional (a snapshot slices it to the
+        # written prefix)? A ring is, only when max_len clamps it below its
+        # window (the JAX package's ``_cache_seq_axes``: the ring's extent
+        # then grows with max_len)
+        self._positional = [kind == ATTN_GLOBAL or cfg.window_size > max_len
+                            for kind in cfg.layer_kinds()]
         # an int8 chunk stage holds one graph per dequantized extent
         self._int8_kv = "k_scale" in self.caches[0]
         self.states = SequenceStateManager(batch_slots, cfg)
@@ -276,12 +287,19 @@ class InferenceEngine:
         cfg, params, caches = self.cfg, self.run_params, self.caches
 
         def buffers(_):
-            return {"tokens": self._zeros(P, bucket),
-                    "last_idx": self._zeros(P),
-                    "slots": self._zeros(P), "start": self._zeros(P),
-                    "lens": self._zeros(P),
-                    **{k: self._zeros(P * bucket, dtype=torch.int64)
-                       for k in ("write_rows", "write_pos", "src")}}
+            b = {"tokens": self._zeros(P, bucket),
+                 "last_idx": self._zeros(P),
+                 "slots": self._zeros(P), "start": self._zeros(P),
+                 "lens": self._zeros(P),
+                 **{k: self._zeros(P * bucket, dtype=torch.int64)
+                    for k in ("write_rows", "write_pos", "src")}}
+            if self._ring is not None:
+                b.update({k: self._zeros(P * bucket, dtype=torch.int64)
+                          for k in ("ring_rows", "ring_pos", "ring_src")},
+                         ring_idx=self._zeros(P, self._ring,
+                                              dtype=torch.int64),
+                         ring_n=self._zeros(P), ring_lens=self._zeros(P))
+            return b
 
         def body(b, dequant_len):
             """tokens (P,bucket) and the coordinates of
@@ -323,12 +341,17 @@ class InferenceEngine:
     def snapshot_slot(self, slot: int, length: int, *,
                       pos: int = 0) -> SequenceSnapshot:
         """Serialize one slot's sequence state to a host-side
-        ``SequenceSnapshot``: every cache tensor's row ``slot`` sliced to
-        the written prefix ``[0, length)`` (dim 0 of every tensor is the
-        slot, dim 1 the position), shipped in one batched copy, with the
-        partial-vs-full byte accounting in ``transfer_stats``."""
+        ``SequenceSnapshot``: every cache tensor's row ``slot`` (dim 0 of
+        every tensor is the slot), a positional one (a global row, or a
+        ring that ``max_len`` clamps, whose slot is its position) sliced to
+        the written prefix ``[0, length)`` of dim 1, a ring moved whole, as
+        the JAX package moves state that is not addressable by position;
+        shipped in one batched copy, with the partial-vs-full byte
+        accounting in ``transfer_stats``."""
         n = min(length, self.max_len)
-        rows = [{k: t[slot, :n] for k, t in c.items()} for c in self.caches]
+        rows = [{k: t[slot, :n] if positional else t[slot]
+                 for k, t in c.items()}
+                for c, positional in zip(self.caches, self._positional)]
         full = sum(t[slot].numel() * t.element_size()
                    for c in self.caches for t in c.values())
         host = snapshot_device_get(rows, self.transfer_stats,
@@ -742,7 +765,7 @@ class InferenceEngine:
             last[j] = clen - 1
         coords, dequant = attn_mod.chunk_writes(
             slots + [slots[0]] * (P - g), start, wpos, lens, bucket,
-            self.max_len, self.batch_slots)
+            self._global_len, self.batch_slots, ring=self._ring)
         nxt = self.executor.dispatch(
             "chunk_prefill", (bucket, P, self.precision),
             lambda: self._build_chunk(bucket, P),

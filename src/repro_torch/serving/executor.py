@@ -69,7 +69,8 @@ WARM_CALLS_KEPT = 256
 # every launch counter of the kernel wrappers, as (wrapper, attribute)
 COUNTERS = tuple((fn, "launches") for fn in (
     flash_attn, decode_attn, decode_attn_int8, w8a8_matmul, sls, sls_int8,
-    sls_int4)) + ((flash_attn, "offset_launches"),)
+    sls_int4)) + ((flash_attn, "offset_launches"),
+                  (flash_attn, "window_launches"))
 
 
 @dataclass

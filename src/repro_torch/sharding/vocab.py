@@ -5,7 +5,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import VOCAB_PAD_MULT, dtype_of, round_up
+from repro_torch.models.common import (VOCAB_PAD_MULT, dtype_of, round_up,
+                                       softcap)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -14,14 +15,20 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    """table (Vp,d); tokens (B,S) int -> (B,S,d) in the activation dtype."""
-    return table[tokens.long()].to(dtype_of(cfg.activation_dtype))
+    """table (Vp,d); tokens (B,S) int -> (B,S,d) in the activation dtype,
+    times ``cfg.embedding_multiplier`` (in f32, then back in the table's
+    dtype) where the config has one."""
+    out = table[tokens.long()]
+    if cfg.embedding_multiplier:
+        out = (out.float() * cfg.embedding_multiplier).to(out.dtype)
+    return out.to(dtype_of(cfg.activation_dtype))
 
 
 def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
-    """x (B,S,d) -> logits (B,S,Vp); padded-vocab columns are -inf."""
-    logits = x @ table.t()
+    """x (B,S,d) -> logits (B,S,Vp), softcapped by
+    ``cfg.final_logit_softcap``; padded-vocab columns are -inf."""
+    logits = softcap(x @ table.t(), cfg.final_logit_softcap)
     pad = torch.arange(table.shape[0], device=x.device) >= cfg.vocab_size
     return logits.masked_fill(pad, float("-inf"))
 
@@ -29,6 +36,8 @@ def lm_head_logits(x: torch.Tensor, table: torch.Tensor,
 def sharded_greedy(x: torch.Tensor, table: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     """Greedy next token, x (B,d) -> ids (B,) int32; ties go to the lowest
-    index (``torch.argmax`` returns the first maximum, as ``jnp.argmax``)."""
+    index (``torch.argmax`` returns the first maximum, as ``jnp.argmax``).
+    The softcap is monotone but can tie logits near saturation, so it
+    comes before the argmax, as in the JAX package."""
     logits = lm_head_logits(x[:, None], table, cfg)[:, 0]
     return torch.argmax(logits, dim=-1).to(torch.int32)

@@ -276,6 +276,8 @@ def _sig(x):
         return tuple(_sig(v) for v in x)
     if isinstance(x, dict):
         return tuple((k, _sig(v)) for k, v in sorted(x.items()))
+    if isinstance(x, torch.ScriptObject):    # a handle, e.g. a profiler span's
+        return ("ScriptObject", str(x._type()))
     return repr(x)
 
 

@@ -143,7 +143,8 @@ def test_decode_per_row_pos_matches_jax_decode_attention():
     cache = {"k": torch.from_numpy(ck.copy()), "v": torch.from_numpy(cv.copy())}
     y, cache = attn.decode_attention(p, torch.from_numpy(x), cache,
                                      torch.from_numpy(pos), cfg,
-                                     rows=torch.tensor([0, 1]))
+                                     rows=torch.tensor([0, 1]),
+                                     kind="global")
     _close(y, yj, 2e-3)
     for name, c0 in (("k", ck), ("v", cv)):
         _close(cache[name], cj[name], 2e-3)

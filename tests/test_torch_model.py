@@ -167,6 +167,6 @@ def test_prefill_helper_returns_last_hidden(setup):
 
 def test_unsupported_config_raises():
     cfg = dataclasses.replace(reduce_for_smoke(get_config("deepseek-7b")),
-                              attn_logit_softcap=50.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
+                              num_padded_heads=8)
+    with pytest.raises(NotImplementedError, match="padded heads"):
         model_mod.init_params(cfg, device="cpu")

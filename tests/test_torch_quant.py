@@ -220,7 +220,8 @@ def test_int8_decode_attention_per_row_pos_matches_jax():
     cache = {k: torch.from_numpy(v.copy()) for k, v in c0.items()}
     y, cache = attn.decode_attention(p, torch.from_numpy(x), cache,
                                      torch.from_numpy(pos), cfg,
-                                     rows=torch.tensor([0, 1]))
+                                     rows=torch.tensor([0, 1]),
+                                     kind="global")
     np.testing.assert_allclose(y.numpy()[active], np.asarray(yj)[active],
                                rtol=TOL, atol=TOL)
     for name in names:
