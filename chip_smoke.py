@@ -29,7 +29,7 @@ result line):
              16 rows on deepseek-7b's shapes, the reduced configs' K of 64
              and 128 and K slices that end inside a step; both split-S
              decode kernels (bf16/f32 and int8-KV) with pos on and around
-             64-key chunk boundaries, G 1-8, hd 16-128 and a softcap, and
+             64-key chunk boundaries, G 1-16, hd 16-256 and a softcap, and
              f32 at hd 128 in 128-key chunks (135 KB of shared memory; the
              sweeps draw the chunk edges half the time). The SLS
              kernels' main shape is the DLRM batch (6144 bags of at most
@@ -67,7 +67,18 @@ result line):
              place over a 5120-row cache at offsets past the window, with
              and without the window; both decode kernels on a 4096-slot ring
              (pos clamped to 4095) and a 5120-row global cache. SDPA has no
-             softcap, so these have no library time.
+             softcap, so these have no library time. gemma-2b's shapes (bf16,
+             16 padded query heads of head_dim 256 over one kv head, G 16, no
+             softcap): flash prefill B 4, S = T = 4096 with uneven lens and
+             its chunk call (4 x 512 at offsets 3584, 2048, 512, 0 in place
+             over a 4 x 4608 cache), both timed beside SDPA, on the TMA
+             kernel (the profile must name ``flash_fwd_kernel_tma<256,
+             ...>``); f32 at hd 256 on the CUDA cores; the hd-256 tile edges
+             (S off the tiles, an empty row, a window, a live softcap, G 8
+             and 12, non-causal, chunks); both decode kernels at B 4, S 4608,
+             pos (4095, 3000, 1200, 31) and at G 9, 12 and 16 around the
+             chunk edges; w8a8 at gemma-2b's projections. Every G-16 case
+             holds 16 different heads (``heads_distinct``).
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``, its stages
              captured as CUDA graphs (the card's default): 8 requests, 32
@@ -147,7 +158,27 @@ result line):
              first) picks the chunk at its knee, which an
              ``prefill_chunk="auto"`` engine serves with; on the reduced
              f32 config the auto chunk gives chunk 16's tokens.
-6c. check-gemma2 — with the deepseek-7b weights freed: gemma2-27b cut to
+6c. check-gemma2b, serve-gemma2b, serve-gemma2b-chunked, serve-gemma2b-w8a8
+             — with the deepseek-7b weights freed, before gemma2-27b:
+             gemma-2b cut to 3 layers of d_model 256 keeping head_dim 256
+             and 8 heads padded to 16 over one kv head (``reduce_gemma_2b``)
+             through 6d's checks; then full width (18
+             layers, d_model 2048, d_ff 16384, vocab 256000; 5.3 GB of
+             random bf16 weights from seed 0), 4 slots, max_len 4608,
+             graphed and warmed on the same requests: 8 prompts x 32 new
+             tokens (4 of 3000-4000 tokens, 4 of 70-450) in bf16 (flash and
+             bf16 decode launched; the decode stage profiled), through
+             ``prefill_chunk=512`` (flash at a query offset; agreement
+             printed) and in w8a8 with an int8 KV cache (the w8a8 and int8
+             decode kernels launched, bf16 decode not; greedy agreement
+             with the bf16 serve >= 0.90, the reference's guardrail). The
+             agreement alone may pass broken layers, so check-gemma2b-layers
+             then holds one full-width w8a8 + int8-KV decode step's final
+             hidden state to the bf16 step's: its error over what the 18
+             layers add (the hidden state less the embedded token's own)
+             within 0.10, and two planted faults (every layer's ``wo``
+             scale zeroed; the int8 cache's value scales negated) past it.
+6d. check-gemma2 — gemma2-27b cut to
              4 layers (local, global, local, global) of d_model 256, head_dim
              128, G 2, window 64, both softcaps (``reduce_gemma2``), in f32
              and bf16, each fp and w8a8 + int8 KV, prompts of 40-200 tokens:
@@ -156,7 +187,7 @@ result line):
              (monolithic, chunk 16); a prefix hit over a 96-token shared
              prompt vs a cold engine (identical in f32) and snapshot ->
              restore bit for bit over fp and int8 rings.
-6d. serve-gemma2 — full-width gemma2-27b in bf16 (46 layers, d_model 4608,
+6e. serve-gemma2 — full-width gemma2-27b in bf16 (46 layers, d_model 4608,
              32/16 heads of 128, d_ff 36864, vocab 256000; 54.5 GB of random
              weights from seed 0), 4 slots, max_len 5120, graphed and warmed
              on the same requests: 8 prompts x 32 new tokens, long and short
@@ -165,7 +196,7 @@ result line):
              window and bf16 decode launched. Then the graphed decode stage
              is profiled with its rings full, and a 4600-token prefill must
              give finite hidden states.
-6e. serve-gemma2-chunked — the same through ``prefill_chunk=512``: flash at
+6f. serve-gemma2-chunked — the same through ``prefill_chunk=512``: flash at
              a query offset and with a window; the agreement with 6d printed,
              not held. One chunk call at offsets past the window is
              profiled, and the local layers' ring gather timed alone. The
@@ -202,8 +233,10 @@ L2 flush; the device window's times leave out the host's enqueue gap.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` are those of the phases whose path runs it, summed: serve,
-serve-chunked, serve-gemma2 and serve-gemma2-chunked for flash, serve and
-both gemma2 serves for bf16 decode, serve-w8a8, serve-dlrm, or
+serve-chunked, the three gemma-2b serves, serve-gemma2 and
+serve-gemma2-chunked for flash, serve, the bf16 gemma-2b serves and both
+gemma2 serves for bf16 decode, serve-w8a8 and serve-gemma2b-w8a8 for the
+int8 kernels, serve-dlrm, or
 check-dlrm for the fp32 and int4 SLS kernels, and every fleet phase; each
 phase zeroes the counters just before it and reads them just after); the
 last line is
@@ -236,7 +269,7 @@ from repro_torch.core.metrics import token_agreement  # noqa: E402
 from repro_torch.data.synthetic import dlrm_batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
-    chunk_plan, decode_attn, decode_attn_int8)
+    chunk_plan, decode_attn, decode_attn_int8, int8_chunk_plan)
 from repro_torch.kernels.decode_attn.ref import (  # noqa: E402
     decode_attn_int8_ref, decode_attn_ref)
 from repro_torch.kernels.flash_attn.ops import flash_attn  # noqa: E402
@@ -251,6 +284,7 @@ from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import dlrm as dlrm_mod  # noqa: E402
 from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.core.quantization import QuantDense  # noqa: E402
 from repro_torch.models.quantize import (  # noqa: E402
     QuantizedParams, build_quantized_params)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
@@ -261,6 +295,7 @@ from repro_torch.serving.engine import (  # noqa: E402
     InferenceEngine, Request, make_replicas)
 from repro_torch.serving.perf_model import PerfModel  # noqa: E402
 from repro_torch.serving.router import ReplicaRouter  # noqa: E402
+from repro_torch.sharding import vocab as vocab_mod  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
@@ -418,6 +453,27 @@ def softcap_live(name: str, plain, cap: float, want: torch.Tensor,
     return uncapped
 
 
+def heads_distinct(name: str, want: torch.Tensor, K: int, dtype) -> None:
+    """A G-16 case holds 16 different outputs per kv head: the plain
+    output ``want`` (..., H, hd) of each head differs past the case's
+    tolerance from head 0 of its group and from the head 8 before it, so a
+    kernel that computed only 8 heads of a group, or one head per group,
+    fails the case."""
+    tol = TOL[dtype]
+    w = want.float()
+    w = w.reshape(*w.shape[:-2], K, w.shape[-2] // K, w.shape[-1])
+    G = w.shape[-2]
+    lim = tol + tol * w.abs().max().item()
+    same = [g for g in range(1, G)
+            for h in {0, g - 8} if h >= 0 and h != g
+            and (w[..., g, :] - w[..., h, :]).abs().max().item() <= lim]
+    if same:
+        raise AssertionError(f"{name}: heads {same} of a group give the same "
+                             f"output as another head within the tolerance: "
+                             f"the case cannot tell a kernel that skips "
+                             f"heads")
+
+
 def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, q_scale=1.0,
                **kw):
     """One flash case on the card; returns the measurement dict. With a
@@ -432,6 +488,8 @@ def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, q_scale=1.0,
     torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, lens_t, **kw)
     err = compare(f"flash_attn[{name}]", got, want, dtype)
+    if H // K == 16:
+        heads_distinct(f"flash_attn[{name}]", want, K, dtype)
     cap = kw.get("softcap", 0.0)
     uncapped = None
     if cap and q_scale != 1.0:
@@ -534,6 +592,8 @@ def flash_chunk_case(name, gen, Bk, T, H, K, hd, C, dtype, slots, start,
     torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, lens, **kw)
     err = compare(f"flash_attn[{name}]", got, want, dtype)
+    if H // K == 16 and not quiet:
+        heads_distinct(f"flash_attn[{name}]", want, K, dtype)
     uncapped = None
     if softcap and q_scale != 1.0:
         uncapped = softcap_live(
@@ -614,6 +674,8 @@ def decode_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0,
     torch.cuda.synchronize()
     want = decode_attn_ref(q, k, v, pos_t, softcap=softcap)
     err = compare(f"decode_attn[{name}]", got, want, dtype)
+    if H // K == 16:
+        heads_distinct(f"decode_attn[{name}]", want, K, dtype)
     uncapped = None
     if softcap and q_scale != 1.0:
         uncapped = softcap_live(
@@ -744,6 +806,8 @@ def decode_int8_case(name, gen, B, H, K, hd, S, pos, dtype, softcap=0.0,
     torch.cuda.synchronize()
     want = decode_attn_int8_ref(q, *cache, pos_t, softcap=softcap)
     err = compare(f"decode_attn_int8[{name}]", got, want, dtype)
+    if H // K == 16:
+        heads_distinct(f"decode_attn_int8[{name}]", want, K, dtype)
     if softcap and q_scale != 1.0:
         softcap_live(f"decode_attn_int8[{name}]",
                      lambda c: decode_attn_int8_ref(q, *cache, pos_t,
@@ -1036,6 +1100,145 @@ def _gemma2_fns(device_fns: dict, kernel: str, name: str, r: dict) -> None:
             r.pop("standin_call")
 
 
+# gemma-2b decode at 4 rows over a 4608-row cache: 16 padded query heads of
+# head_dim 256 over one kv head (G 16), no softcap
+GEMMA_2B_DECODE = {
+    "gemma_2b_B4_S4608_H16_K1_hd256": (4, 16, 1, 256, 4608,
+                                       [4095, 3000, 1200, 31],
+                                       torch.bfloat16, 0.0)}
+
+
+def wide_group_cases() -> dict:
+    """Decode cases of both split-S kernels at G 9, 12 and 16 (a group of
+    more than 8 heads takes two passes of 8 over the staged rows), hd 128
+    and 256, both query types: each row's pos on a 64-key chunk's end, one
+    past it, inside a chunk and at S-1; a softcap at G 12. name -> (B, H,
+    K, hd, S, pos, dtype, softcap)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return {f"G{G}_hd{hd}_K{K}_S700": (4, G * K, K, hd, 700,
+                                       [63, 64, 127 + G, 699], dt,
+                                       30.0 if G == 12 else 0.0)
+            for G, hd, K, dt in ((9, 128, 2, bf16), (12, 128, 1, f32),
+                                 (16, 128, 2, bf16), (9, 256, 1, f32),
+                                 (12, 256, 2, bf16), (16, 256, 1, f32),
+                                 (16, 256, 2, bf16))}
+
+
+def kernel_times(fn, iters: int = 10) -> dict:
+    """The device kernels a call of ``fn`` launches: name -> mean device
+    microseconds a call, from one ``torch.profiler`` trace of ``iters``
+    calls."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / iters for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def require_flash_kernel(name: str, fn, tma: bool) -> None:
+    """One call of ``fn`` ran flash's hd-256 kernel on the tensor cores
+    (``flash_fwd_kernel_tma<256, ...>``) or on the CUDA cores."""
+    names = [n for n in kernel_times(fn, 1) if "flash_fwd_kernel" in n]
+    ran = [n for n in names if "256" in n
+           and ("flash_fwd_kernel_tma" in n) == tma]
+    print(f"flash_attn[{name}]: the profile names {names}", flush=True)
+    if not ran:
+        raise AssertionError(f"flash_attn[{name}]: expected the "
+                             f"{'TMA' if tma else 'CUDA-core'} kernel at "
+                             f"hd 256, the profile names {names}")
+
+
+def gemma_2b_decode_split(gen) -> None:
+    """Where gemma-2b's decode time goes, for both decode kernels: the
+    split kernel and the merge kernel (its rows' records pass 12 KB, so
+    they merge in a kernel of their own) at the main decode shape, and
+    with every row at pos 63 (one 64-key chunk a row: one block a row, no
+    merge), which is the time of one block alone."""
+    B, H, K, hd, S = 4, 16, 1, 256, 4608
+    q = _randn(gen, (B, H, hd), torch.bfloat16)
+    k, v = (_randn(gen, (B, S, K, hd), torch.bfloat16) for _ in range(2))
+    cache = _int8_cache(gen, B, S, K, hd)
+    for pos in ([4095, 3000, 1200, 31], [63] * 4):
+        p = torch.tensor(pos, dtype=torch.int32, device=DEV)
+        for name, fn in (("decode_attn", lambda: decode_attn(q, k, v, p)),
+                         ("decode_attn_int8",
+                          lambda: decode_attn_int8(q, *cache, p))):
+            times = kernel_times(fn)
+            print(f"{name}[gemma_2b_B4_S4608_H16_K1_hd256 at pos {pos}]: "
+                  f"device us a call by kernel: " + "; ".join(
+                      f"{n.split('(')[0]} {t:.2f}"
+                      for n, t in times.items()), flush=True)
+
+
+def gemma_2b_flash_cases(gen, device_fns: dict) -> None:
+    """Flash at gemma-2b's shapes (bf16, 16 padded query heads of head_dim
+    256 over one kv head: G 16, 8 query positions a 128-row tile): the
+    prefill of a 4096 bucket with uneven lens and the chunk call (4 x 512
+    at offsets 3584, 2048, 512, 0 in place over a 4 x 4608 cache), timed
+    beside SDPA (no softcap: a true yardstick) and their bound; f32 at hd
+    256 on the CUDA cores, timed; then the tile edges at hd 256: S not a
+    multiple of the row or the 64-key tile, an empty row, a window, a
+    softcap with q scaled x16 (live), G 8 (the TMA kernel) and 12 (the
+    CUDA cores), non-causal, and chunks off the tile, in f32 and with a
+    window. The profile must name ``flash_fwd_kernel_tma<256, ...>`` for
+    the bf16 prefill and chunk call and the CUDA-core kernel for f32."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    name = "gemma_2b_B4_S4096_H16_K1_hd256"
+    r = flash_case(name, gen, 4, 4096, 16, 1, 256, bf16,
+                   [4096, 3900, 2100, 300])
+    _show("flash_attn", name, r)
+    require_flash_kernel(name, r["call"], tma=True)
+    device_fns["flash_attn " + name] = r["call"]
+    device_fns["SDPA " + name] = r["library_call"]
+    name = "gemma_2b_chunk_P4_C512_T4608_H16_K1_hd256"
+    r = flash_chunk_case(name, gen, 4, 4608, 16, 1, 256, 512, bf16,
+                         slots=[0, 1, 2, 3], start=[3584, 2048, 512, 0],
+                         lengths=[512] * 4, measure=True)
+    _show("flash_attn", name, r)
+    require_flash_kernel(name, r["call"], tma=True)
+    device_fns["flash_attn " + name] = r["call"]
+    device_fns["SDPA (boolean mask) " + name] = r["library_call"]
+    name = "gemma_2b_f32_B2_S512_H16_K1_hd256"
+    r = flash_case(name, gen, 2, 512, 16, 1, 256, f32, [512, 300])
+    _show("flash_attn", name, r)
+    require_flash_kernel(name, r["call"], tma=False)
+    device_fns["flash_attn " + name] = r["call"]
+    device_fns["SDPA " + name] = r["library_call"]
+    for name, (B, S, H, K, dt, lens, kw) in {
+            "hd256_G16_S300": (2, 300, 16, 1, bf16, None, {}),
+            "hd256_G16_lens0": (2, 300, 16, 1, bf16, [0, 211], {}),
+            "hd256_G16_window100": (2, 300, 16, 1, bf16, [300, 257],
+                                    {"window": 100}),
+            "hd256_G16_softcap30_q16": (2, 300, 16, 1, bf16, None,
+                                        {"softcap": 30.0}),
+            "hd256_G8_S300": (2, 300, 16, 2, bf16, [300, 129], {}),
+            "hd256_G12_S300_cuda_cores": (2, 300, 24, 2, bf16, [300, 129],
+                                          {}),
+            "hd256_G16_noncausal": (1, 200, 16, 1, bf16, None,
+                                    {"causal": False}),
+            "hd256_G16_f32_S300": (2, 300, 16, 1, f32, [300, 77], {}),
+    }.items():
+        r = flash_case(name, gen, B, S, H, K, 256, dt, lens,
+                       q_scale=SOFTCAP_Q_SCALE if "softcap" in kw else 1.0,
+                       **kw)
+        _show("flash_attn", name, r)
+    for name, (Bk, T, H, K, C, slots, start, lengths, window, dt) in {
+            "chunk_hd256_G16_off_tile_C100_T700": (
+                3, 700, 16, 1, 100, [2, 0], [537, 61], [100, 77], 0, bf16),
+            "chunk_hd256_G16_f32_C48_T300": (
+                2, 300, 16, 1, 48, [1, 0], [200, 65], [48, 48], 0, f32),
+            "chunk_hd256_G16_window64_C128_T600": (
+                3, 600, 16, 1, 128, [1, 2], [472, 129], [128, 100], 64,
+                bf16),
+    }.items():
+        flash_chunk_case(name, gen, Bk, T, H, K, 256, C, dt, slots, start,
+                         lengths, window)
+
+
 def phase_kernels() -> dict:
     """Every case of both kernels; returns the main-path measurements."""
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1143,6 +1346,7 @@ def phase_kernels() -> dict:
                              measure=True, q_scale=_q_scale(name))
         _show("flash_attn", name, r)
         _gemma2_fns(device_fns, "flash_attn", name, r)
+    gemma_2b_flash_cases(gen, device_fns)
     # the JAX package's cases (repro/kernels/decode_attn/ops.py), scalar
     # pos broadcast to every row, then deepseek-7b decode at per-row pos
     decode_cases = {
@@ -1156,9 +1360,10 @@ def phase_kernels() -> dict:
                                     [1023, 600, 31, 0], bf16, 0.0),
     }
     decode_cases.update(GEMMA2_DECODE)
+    decode_cases.update(GEMMA_2B_DECODE)
     # the split-S kernel's edges (64-key chunks at these sizes): pos 0, one
     # short of a chunk's end, on it, one past it, and at and past S-1; G
-    # from 1 to 8 and hd from 16 to 128 in both types; softcap; and f32 at
+    # from 1 to 16 and hd from 16 to 256 in both types; softcap; and f32 at
     # hd 128 at the main shape, whose 128-key chunks take 135 KB of shared
     # memory
     decode_cases.update({
@@ -1174,10 +1379,14 @@ def phase_kernels() -> dict:
         "gqa_B4_H128_K32_hd128_S1024": (4, 128, 32, 128, 1024,
                                         [1023, 511, 128, 127], bf16, 30.0)})
     decode_cases.update(split_group_cases())
+    decode_cases.update(wide_group_cases())
     for name, (B, H, K, hd, S, pos, dt, cap) in decode_cases.items():
         r = decode_case(name, gen, B, H, K, hd, S, pos, dt, cap,
                         q_scale=_q_scale(name))
         _show("decode_attn", name, r)
+        if name.startswith("gemma_2b"):
+            device_fns["decode_attn " + name] = r["call"]
+            device_fns["SDPA " + name] = r["library_call"]
         if name.startswith("main"):
             main["decode_attn"] = r
             device_fns["decode_attn " + name] = r["call"]
@@ -1198,6 +1407,13 @@ def phase_kernels() -> dict:
     for M in (4, 2048):
         for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
             w8a8_cases[f"main_M{M}_K{K}_N{N}"] = (M, K, N, True)
+    # gemma-2b's projections: wq (2048 -> 16 padded heads x 256), wk and wv
+    # (-> 256), gate and up (-> 16384), wo (4096 -> 2048), down (16384 ->
+    # 2048), at decode (4 rows) and prefill (2048 rows)
+    for M in (4, 2048):
+        for K, N in ((2048, 4096), (2048, 256), (2048, 16384), (4096, 2048),
+                     (16384, 2048)):
+            w8a8_cases[f"gemma_2b_M{M}_K{K}_N{N}"] = (M, K, N, True)
     # the tensor-core kernel's edges (ragged M, a partial K tile, a partial
     # N tile) and the other two routes (M <= 16; K % 16 != 0)
     for M in (17, 65, 2047):
@@ -1224,7 +1440,7 @@ def phase_kernels() -> dict:
         _show("w8a8_matmul", name, r)
         if name == "main_M4_K4096_N11008":
             main["w8a8_matmul"] = r
-        if name.startswith("main_M"):
+        if name.startswith(("main_M", "gemma_2b")):
             device_fns["w8a8_matmul " + name] = r["call"]
             device_fns["torch._int_mm + scales " + name] = r["library_call"]
     # the JAX package's int8 cases (repro/kernels/decode_attn/ops.py),
@@ -1237,6 +1453,7 @@ def phase_kernels() -> dict:
                                     [1023, 600, 31, 0], bf16, 0.0),
     }
     decode_int8_cases.update(GEMMA2_DECODE)
+    decode_int8_cases.update(GEMMA_2B_DECODE)
     # the split-S kernel's edges (64-key chunks at these sizes): pos 0, one
     # short of a chunk's end, on it, one past it, and at and past S-1; G
     # from 1 to 8 and hd from 16 to 128 in both query types; softcap
@@ -1252,15 +1469,19 @@ def phase_kernels() -> dict:
                                    [2047, 1500, 256, 255, 0, 1024, 700, 64],
                                    f32, 0.0)})
     decode_int8_cases.update(split_group_cases())
+    decode_int8_cases.update(wide_group_cases())
     for name, (B, H, K, hd, S, pos, dt, cap) in decode_int8_cases.items():
         r = decode_int8_case(name, gen, B, H, K, hd, S, pos, dt, cap,
                              q_scale=_q_scale(name))
         _show("decode_attn_int8", name, r)
+        if name.startswith("gemma_2b"):
+            device_fns["decode_attn_int8 " + name] = r["call"]
         if name.startswith("main"):
             main["decode_attn_int8"] = r
             device_fns["decode_attn_int8 " + name] = r["call"]
         if name.startswith("gemma2"):
             _gemma2_fns(device_fns, "decode_attn_int8", name, r)
+    gemma_2b_decode_split(gen)
     main.update(sls_cases(gen, device_fns))
     device_window(device_fns)
     for r in main.values():         # let the main shapes' tables go
@@ -1330,8 +1551,9 @@ def sweep(seed: int, n: int) -> None:
 
     worst = {"flash_attn": 0.0, "decode_attn": 0.0}
     for i in range(n):
-        B, K, G = int(rng.integers(1, 4)), pick([1, 2, 4]), pick([1, 2, 4, 8])
-        hd = pick([16, 32, 64, 128, 64, 128])
+        B, K = int(rng.integers(1, 4)), pick([1, 2, 4])
+        G = pick([1, 2, 4, 8, 9, 12, 16])
+        hd = pick([16, 32, 64, 128, 64, 128, 256])
         dt = pick([torch.float32, torch.bfloat16, torch.bfloat16])
         cap = pick([0.0, 0.0, 30.0])
         # half the sizes at the tensor-core kernel's 128-row / 128-key edges
@@ -1352,7 +1574,7 @@ def sweep(seed: int, n: int) -> None:
         if rng.integers(0, 2):          # the split edges, on a longer cache
             T = int(rng.integers(129, 1100))
             k, v = (_randn(gen, (B, T, K, hd), dt) for _ in range(2))
-            chunk = chunk_plan(B, K, T, SMS, hd * k.element_size())
+            chunk = chunk_plan(B, K, T, SMS, hd, k.element_size(), G)
             edges = [c * chunk + d for c in range(T // chunk + 1)
                      for d in (-1, 0, 1)] + [T - 1, T + 3]
             pos = torch.tensor([max(0, pick(edges)) for _ in range(B)],
@@ -1385,8 +1607,8 @@ def sweep_chunks(seed: int, n: int) -> None:
     worst = 0.0
     for i in range(n):
         Bk, P = int(rng.integers(1, 5)), int(rng.integers(1, 5))
-        K, G, hd = pick([1, 2, 4]), pick([1, 2, 4, 8]), pick([16, 32, 64,
-                                                              128, 64, 128])
+        K, G = pick([1, 2, 4]), pick([1, 2, 4, 8, 12, 16])
+        hd = pick([16, 32, 64, 128, 64, 128, 256])
         dt = pick([torch.float32, torch.bfloat16, torch.bfloat16])
         C = pick([int(rng.integers(1, 200)), pick([127, 128, 129])])
         T = C + int(rng.integers(0, 500))
@@ -1435,12 +1657,14 @@ def sweep_int8(seed: int, n: int) -> None:
                          w8a8_matmul(xq, wq, xs, ws),
                          w8a8_ref(xq, wq, xs, ws))
         worst["w8a8_matmul"] = max(worst["w8a8_matmul"], err)
-        B, K, G = int(rng.integers(1, 4)), pick([1, 2, 4]), pick([1, 2, 4, 8])
-        hd, dt = pick([16, 32, 64, 128]), pick([torch.float32, torch.bfloat16])
+        B, K = int(rng.integers(1, 4)), pick([1, 2, 4])
+        G = pick([1, 2, 4, 8, 9, 12, 16])
+        hd = pick([16, 32, 64, 128, 256])
+        dt = pick([torch.float32, torch.bfloat16])
         cap, T = pick([0.0, 0.0, 30.0]), int(rng.integers(1, 300))
         if rng.integers(0, 2):          # the split edges
             T = int(rng.integers(129, 1100))
-            chunk = chunk_plan(B, K, T, SMS, hd)
+            chunk = int8_chunk_plan(B, K, T, SMS, hd, G)
             edges = [c * chunk + d for c in range(T // chunk + 1)
                      for d in (-1, 0, 1)] + [T - 1, T + 3]
             pos = torch.tensor([max(0, pick(edges)) for _ in range(B)],
@@ -2290,18 +2514,24 @@ def reduce_gemma2(dtype: str):
 def phase_check_gemma2(kw=None):
     """``reduce_gemma2`` in f32 and bf16, each fp and w8a8 + int8 KV (one
     build step on the host, copied to the card), prompts of 40-200 tokens
-    (rings of 64 wrap): card vs host greedy agreement >= 0.95; chunked (8,
-    16) vs monolithic on the card identical in fp, >= 0.95 in w8a8 + int8
-    KV (an int8 chunk attends the dequantized prefix, where a monolithic
-    prefill attends the exact K/V); graphed == eager tokens, monolithic
-    and chunk 16, the caches' difference printed. Then, fp in each type: a
-    prefix hit over a 96-token shared prompt identical to a cold engine,
-    and snapshot -> restore bit for bit over fp and int8 caches."""
-    label = "check-gemma2"
+    (rings of 64 wrap): see ``check_reduced``."""
+    check_reduced("check-gemma2", "reduced gemma2-27b", reduce_gemma2, kw)
+
+
+def check_reduced(label: str, arch: str, make, kw=None) -> None:
+    """``make(dtype)`` in f32 and bf16, each fp and w8a8 + int8 KV (one
+    build step on the host, copied to the card), prompts of 40-200 tokens:
+    card vs host greedy agreement >= 0.95; chunked (8, 16) vs monolithic
+    on the card identical in fp, >= 0.95 in w8a8 + int8 KV (an int8 chunk
+    attends the dequantized prefix, where a monolithic prefill attends the
+    exact K/V); graphed == eager tokens, monolithic and chunk 16, the
+    caches' difference printed. Then, fp in each type: a prefix hit over a
+    96-token shared prompt identical to a cold engine, and snapshot ->
+    restore bit for bit over fp and int8 caches."""
     kw = kw or dict(batch_slots=3, max_len=256,
                     prefill_buckets=(64, 128, 256))
     for dtype in ("float32", "bfloat16"):
-        small = reduce_gemma2(dtype)
+        small = make(dtype)
         host = model_mod.init_params(small, seed=0, device="cpu")
         card = copy.deepcopy(host).to(DEV)
         small_q = _int8_kv(small)
@@ -2314,7 +2544,7 @@ def phase_check_gemma2(kw=None):
                  small_q, dict(precision="w8a8", quantized_params=card_qp),
                  dict(precision="w8a8", quantized_params=qp)))
         for prec, c, on_card, on_host in legs:
-            name = f"reduced gemma2-27b {dtype} {prec}"
+            name = f"{arch} {dtype} {prec}"
             trace = lambda: _requests(6, 40, 200, 8, c.vocab_size, seed=3)
             mono = _outputs(InferenceEngine(c, card, device=DEV, **kw,
                                             **on_card), trace())
@@ -2366,7 +2596,7 @@ def phase_check_gemma2(kw=None):
         warm.telemetry.reset_serving_stats()
         got = _outputs(warm, shared())
         agree = token_agreement(zip(got, cold))
-        print(f"{label}: reduced gemma2-27b {dtype}, prefix cache over a "
+        print(f"{label}: {arch} {dtype}, prefix cache over a "
               f"96-token shared prompt: {warm.telemetry.prefix_hits} hits, "
               f"agreement with a cold engine {agree:.4f}", flush=True)
         if not warm.telemetry.prefix_hits or got != cold:
@@ -2375,6 +2605,184 @@ def phase_check_gemma2(kw=None):
                                  f"with cold {agree}")
         for c in (small, _int8_kv(small)):
             _check_round_trip(c, card, kw, n=100, label=label)
+
+
+# ---- gemma-2b -----------------------------------------------------------------
+
+GEMMA_2B_KW = dict(batch_slots=4, max_len=4608,
+                   prefill_buckets=(128, 256, 512, 1024, 2048, 4096),
+                   device=DEV)
+
+
+def reduce_gemma_2b(dtype: str):
+    """gemma-2b cut to 3 layers of d_model 256, keeping what
+    ``reduce_for_smoke`` drops: 8 query heads padded to 16, of head_dim 256,
+    over one kv head (G 16, the padded heads' ``wo`` rows zero); d_ff 512,
+    vocab 256; GeGLU, tied embeddings and the embedding multiplier as at
+    full width; in ``dtype``."""
+    return dataclasses.replace(
+        reduce_for_smoke(get_config("gemma-2b")), num_layers=3, d_model=256,
+        num_heads=8, num_padded_heads=16, num_kv_heads=1, head_dim=256,
+        d_ff=512, param_dtype=dtype, activation_dtype=dtype)
+
+
+def phase_check_gemma_2b(kw=None):
+    """``reduce_gemma_2b`` in f32 and bf16, each fp and w8a8 + int8 KV:
+    card vs host, chunked vs monolithic, graphed vs eager, prefix hit vs
+    cold, snapshot round trips (``check_reduced``)."""
+    check_reduced("check-gemma2b", "reduced gemma-2b", reduce_gemma_2b, kw)
+
+
+def gemma_2b_requests(vocab: int):
+    """The gemma-2b serve phases' traffic: 8 prompts x 32 new tokens, long
+    and short in turn: 4 of 3000-4000 tokens (the 4096 prefill bucket) and
+    4 of 70-450."""
+    rng = np.random.default_rng(0)
+    lens = np.stack([rng.integers(3000, 4001, 4),
+                     rng.integers(70, 451, 4)], 1).reshape(-1)
+    return [Request(i, rng.integers(0, vocab, int(L)).astype(np.int32),
+                    max_new_tokens=32) for i, L in enumerate(lens)]
+
+
+def phase_serve_gemma_2b(cfg, params, label: str = "serve-gemma2b",
+                         mono_outputs=None, **kw):
+    """Full-width gemma-2b serving (bf16; or, with ``precision="w8a8"`` in
+    ``kw``, w8a8 with an int8 KV cache), graphed and warmed on the same
+    requests, so every stage key is captured before the measured run; with
+    ``prefill_chunk`` in ``kw``, chunked. The kernels of its path must have
+    run: flash (at a query offset when chunked), and bf16 decode, or the
+    w8a8 GEMM and int8 decode with bf16 decode not at all. A w8a8 serve's
+    greedy agreement with the bf16 serve's ``mono_outputs`` must reach
+    0.90 (the reference's w8a8 guardrail); a chunked one's is printed. The
+    monolithic serves' graphed decode stage is then profiled. Returns
+    (launches, outputs)."""
+    quant = kw.get("precision") == "w8a8"
+    base_cfg = cfg
+    if quant:
+        cfg = _int8_kv(cfg)
+    trace = lambda: gemma_2b_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(cfg, params, **GEMMA_2B_KW, **kw)
+    if quant:
+        torch.cuda.synchronize()
+        q = eng.quant
+        print(f"{label}: build step {time.perf_counter() - t0:.1f} s: "
+              f"{q.quantized_sites} sites int8, {q.fallback_sites} fall back "
+              f"to bf16 (calibration disagreement "
+              f"{q.result.metric_delta:.4f})", flush=True)
+    launches, outputs = _serve(eng, cfg, label, base, trace=trace,
+                               warm=trace, model=cfg.name)
+    need = ["flash_attn"]
+    need += (["w8a8_matmul", "decode_attn_int8"] if quant
+             else ["decode_attn"])
+    if kw.get("prefill_chunk"):
+        need.append("flash_attn at a q_off")
+    _require_launched(label, launches, need)
+    if quant and launches["decode_attn"]:
+        raise AssertionError(f"{label}: the bf16 decode kernel ran "
+                             f"{launches['decode_attn']} times over an int8 "
+                             f"cache")
+    if mono_outputs is not None:
+        agree = token_agreement(zip(outputs, mono_outputs))
+        div = _first_divergence(outputs, mono_outputs)
+        print(f"{label}: greedy-token agreement with serve-gemma2b "
+              f"{agree:.4f} ({'tokens identical' if div is None else div})"
+              + ("" if quant else " (printed, not held)"), flush=True)
+        if quant and agree < 0.90:
+            raise AssertionError(f"{label}: agreement with the bf16 serve "
+                                 f"{agree} < 0.90")
+    if quant:
+        check_gemma_2b_layers(base_cfg, params, cfg, eng.quant.params)
+    if not kw.get("prefill_chunk"):
+        profile_decode_stage(eng, f"{label}: graphed ",
+                             pos=(4000, 3500, 300, 100))
+    return launches, outputs
+
+
+# the full-width w8a8 + int8-KV decode step's error over the layers' share
+# of the bf16 step's final hidden state
+W8A8_LAYERS_TOL = 0.10
+
+
+def check_gemma_2b_layers(cfg, params, qcfg, qparams) -> None:
+    """check-gemma2b-layers: one full-width decode step of the w8a8 model
+    ``qparams`` over an int8 KV cache (``qcfg``) against the bf16 model's,
+    on the same prompts (4 rows of 512 tokens, lens 512, 300, 77, 1, then
+    one token each). The greedy agreement of the serves can hold while the
+    layers are broken, if the embedding carries the argmax; so the error
+    here is ||h_w8a8 - h_bf16|| / ||h_bf16 - h_embed||, the final hidden
+    state's error over what the layers add to it (``h_embed``: the final
+    norm of the embedded token alone), held to ``W8A8_LAYERS_TOL``. Two
+    planted faults must each leave it: every layer's ``wo`` scale zeroed
+    (no attention reaches the residual) and the int8 cache's value scales
+    negated after the prefill (the int8 decode kernel reads -V: each
+    layer's decode attention flips sign)."""
+    B, S, max_len = 4, 512, 1024
+    lens = torch.tensor([512, 300, 77, 1], device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                        device=DEV, dtype=torch.int32)
+    valid = torch.arange(S, device=DEV)[None, :] < lens[:, None]
+    pos = lens.to(torch.int32)
+
+    @torch.inference_mode()
+    def step(p, c, fault=None):
+        caches = model_mod.init_caches(c, B, max_len, DEV)
+        model_mod.forward(p, c, {"tokens": toks}, mode="prefill",
+                          caches=caches, kv_valid=valid)
+        if fault is not None:
+            fault(caches)
+        h, _ = model_mod.decode_step(p, c, nxt, caches, pos)
+        return h.float()
+
+    with torch.inference_mode():
+        ref = step(params, cfg)
+        h_embed = params.final_norm(
+            vocab_mod.embed_lookup(params.embed, nxt, cfg),
+            cfg.norm_eps)[:, -1].float()
+    layers = (ref - h_embed).norm()
+
+    def err(h) -> float:
+        if not torch.isfinite(h).all():
+            return float("inf")
+        return ((h - ref).norm() / layers).item()
+
+    got = err(step(qparams, qcfg))
+    wo = [lay.attn.wo for lay in qparams.layers]
+    held = [w.scale if isinstance(w, QuantDense) else w.data for w in wo]
+    saved = [t.clone() for t in held]
+    for t in held:
+        t.zero_()
+    try:
+        no_attn = err(step(qparams, qcfg))
+    finally:
+        for t, v in zip(held, saved):
+            t.copy_(v)
+    neg_v = err(step(qparams, qcfg, lambda cs: [
+        c["v_scale"].neg_() for c in cs]))
+    if err(step(qparams, qcfg)) != got:
+        raise AssertionError("check-gemma2b-layers: the w8a8 step changed "
+                             "after the planted faults were undone")
+    print(f"check-gemma2b-layers: full-width decode step, 4 rows at pos "
+          f"{lens.tolist()}: the layers move the bf16 final hidden state "
+          f"by {(layers / ref.norm()).item():.4f} of its norm; w8a8 + int8 "
+          f"KV error over that {got:.4f} (tol {W8A8_LAYERS_TOL}); planted "
+          f"faults: wo scales zeroed {no_attn:.4f}, int8 value scales "
+          f"negated {neg_v:.4f}", flush=True)
+    if not got <= W8A8_LAYERS_TOL:
+        raise AssertionError(f"check-gemma2b-layers: w8a8 + int8 KV error "
+                             f"{got} > {W8A8_LAYERS_TOL}")
+    for name, e in (("wo scales zeroed", no_attn),
+                    ("int8 value scales negated", neg_v)):
+        if not e > W8A8_LAYERS_TOL:
+            raise AssertionError(f"check-gemma2b-layers: the planted fault "
+                                 f"'{name}' stays within the tolerance "
+                                 f"({e} <= {W8A8_LAYERS_TOL}): the check "
+                                 f"cannot see it")
 
 
 # ---- DLRM -------------------------------------------------------------------
@@ -3141,6 +3549,28 @@ def main():
     del params, quant
     _free_card()
     print(f"freed deepseek-7b: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB still allocated", flush=True)
+    phase_check_gemma_2b()
+    g2bcfg = get_config("gemma-2b")
+    t0 = time.perf_counter()
+    g2b = model_mod.init_params(g2bcfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"init: gemma-2b full width, "
+          f"{sum(p.numel() for p in g2b.parameters()) / 1e9:.3f} B params, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches_2b, g2b_outputs = phase_serve_gemma_2b(g2bcfg, g2b)
+    _free_card()
+    launches_2bc, _ = phase_serve_gemma_2b(
+        g2bcfg, g2b, "serve-gemma2b-chunked", g2b_outputs, prefill_chunk=512)
+    _free_card()
+    launches_2bq, _ = phase_serve_gemma_2b(
+        g2bcfg, g2b, "serve-gemma2b-w8a8", g2b_outputs, precision="w8a8")
+    for k in ("flash_attn", "decode_attn", "w8a8_matmul", "decode_attn_int8"):
+        launches[k] += launches_2b[k] + launches_2bc[k] + launches_2bq[k]
+    del g2b
+    _free_card()
+    print(f"freed gemma-2b: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB still allocated", flush=True)
     phase_check_gemma2()
     g2cfg = get_config("gemma2-27b")

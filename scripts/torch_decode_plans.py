@@ -25,7 +25,6 @@ device; imports nothing of JAX.
 from __future__ import annotations
 
 import os
-import subprocess
 import sys
 
 import torch
@@ -35,6 +34,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+from scripts import torch_ptxas  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn import ops as dops  # noqa: E402
 from repro_torch.kernels.decode_attn.ref import (  # noqa: E402
@@ -47,20 +47,9 @@ W8A8_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))   # (K, N)
 
 
 def ptxas_report() -> None:
-    """Registers, shared memory and spills of every kernel of the two
-    sources, as ptxas prints them."""
-    out_dir = _build.BUILD_DIR
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for name in ("w8a8", "decode_int8", "decode"):
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-               str(out_dir / f"{name}-ptxas.so"), str(_build.sources()[name])]
-        log = subprocess.run(cmd, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True, check=True,
-                             timeout=600).stdout
-        keep = [ln.strip() for ln in log.splitlines()
-                if "Compiling entry" in ln or "registers" in ln
-                or "spill" in ln]
-        print(f"ptxas {name}:\n  " + "\n  ".join(keep), flush=True)
+    """Registers, stack and spills of every kernel of the three sources
+    (``scripts/torch_ptxas.py``)."""
+    torch_ptxas.main(["w8a8", "decode_int8", "decode"])
 
 
 def w8a8_split(xq, wq, xs, ws, split: int) -> torch.Tensor:
@@ -136,7 +125,7 @@ def main() -> None:
     cache = cs._int8_cache(gen, B, S, K, hd)
     pos = torch.tensor([1023, 600, 31, 0], dtype=torch.int32, device=DEV)
     want = decode_attn_int8_ref(q, *cache, pos)
-    pick = dops.chunk_plan(B, K, S, sms, hd)
+    pick = dops.int8_chunk_plan(B, K, S, sms, hd, H // K)
     for chunk in (64, 128, 192, 256):
         err = cs.compare(f"decode_int8 chunk {chunk}",
                          decode_chunk(q, *cache, pos, chunk), want,
@@ -150,7 +139,7 @@ def main() -> None:
         qf = cs._randn(gen, (B, H, hd), dt)
         k, v = (cs._randn(gen, (B, S, K, hd), dt) for _ in range(2))
         want = decode_attn_ref(qf, k, v, pos)
-        pick = dops.chunk_plan(B, K, S, sms, hd * k.element_size())
+        pick = dops.chunk_plan(B, K, S, sms, hd, k.element_size(), H // K)
         for chunk in chunks:
             err = cs.compare(f"decode {dt} chunk {chunk}",
                              decode_fp_chunk(qf, k, v, pos, chunk), want, dt)

@@ -27,7 +27,6 @@ Needs one CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import os
-import subprocess
 import sys
 
 import torch
@@ -37,6 +36,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+from scripts import torch_ptxas  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.sls import ops as sops  # noqa: E402
 
@@ -46,21 +46,9 @@ ENTRY = {"sls_fp": "sls_fp_fwd", "sls_int8": "sls_int8_fwd",
 
 
 def ptxas_report() -> None:
-    out_dir = _build.BUILD_DIR
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-           str(out_dir / "sls-ptxas.so"), str(_build.sources()["sls"])]
-    log = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True, check=True, timeout=600).stdout
-    keep = [ln.strip() for ln in log.splitlines()
-            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
-    print("ptxas sls:\n  " + "\n  ".join(keep), flush=True)
-    names = [ln.split("sls_kernel")[1].split("EEv")[0] for ln in keep
-             if "Compiling entry" in ln]
-    regs = [ln.split("Used ")[1].split(" registers")[0] for ln in keep
-            if "registers" in ln]
-    print("ptxas sls registers by <KIND, VB, U>: " + ", ".join(
-        f"{n}: {r}" for n, r in zip(names, regs)), flush=True)
+    """Registers, stack and spills of every ``sls_kernel<KIND, VB, U>``
+    (``scripts/torch_ptxas.py``)."""
+    torch_ptxas.main(["sls"])
 
 
 def sls_unroll(kind: str, tables, idx, lens, unroll: int,

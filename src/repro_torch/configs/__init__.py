@@ -1,18 +1,20 @@
 """Config registry of the port: ``get_config("deepseek-7b")``.
 
 Only the architectures the port serves are registered (deepseek-7b, all
-global; gemma2-27b, local and global layers in turn); the others join
-with the slices that port their block kinds."""
+global; gemma2-27b, local and global layers in turn; gemma-2b, MQA at
+head_dim 256 with padded heads); the others join with the slices that
+port their block kinds."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import deepseek_7b, gemma2_27b
+from repro_torch.configs import deepseek_7b, gemma2_27b, gemma_2b
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ModelConfig,
                                       QuantConfig, reduce_for_smoke)
 
 _REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (deepseek_7b.CONFIG, gemma2_27b.CONFIG)}
+    c.name: c for c in (deepseek_7b.CONFIG, gemma2_27b.CONFIG,
+                        gemma_2b.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -135,6 +135,12 @@ class ModelConfig:
         if self.num_kv_heads and self.num_heads % self.num_kv_heads:
             raise ValueError(f"num_heads {self.num_heads} is not a multiple "
                              f"of num_kv_heads {self.num_kv_heads}")
+        if self.num_padded_heads is not None and (
+                self.num_padded_heads < self.num_heads
+                or self.num_padded_heads % max(self.num_kv_heads, 1)):
+            raise ValueError(f"num_padded_heads {self.num_padded_heads} must "
+                             f"be at least num_heads {self.num_heads} and a "
+                             f"multiple of num_kv_heads {self.num_kv_heads}")
 
     @property
     def padded_heads(self) -> int:

@@ -57,7 +57,12 @@ struct F32Cache {
 
   template <int N>
   __device__ static __forceinline__ void elems(const uint8_t* p, float (&f)[N]) {
-    if constexpr (N == 4) {
+    if constexpr (N == 8) {
+      const float4 a = *reinterpret_cast<const float4*>(p);
+      const float4 b = *reinterpret_cast<const float4*>(p + 16);
+      f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+      f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+    } else if constexpr (N == 4) {
       const float4 v = *reinterpret_cast<const float4*>(p);
       f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
     } else if constexpr (N == 2) {
@@ -91,7 +96,9 @@ struct Bf16Cache {
 
   template <int N>
   __device__ static __forceinline__ void elems(const uint8_t* p, float (&f)[N]) {
-    if constexpr (N == 4) {
+    if constexpr (N == 8) {
+      piece(*reinterpret_cast<const int4*>(p), f);
+    } else if constexpr (N == 4) {
       const uint2 v = *reinterpret_cast<const uint2*>(p);
       f[0] = bf_lo(v.x), f[1] = bf_hi(v.x), f[2] = bf_lo(v.y), f[3] = bf_hi(v.y);
     } else if constexpr (N == 2) {
@@ -113,16 +120,18 @@ struct CacheOf<__nv_bfloat16> {
   using type = Bf16Cache;
 };
 
-// MAXG bounds the group size G = H/K held in registers; G itself is a runtime value.
-// Blocks of 4 or 8 warps; at most 64 registers a thread (128 from G 3 on).
+// MAXG bounds the group size G = H/K; G itself is a runtime value. Blocks of 4 or 8
+// warps; at most 64 registers a thread up to G 2 below hd 256, 128 beyond, and 255
+// at hd 256 from G 5 on (`min_blocks`).
 template <typename T, int HD, int MAXG>
-__global__ void __launch_bounds__(kMaxThreads, MAXG <= 2 ? 4 : 2)
+__global__ void __launch_bounds__(kMaxThreads, min_blocks(HD, MAXG))
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const int* __restrict__ pos, float* __restrict__ o,
               float* __restrict__ part, int* __restrict__ ticket, int S, int H, int K,
-              int chunk, float softcap, float scale) {
+              int chunk, int merge_apart, float softcap, float scale) {
   split_decode<typename CacheOf<T>::type, T, HD, MAXG>(
-      q, k, nullptr, v, nullptr, pos, o, part, ticket, S, H, K, chunk, softcap, scale);
+      q, k, nullptr, v, nullptr, pos, o, part, ticket, S, H, K, chunk, merge_apart,
+      softcap, scale);
 }
 
 template <typename T, int HD, int MAXG>
@@ -133,10 +142,10 @@ struct FpKernel {
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }
   static void launch(dim3 grid, int threads, size_t smem, cudaStream_t st,
-                     const Args& a, float scale) {
+                     const Args& a, int merge_apart, float scale) {
     decode_kernel<T, HD, MAXG><<<grid, threads, smem, st>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, a.pos, a.o, a.part, a.ticket, a.S,
-        a.H, a.K, a.chunk, a.softcap, scale);
+        a.H, a.K, a.chunk, merge_apart, a.softcap, scale);
   }
 };
 

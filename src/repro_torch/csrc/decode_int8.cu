@@ -54,31 +54,42 @@ struct Int8Cache {
 
   template <int N>
   __device__ static __forceinline__ void elems(const uint8_t* p, float (&f)[N]) {
-    uint32_t v;
-    if constexpr (N == 4)
-      v = *reinterpret_cast<const uint32_t*>(p);
-    else if constexpr (N == 2)
-      v = *reinterpret_cast<const uint16_t*>(p);
-    else
-      v = *p;
-    v ^= 0x80808080u;
+    if constexpr (N == 8) {  // hd 256: 8 bytes a lane
+      const uint2 w = *reinterpret_cast<const uint2*>(p);
+      const uint32_t lo = w.x ^ 0x80808080u, hi = w.y ^ 0x80808080u;
 #pragma unroll
-    for (int e = 0; e < N; ++e) f[e] = s8f(v, e);
+      for (int e = 0; e < 4; ++e) {
+        f[e] = s8f(lo, e);
+        f[4 + e] = s8f(hi, e);
+      }
+    } else {
+      uint32_t v;
+      if constexpr (N == 4)
+        v = *reinterpret_cast<const uint32_t*>(p);
+      else if constexpr (N == 2)
+        v = *reinterpret_cast<const uint16_t*>(p);
+      else
+        v = *p;
+      v ^= 0x80808080u;
+#pragma unroll
+      for (int e = 0; e < N; ++e) f[e] = s8f(v, e);
+    }
   }
 };
 
-// MAXG bounds the group size G = H/K held in registers; G itself is a runtime value.
-// Blocks of 4 or 8 warps; at most 64 registers a thread (128 from G 3 on).
+// MAXG bounds the group size G = H/K; G itself is a runtime value. Blocks of 4 or 8
+// warps; at most 64 registers a thread up to G 2 below hd 256, 128 beyond, and 255
+// at hd 256 from G 5 on (`min_blocks`).
 template <typename T, int HD, int MAXG>
-__global__ void __launch_bounds__(kMaxThreads, MAXG <= 2 ? 4 : 2)
+__global__ void __launch_bounds__(kMaxThreads, min_blocks(HD, MAXG))
 decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                    const __half* __restrict__ ks, const int8_t* __restrict__ vq,
                    const __half* __restrict__ vs, const int* __restrict__ pos,
                    float* __restrict__ o, float* __restrict__ part,
                    int* __restrict__ ticket, int S, int H, int K, int chunk,
-                   float softcap, float scale) {
+                   int merge_apart, float softcap, float scale) {
   split_decode<Int8Cache, T, HD, MAXG>(q, kq, ks, vq, vs, pos, o, part, ticket, S, H, K,
-                                       chunk, softcap, scale);
+                                       chunk, merge_apart, softcap, scale);
 }
 
 template <typename T, int HD, int MAXG>
@@ -89,10 +100,10 @@ struct Int8Kernel {
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }
   static void launch(dim3 grid, int threads, size_t smem, cudaStream_t st,
-                     const Args& a, float scale) {
+                     const Args& a, int merge_apart, float scale) {
     decode_int8_kernel<T, HD, MAXG><<<grid, threads, smem, st>>>(
         (const T*)a.q, (const int8_t*)a.k, a.ks, (const int8_t*)a.v, a.vs, a.pos, a.o,
-        a.part, a.ticket, a.S, a.H, a.K, a.chunk, a.softcap, scale);
+        a.part, a.ticket, a.S, a.H, a.K, a.chunk, merge_apart, a.softcap, scale);
   }
 };
 

@@ -28,6 +28,10 @@
 //     value scale) broadcast from the lane that holds it. The cache type's trait
 //     (`C` below) turns a 16-byte piece of a row, or a lane's P.V elements, into f32.
 //     The warps' states merge once, through shared memory.
+//   - Groups of up to 16 query heads (gemma-2b: 16 over one kv head at hd 256). A
+//     warp holds the online-softmax state of at most 8 heads in registers, so a
+//     larger group is walked in passes of 8 heads over the same tiles, which stay in
+//     shared memory; the K/V rows are read from device memory once.
 //   - Merge in the same launch. A row with one chunk writes its output at once. For
 //     longer rows each block writes its (acc, m, l) to an f32 scratch record; thread 0
 //     fences (`__threadfence`) and takes a ticket (`atomicAdd` on the (row, kv head)
@@ -36,6 +40,15 @@
 //     before any is used): m = max m_i, l = sum l_i e^(m_i - m), o = sum acc_i
 //     e^(m_i - m) / max(l, 1e-30). The wrapper allocates the scratch per call
 //     (torch.empty) and keeps the counters, zeroed once, per device.
+//   - Or merge in a second kernel, when a (row, kv head)'s records could pass 12 KB
+//     (`merge_apart`: gemma2-27b's decode, 16-20 records of 2 x 132 floats; gemma-2b's,
+//     64 of 16 x 260 for a 4096-key row). In the same launch one block reads them all
+//     alone, one batch of loads after another; `merge_kernel` instead gives each
+//     (row, kv head, 128 output elements) a block of its own, in the same merge
+//     order, and the split kernel takes no ticket. The second launch costs ~1 us of
+//     gap, so small records (deepseek-7b's 4-8 KB) still merge in the launch. Measured
+//     by scripts/torch_decode_merge.py (H100): the in-launch merge ~1 us faster at 4.2
+//     and 8.4 KB, 1-3 us slower at 16.9-33.8 KB, 3.3x slower at gemma-2b's 1 MB.
 // Measured at the main decode shape and not kept: persistent blocks walking the work
 // items, with every row's pos read once into shared memory (slower in both kernels);
 // K and V of a tile in two cp.async groups, so the scores start before V lands, and
@@ -55,7 +68,8 @@ namespace decode_split {
 constexpr int kWarps = 4;      // warps a block has at 64-key chunks; 8 at 128 and up
 constexpr int kMaxThreads = 8 * 32;
 constexpr int kPad = 16;       // bytes after each shared K/V row
-constexpr int kMaxGroup = 8;   // query heads per kv head
+constexpr int kMaxGroup = 16;  // query heads per kv head
+constexpr int kPassHeads = 8;  // query heads a warp holds in registers at a time
 constexpr int kTile = 16;      // keys per warp tile
 constexpr int kMinChunk = kWarps * kTile;
 constexpr int kMaxChunk = 256;
@@ -111,8 +125,17 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
 // warps at 64-key chunks and 8 from 128 keys on
 __host__ __device__ constexpr int chunk_warps(int chunk) { return chunk % 128 ? 4 : 8; }
 
+// the kernels' `__launch_bounds__` minimum of blocks an SM (of 8 warps): 4 up to G 2
+// below hd 256 (64 registers a thread), 2 beyond (128), and 1 (255) where a pass's
+// accumulators alone are 64 floats a lane (hd 256 at 8 heads a pass), which 128
+// would spill
+__host__ __device__ constexpr int min_blocks(int HD, int MAXG) {
+  return MAXG <= 2 && HD < 256 ? 4
+         : HD * (MAXG < kPassHeads ? MAXG : kPassHeads) > 1024 ? 1 : 2;
+}
+
 // bytes of dynamic shared memory one block takes (the layout in split_decode), for
-// K/V rows of `row_bytes`
+// K/V rows of `row_bytes` (kernels/decode_attn/ops.py::smem_bytes is the same sum)
 __host__ __device__ constexpr size_t smem_bytes(int row_bytes, int hd, int G, int chunk) {
   return (size_t)2 * chunk * (row_bytes + kPad) +  // K, V rows
          sizeof(float) * ((size_t)G * hd + (size_t)chunk_warps(chunk) * G * (hd + 2));
@@ -123,7 +146,7 @@ __host__ __device__ constexpr size_t smem_bytes(int row_bytes, int hd, int G, in
 // acc [G][hd], then m [G], then l [G]: G * (hd + 4) floats with the padding, so
 // records stay 16-byte aligned. Records of one (row, kv head) lie one after another,
 // one per chunk of the grid.
-__device__ __forceinline__ int record_len(int G, int hd) { return G * (hd + 4); }
+__host__ __device__ __forceinline__ int record_len(int G, int hd) { return G * (hd + 4); }
 
 // Thread 0 publishes this block's record and draws a ticket for (row, kv head); true
 // in every thread of the block that drew the last of `nsplit`, which also resets the
@@ -142,6 +165,14 @@ __device__ __forceinline__ bool last_to_arrive(int* ticket, int nsplit) {
   __syncthreads();
   return is_last;
 }
+
+// records of one (row, kv head) past which the merge runs as a kernel of its own:
+// between the 8.4 KB where the in-launch merge was faster and the 16.9 KB where it was
+// slower (a build may set it: scripts/torch_decode_merge.py times both merges)
+#ifndef DECODE_MERGE_IN_LAUNCH_BYTES
+#define DECODE_MERGE_IN_LAUNCH_BYTES (12 * 1024)
+#endif
+constexpr size_t kMergeInLaunchBytes = DECODE_MERGE_IN_LAUNCH_BYTES;
 
 // Element idx (= g * hd + d) of the merged output from the `nsplit` records at
 // `recs`, read through L2 (other blocks wrote them) kMergeBatch at a time, every load
@@ -182,16 +213,18 @@ __device__ __forceinline__ float merge_records(const float* recs, int nsplit, in
 //   using E;                       the stored element type
 //   static constexpr bool kScaled; one fp16 scale per (token, kv head) on K and on V
 //   static void piece(int4 w, float (&f)[16 / sizeof(E)]);  16 bytes of a row -> f32
-//   template <int N> static void elems(const uint8_t* p, float (&f)[N]);  N elements
-// MAXG bounds the group size G = H/K held in registers; G itself is a runtime value,
-// and so is the block's warp count (chunk_warps(chunk)).
+//   template <int N> static void elems(const uint8_t* p, float (&f)[N]);  N (1, 2, 4
+//                                  or 8: hd / 32) consecutive elements -> f32
+// MAXG bounds the group size G = H/K; G itself is a runtime value, and so is the
+// block's warp count (chunk_warps(chunk)). A warp holds min(MAXG, 8) heads' state in
+// registers and walks a group of more in passes of 8.
 template <class C, typename T, int HD, int MAXG>
 __device__ __forceinline__ void split_decode(
     const T* __restrict__ q, const typename C::E* __restrict__ kc,
     const __half* __restrict__ ks, const typename C::E* __restrict__ vc,
     const __half* __restrict__ vs, const int* __restrict__ pos, float* __restrict__ o,
     float* __restrict__ part, int* __restrict__ ticket, int S, int H, int K, int chunk,
-    float softcap, float scale) {
+    int merge_apart, float softcap, float scale) {
   using E = typename C::E;
   constexpr int RB = HD * (int)sizeof(E);      // bytes of one K or V row
   constexpr int LDS = RB + kPad;               // shared row stride, bytes
@@ -266,103 +299,114 @@ __device__ __forceinline__ void split_decode(
   }
   __syncthreads();  // q is in shared memory
 
-  // ---- each warp: its tiles as they land, with an online softmax in registers
+  // ---- each warp: its tiles as they land, with an online softmax in registers;
+  // heads g0 .. g0+GP-1 of the group in each pass (one pass unless G > 8)
+  constexpr int GP = MAXG < kPassHeads ? MAXG : kPassHeads;
+  constexpr int PASSES = (MAXG + GP - 1) / GP;
   const int d0 = lane * EPL;   // this lane's output elements in P.V
   const bool holds = d0 < HD;  // false only for the idle lanes at hd 16
-  float m[MAXG], l[MAXG], acc[MAXG][EPL];
+#pragma unroll 1
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const int g0 = pass * GP;
+    if (g0 >= G) break;
+    const int gn = min(GP, G - g0);  // heads of this pass
+    float m[GP], l[GP], acc[GP][EPL];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
+    for (int g = 0; g < GP; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
-  }
+      for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+    }
 #pragma unroll
-  for (int i = 0; i < kMaxTiles; ++i) {
-    if (i >= ntiles) break;
-    cp_async_wait_upto(ntiles - 1 - i);  // tile i has landed (this lane's copies)
-    __syncwarp();                         // ... and every lane's
-    const int t0 = kw0 + i * kTile, nt = min(kTile, nkw - i * kTile);
-    const bool valid = kk < nt;
-    // scores: TPK lanes per key, each taking every TPK-th 16-byte piece
-    float dot[MAXG];
+    for (int i = 0; i < kMaxTiles; ++i) {
+      if (i >= ntiles) break;
+      cp_async_wait_upto(ntiles - 1 - i);  // tile i has landed (this lane's copies)
+      __syncwarp();                         // ... and every lane's
+      const int t0 = kw0 + i * kTile, nt = min(kTile, nkw - i * kTile);
+      const bool valid = kk < nt;
+      // scores: TPK lanes per key, each taking every TPK-th 16-byte piece
+      float dot[GP];
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) dot[g] = 0.f;
-    if (valid) {
-      const uint8_t* kr = sK + (t0 + kk) * LDS;
+      for (int g = 0; g < GP; ++g) dot[g] = 0.f;
+      if (valid) {
+        const uint8_t* kr = sK + (t0 + kk) * LDS;
 #pragma unroll
-      for (int pp = 0; pp < CPR / TPK; ++pp) {
-        const int p = pp * TPK + sub;
-        float kf[EPP];
-        C::piece(*reinterpret_cast<const int4*>(kr + p * 16), kf);
+        for (int pp = 0; pp < CPR / TPK; ++pp) {
+          const int p = pp * TPK + sub;
+          float kf[EPP];
+          C::piece(*reinterpret_cast<const int4*>(kr + p * 16), kf);
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) {
-          if (g >= G) break;
-          const float4* q4 = reinterpret_cast<const float4*>(sq + g * HD + p * EPP);
+          for (int g = 0; g < GP; ++g) {
+            if (g >= gn) break;
+            const float4* q4 = reinterpret_cast<const float4*>(sq + (g0 + g) * HD + p * EPP);
 #pragma unroll
-          for (int e = 0; e < EPP / 4; ++e) {
-            const float4 qv = q4[e];
-            dot[g] = fmaf(qv.x, kf[4 * e], dot[g]);
-            dot[g] = fmaf(qv.y, kf[4 * e + 1], dot[g]);
-            dot[g] = fmaf(qv.z, kf[4 * e + 2], dot[g]);
-            dot[g] = fmaf(qv.w, kf[4 * e + 3], dot[g]);
+            for (int e = 0; e < EPP / 4; ++e) {
+              const float4 qv = q4[e];
+              dot[g] = fmaf(qv.x, kf[4 * e], dot[g]);
+              dot[g] = fmaf(qv.y, kf[4 * e + 1], dot[g]);
+              dot[g] = fmaf(qv.z, kf[4 * e + 2], dot[g]);
+              dot[g] = fmaf(qv.w, kf[4 * e + 3], dot[g]);
+            }
           }
         }
       }
+      // the tile's softmax, folded into the running state; pv = p (times the value
+      // scale) of this lane's key
+      float pv[GP];
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        if (g >= gn) break;
+        float d = dot[g];
+        if (TPK == 2) d += __shfl_xor_sync(0xffffffffu, d, 1);
+        if constexpr (C::kScaled) d *= ksc[i];
+        float s = d * scale;
+        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+        s = valid ? s : kNegInf;
+        const float m_new = fmaxf(m[g], warp_max(s));
+        const float alpha = expf(m[g] - m_new);
+        const float p = valid ? expf(s - m_new) : 0.f;
+        l[g] = l[g] * alpha + warp_sum(sub == 0 ? p : 0.f);
+        m[g] = m_new;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+        pv[g] = p;
+        if constexpr (C::kScaled) pv[g] *= vsc[i];
+      }
+      // P.V: every key of the tile, its pv broadcast from the lane holding it
+      for (int key = 0; key < nt; ++key) {
+        float vf[EPL];
+        if (holds) {
+          C::template elems<EPL>(sV + (t0 + key) * LDS + d0 * (int)sizeof(E), vf);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) vf[e] = 0.f;
+        }
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          if (g >= gn) break;
+          const float pg = __shfl_sync(0xffffffffu, pv[g], key * TPK);
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pg, vf[e], acc[g][e]);
+        }
+      }
     }
-    // the tile's softmax, folded into the running state; pv = p (times the value
-    // scale) of this lane's key
-    float pv[MAXG];
+
+    // this pass's heads' state, for the merge of the W warps below
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g >= G) break;
-      float d = dot[g];
-      if (TPK == 2) d += __shfl_xor_sync(0xffffffffu, d, 1);
-      if constexpr (C::kScaled) d *= ksc[i];
-      float s = d * scale;
-      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-      s = valid ? s : kNegInf;
-      const float m_new = fmaxf(m[g], warp_max(s));
-      const float alpha = expf(m[g] - m_new);
-      const float p = valid ? expf(s - m_new) : 0.f;
-      l[g] = l[g] * alpha + warp_sum(sub == 0 ? p : 0.f);
-      m[g] = m_new;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
-      pv[g] = p;
-      if constexpr (C::kScaled) pv[g] *= vsc[i];
-    }
-    // P.V: every key of the tile, its pv broadcast from the lane holding it
-    for (int key = 0; key < nt; ++key) {
-      float vf[EPL];
-      if (holds) {
-        C::template elems<EPL>(sV + (t0 + key) * LDS + d0 * (int)sizeof(E), vf);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) vf[e] = 0.f;
+    for (int g = 0; g < GP; ++g) {
+      if (g >= gn) break;
+      if (lane == 0) {
+        wm[warp * G + g0 + g] = m[g];
+        wl[warp * G + g0 + g] = l[g];
       }
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g >= G) break;
-        const float pg = __shfl_sync(0xffffffffu, pv[g], key * TPK);
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pg, vf[e], acc[g][e]);
-      }
+      for (int e = 0; e < EPL; ++e)
+        if (holds) wacc[(warp * G + g0 + g) * HD + d0 + e] = acc[g][e];
     }
-  }
+  }  // passes
 
   // ---- the W warps' states merge through shared memory into the block's (m, l, acc)
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g >= G) break;
-    if (lane == 0) {
-      wm[warp * G + g] = m[g];
-      wl[warp * G + g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      if (holds) wacc[(warp * G + g) * HD + d0 + e] = acc[g][e];
-  }
   __syncthreads();
   const int rec_len = record_len(G, HD);
   const size_t rows_base = ((size_t)b * K + h) * gridDim.z;
@@ -388,13 +432,30 @@ __device__ __forceinline__ void split_decode(
       }
     }
   }
-  if (nsplit == 1) return;
+  if (nsplit == 1 || merge_apart) return;  // merge_kernel merges the records
 
   // ---- the block that arrives last for (row, kv head) merges the records
   if (!last_to_arrive(ticket + (size_t)b * K + h, nsplit)) return;
   const float* recs = part + rows_base * rec_len;
   for (int idx = threadIdx.x; idx < G * HD; idx += NT)
     ob[idx] = merge_records(recs, nsplit, rec_len, G, HD, idx);
+}
+
+// The merge as a kernel of its own (after a split launch with merge_apart): block
+// (x, b * K + h) merges output elements [128 x, 128 x + 128) of (row b, kv head h)
+// from its records, when the row took more than one chunk.
+__global__ void __launch_bounds__(128)
+merge_kernel(const float* __restrict__ part, const int* __restrict__ pos,
+             float* __restrict__ o, int S, int H, int K, int hd, int chunk, int n_chunks) {
+  const int G = H / K;
+  const int bh = blockIdx.y, b = bh / K, h = bh % K;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int last = min(pos[b], S - 1);
+  const int nsplit = last < 0 ? 1 : last / chunk + 1;
+  if (idx >= G * hd || nsplit == 1) return;  // one chunk: the split kernel wrote it
+  const int rec_len = record_len(G, hd);
+  o[((size_t)b * H + (size_t)h * G) * hd + idx] =
+      merge_records(part + (size_t)bh * n_chunks * rec_len, nsplit, rec_len, G, hd, idx);
 }
 
 // ---- the host side ------------------------------------------------------------------
@@ -425,9 +486,10 @@ inline bool args_ok(const Args& a) {
 
 // Launch the (K, B, ceil(S/chunk)) grid of KERNEL<T, HD, MAXG> (a class template
 // with `static constexpr int kRowBytes`, `set_smem(bytes)` and `launch(grid, threads,
-// smem, stream, args, scale)`) on blocks of chunk_warps(chunk) warps, first raising
-// its dynamic shared-memory limit to what this chunk takes if an earlier launch set
-// less.
+// smem, stream, args, merge_apart, scale)`) on blocks of chunk_warps(chunk) warps,
+// first raising its dynamic shared-memory limit to what this chunk takes if an
+// earlier launch set less; then, when a (row, kv head)'s records could pass
+// kMergeInLaunchBytes, merge_kernel.
 template <template <typename, int, int> class KERNEL, typename T, int HD, int MAXG>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using Kern = KERNEL<T, HD, MAXG>;
@@ -439,9 +501,18 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     configured = smem;
   }
   const float scale = (float)(1.0 / std::sqrt((double)HD));  // hd ** -0.5
+  const int G = a.H / a.K, n_chunks = (a.S + a.chunk - 1) / a.chunk;
+  const bool apart = n_chunks > 1 &&
+      (size_t)n_chunks * record_len(G, HD) * sizeof(float) > kMergeInLaunchBytes;
   // chunk slowest: every row's first chunks are dispatched before any row's later ones
-  const dim3 grid(a.K, a.B, (a.S + a.chunk - 1) / a.chunk);
-  Kern::launch(grid, chunk_warps(a.chunk) * 32, smem, stream, a, scale);
+  const dim3 grid(a.K, a.B, n_chunks);
+  Kern::launch(grid, chunk_warps(a.chunk) * 32, smem, stream, a, apart, scale);
+  if (apart) {
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    merge_kernel<<<dim3((G * HD + 127) / 128, a.B * a.K), 128, 0, stream>>>(
+        a.part, a.pos, a.o, a.S, a.H, a.K, HD, a.chunk, n_chunks);
+  }
   return cudaGetLastError();
 }
 
@@ -452,6 +523,7 @@ cudaError_t dispatch_g(const Args& a, cudaStream_t st) {
   if (G <= 2) return launch<KERNEL, T, HD, 2>(a, st);
   if (G <= 4) return launch<KERNEL, T, HD, 4>(a, st);
   if (G <= 8) return launch<KERNEL, T, HD, 8>(a, st);
+  if (G <= 16) return launch<KERNEL, T, HD, 16>(a, st);
   return cudaErrorInvalidValue;
 }
 
@@ -465,6 +537,7 @@ cudaError_t dispatch(int dtype, int hd, const Args& a, cudaStream_t st) {
       case 32: return dispatch_g<KERNEL, float, 32>(a, st);
       case 64: return dispatch_g<KERNEL, float, 64>(a, st);
       case 128: return dispatch_g<KERNEL, float, 128>(a, st);
+      case 256: return dispatch_g<KERNEL, float, 256>(a, st);
     }
   } else if (dtype == 1) {
     switch (hd) {
@@ -472,6 +545,7 @@ cudaError_t dispatch(int dtype, int hd, const Args& a, cudaStream_t st) {
       case 32: return dispatch_g<KERNEL, __nv_bfloat16, 32>(a, st);
       case 64: return dispatch_g<KERNEL, __nv_bfloat16, 64>(a, st);
       case 128: return dispatch_g<KERNEL, __nv_bfloat16, 128>(a, st);
+      case 256: return dispatch_g<KERNEL, __nv_bfloat16, 256>(a, st);
     }
   }
   return cudaErrorInvalidValue;

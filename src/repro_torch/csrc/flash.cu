@@ -27,31 +27,41 @@
 // TPU wrapper pads to its block grid instead).
 //
 // Two kernels, chosen up front by shape in `dispatch_hd`:
-//   - bf16 at hd 64 and 128, G dividing 128, 16-byte aligned tensors (the serving
-//     path): `flash_fwd_kernel_tma`, on the tensor cores. 128 rows per block, three
-//     warpgroups. Warpgroup 0 is the producer: one thread loads the Q tile once and
-//     streams 128-key K/V tiles through a 2-stage ring, all by TMA into 128B-swizzled
-//     shared memory (hd = 128 as two 64-column boxes), each stage completing on its
-//     "full" mbarrier and freed on its "empty" one. Warpgroups 1 and 2 own 64 rows
-//     each: S = Q K^T by `wgmma.m64n128k16` with both operands in shared memory; the
+//   - bf16 at hd 64, 128 and 256, G dividing 128, 16-byte aligned tensors (the
+//     serving path): `flash_fwd_kernel_tma`, on the tensor cores. 128 rows per block,
+//     three warpgroups. Warpgroup 0 is the producer: one thread loads the Q tile once
+//     and streams K/V tiles of KEYS keys (128; 64 at hd 256) through a 2-stage ring,
+//     all by TMA into 128B-swizzled shared memory (hd = 128 or 256 as two or four
+//     64-column boxes), each stage completing on its "full" mbarrier and freed on its
+//     "empty" one. Warpgroups 1 and 2 own 64 rows each: S = Q K^T by
+//     `wgmma.m64n{KEYS}k16` with both operands in shared memory; the
 //     online softmax on the accumulator fragments in registers (a row lives in the 4
 //     threads of a quad: two shuffles per reduction; masks only on tiles that cross
 //     the lens, causal or window edge); P converted to bf16 in registers and used as
 //     the register A operand of `wgmma.m64n{hd}k16` against V in shared memory with the
-//     transpose bit (V is stored MN-major); O rescaled in registers; the epilogue
+//     transpose bit (V is stored MN-major; at hd 256 two N-128 products, one per half
+//     of the head); O rescaled in registers; the epilogue
 //     stages bf16 O in the block's own Q rows and stores 16-byte chunks. The row tiles
 //     with the most keys launch first.
+//     hd 256 (gemma-2b: 16 query heads over one kv head, so a block is 8 query
+//     positions x 16 heads) takes 64-key tiles: at 128 keys, Q (64 KB) and two
+//     stages of K and V (4 x 64 KB) would need 320 KB of shared memory; at 64 keys
+//     they take 192 KB. Each consumer thread then holds 128 output floats and 32
+//     scores (`setmaxnreg` gives it 232 registers).
 //     Where the numbers depart from the TPU kernel: that kernel casts q, k and v to
 //     f32. Q K^T on bf16 inputs with f32 sums differs from it only in the order of the
 //     sums (a product of two bf16 values is exact in f32). P is rounded to bf16 for the
 //     P V product, where the TPU kernel keeps it in f32: a relative error up to 2^-9
 //     per weight, inside the bf16 tolerance of 2e-2. The row sum l adds the f32 P.
-//   - f32 at any hd, and bf16 at hd 16 and 32 or a G the TMA kernel does not take:
+//   - f32 at any hd, and bf16 at hd 16 and 32, a G the TMA kernel does not take or a
+//     tensor not on 16 bytes:
 //     `flash_fwd_kernel` on the CUDA cores. 64 rows per block, 4 warps; Q and a
 //     32-key K/V tile in shared memory as f32 (rows padded by one float), thread
 //     (ty, tx) owns rows ty*4..+3 and output columns tx + 8*c, scores reduced across
 //     the 8 column lanes of a row with warp shuffles. f32 stays off the tensor cores:
-//     TF32 products would not reliably meet its 2e-3 tolerance.
+//     TF32 products would not reliably meet its 2e-3 tolerance. At hd 256 its shared
+//     memory is 140 KB (Q and the K/V tile padded by one float a row) and each thread
+//     holds 4 x 32 output floats.
 //
 // Bound on this card: at the main path's prefill shapes (S = T = 512, hd = 128,
 // bf16) the work is 4*S*T*H*hd/2 FLOPs against Q+K+V+O bytes, about 180 FLOPs per
@@ -286,15 +296,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lens,
 // ---- bf16, hd 64 and 128: TMA ring and wgmma ------------------------------------
 
 constexpr int kFaRows = 128;        // flattened rows per block: 2 consumer warpgroups x 64
-constexpr int kFaKeys = 128;        // keys per K/V tile
 constexpr int kFaStages = 2;
 constexpr int kFaThreads = 384;     // producer + 2 consumer warpgroups
-constexpr int kBox = 128 * 128;     // one 64-column bf16 box of 128 rows, bytes
+constexpr int kBox = 128 * 128;     // one 64-column bf16 box of the 128 Q rows, bytes
 constexpr float kLog2e = 1.4426950408889634f;
 
+// keys per K/V tile: 128, and 64 at hd 256, where the Q tile (64 KB) and two stages
+// of 128-key K and V tiles (256 KB) would not fit the block's 227 KB
+template <int HD>
+__host__ __device__ constexpr int fa_keys() {
+  return HD == 256 ? 64 : 128;
+}
+
+// the Q tile, then kFaStages K and V tiles of fa_keys<HD>() rows, each HD / 64 boxes
+// of 128-byte rows; the barriers after them
 template <int HD>
 constexpr size_t tma_smem_bytes() {
-  return 1024 + (size_t)(HD / 64) * kBox * (1 + 2 * kFaStages) +
+  return 1024 + (size_t)(HD / 64) * (kBox + 2 * kFaStages * fa_keys<HD>() * 128) +
          (2 * kFaStages + 1) * sizeof(uint64_t);
 }
 
@@ -314,14 +332,17 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
                      const int* __restrict__ q_off, const int* __restrict__ kv_rows,
                      __nv_bfloat16* __restrict__ o, int Bk, int S, int T_, int H, int K,
                      int causal, int window, float softcap, float scale) {
-  constexpr int HALVES = HD / 64;
-  constexpr int TILE_BYTES = HALVES * kBox;   // one Q, K or V tile
+  constexpr int HALVES = HD / 64;               // 64-column boxes of a row
+  constexpr int KEYS = fa_keys<HD>();           // keys per K/V tile
+  constexpr int Q_BYTES = HALVES * kBox;        // the Q tile
+  constexpr int KV_BOX = KEYS * 128;            // one box of a K or V tile
+  constexpr int KV_BYTES = HALVES * KV_BOX;     // one K or V tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));  // [half][row][128 B]
-  uint8_t* sK = sQ + TILE_BYTES;                          // [stage][half][key][128 B]
-  uint8_t* sV = sK + kFaStages * TILE_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kFaStages * TILE_BYTES);
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));  // [box][row][128 B]
+  uint8_t* sK = sQ + Q_BYTES;                             // [stage][box][key][128 B]
+  uint8_t* sV = sK + kFaStages * KV_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kFaStages * KV_BYTES);
   uint64_t* empty = full + kFaStages;
   uint64_t* qbar = empty + kFaStages;
 
@@ -340,8 +361,8 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
   int k_end = len_b;
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
-  if (window > 0) k_begin = (max(0, q_first - window + 1) / kFaKeys) * kFaKeys;
-  const int n_kv = k_end > k_begin ? (k_end - k_begin + kFaKeys - 1) / kFaKeys : 0;
+  if (window > 0) k_begin = (max(0, q_first - window + 1) / KEYS) * KEYS;
+  const int n_kv = k_end > k_begin ? (k_end - k_begin + KEYS - 1) / KEYS : 0;
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   if (threadIdx.x == 0) {
@@ -357,16 +378,16 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
   if (wg == 0) {  // producer
     hopper::setmaxnreg_dec<40>();
     if (tid == 0 && n_kv > 0) {
-      hopper::mbar_arrive_expect_tx(qbar, TILE_BYTES);
+      hopper::mbar_arrive_expect_tx(qbar, Q_BYTES);
       for (int hf = 0; hf < HALVES; ++hf)
         hopper::tma_load_5d(sQ + hf * kBox, &qmap, qbar, hf * 64, 0, h, q_lo, b);
       for (int i = 0; i < n_kv; ++i) {
-        const int s = i % kFaStages, k0 = k_begin + i * kFaKeys;
+        const int s = i % kFaStages, k0 = k_begin + i * KEYS;
         hopper::mbar_wait(&empty[s], ((i / kFaStages) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * KV_BYTES);
         for (int hf = 0; hf < HALVES; ++hf) {
-          hopper::tma_load_4d(sK + s * TILE_BYTES + hf * kBox, &kmap, &full[s], hf * 64, h, k0, kb);
-          hopper::tma_load_4d(sV + s * TILE_BYTES + hf * kBox, &vmap, &full[s], hf * 64, h, k0, kb);
+          hopper::tma_load_4d(sK + s * KV_BYTES + hf * KV_BOX, &kmap, &full[s], hf * 64, h, k0, kb);
+          hopper::tma_load_4d(sV + s * KV_BYTES + hf * KV_BOX, &vmap, &full[s], hf * 64, h, k0, kb);
         }
       }
     }
@@ -388,29 +409,32 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
   if (n_kv > 0) hopper::mbar_wait(qbar, 0);
 
   for (int i = 0; i < n_kv; ++i) {
-    const int s = i % kFaStages, k0 = k_begin + i * kFaKeys;
+    const int s = i % kFaStages, k0 = k_begin + i * KEYS;
     hopper::mbar_wait(&full[s], (i / kFaStages) & 1);
 
-    // S = Q K^T: 64 rows x 128 keys, f32
-    float sc[kFaKeys / 2];
+    // S = Q K^T: 64 rows x KEYS keys, f32
+    float sc[KEYS / 2];
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const int hf = kk / 4, off = (kk % 4) * 32;
-      hopper::wgmma_bf16_ss_n128(
-          sc, hopper::desc_sw128(sQ + hf * kBox + c * 64 * 128 + off, 16, 1024),
-          hopper::desc_sw128(sK + s * TILE_BYTES + hf * kBox + off, 16, 1024), kk > 0);
+      const uint64_t da = hopper::desc_sw128(sQ + hf * kBox + c * 64 * 128 + off, 16, 1024);
+      const uint64_t db = hopper::desc_sw128(sK + s * KV_BYTES + hf * KV_BOX + off, 16, 1024);
+      if constexpr (KEYS == 128)
+        hopper::wgmma_bf16_ss_n128(sc, da, db, kk > 0);
+      else
+        hopper::wgmma_bf16_ss_n64(sc, da, db, kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
 
     // scale, softcap and mask; sc[4j + e] is row ra + 8*(e/2), key k0 + 8j + 2t + e%2
-    const bool edge = k0 + kFaKeys > len_b || (causal && k0 + kFaKeys - 1 > q_first) ||
+    const bool edge = k0 + KEYS > len_b || (causal && k0 + KEYS - 1 > q_first) ||
                       (window > 0 && q_last - k0 >= window);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < kFaKeys / 8; ++j)
+    for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = sc[4 * j + e];
@@ -436,9 +460,9 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
       l[rr] *= alpha[rr];
     }
     // P = exp2(S - m) as the register A operand, 16 keys per k-step
-    uint32_t pa[kFaKeys / 16][4];
+    uint32_t pa[KEYS / 16][4];
 #pragma unroll
-    for (int j = 0; j < kFaKeys / 8; ++j) {
+    for (int j = 0; j < KEYS / 8; ++j) {
       const float p0 = exp2f(sc[4 * j] - base[0]), p1 = exp2f(sc[4 * j + 1] - base[0]);
       const float p2 = exp2f(sc[4 * j + 2] - base[1]), p3 = exp2f(sc[4 * j + 3] - base[1]);
       l[0] += p0 + p1;
@@ -454,15 +478,24 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
       acc[4 * j + 3] *= alpha[1];
     }
 
-    // O += P V; V (keys x hd) is MN-major: 8 keys to a 1024-byte group, hd halves kBox apart
+    // O += P V; V (keys x hd) is MN-major: 8 keys to a 1024-byte group, 64-column
+    // boxes KV_BOX apart; at hd 256 one N-128 product per half of the head (columns
+    // 0-127 in acc[0..63], 128-255 in acc[64..127], the fragment order the epilogue
+    // reads)
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kFaKeys / 16; ++kk) {
-      const uint64_t dv = hopper::desc_sw128(sV + s * TILE_BYTES + kk * 16 * 128, kBox, 1024);
-      if constexpr (HD == 128)
-        hopper::wgmma_bf16_rs_n128(acc, pa[kk], dv, 1);
-      else
-        hopper::wgmma_bf16_rs_n64(acc, pa[kk], dv, 1);
+    for (int kk = 0; kk < KEYS / 16; ++kk) {
+      const uint8_t* vk = sV + s * KV_BYTES + kk * 16 * 128;
+      if constexpr (HD == 256) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          hopper::wgmma_bf16_rs_n128(*reinterpret_cast<float(*)[64]>(acc + 64 * n), pa[kk],
+                                     hopper::desc_sw128(vk + 2 * n * KV_BOX, KV_BOX, 1024), 1);
+      } else if constexpr (HD == 128) {
+        hopper::wgmma_bf16_rs_n128(acc, pa[kk], hopper::desc_sw128(vk, KV_BOX, 1024), 1);
+      } else {
+        hopper::wgmma_bf16_rs_n64(acc, pa[kk], hopper::desc_sw128(vk, KV_BOX, 1024), 1);
+      }
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -535,7 +568,7 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, const int* l
     e = hopper::make_map<4>(maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, kv[i],
                             {(uint64_t)HD, (uint64_t)K, (uint64_t)T_, (uint64_t)Bk},
                             {HD * e2, (uint64_t)K * HD * e2, (uint64_t)T_ * K * HD * e2},
-                            {64u, 1u, (uint32_t)kFaKeys, 1u});
+                            {64u, 1u, (uint32_t)fa_keys<HD>(), 1u});
     if (e != cudaSuccess) return e;
   }
   dim3 grid(K, B, (S * G + kFaRows - 1) / kFaRows);
@@ -546,11 +579,24 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, const int* l
   return cudaGetLastError();
 }
 
-// the TMA kernel takes bf16 at hd 64 and 128 when G divides its 128-row tile and
-// every tensor starts on 16 bytes
+// the TMA kernel takes bf16 at hd 64, 128 and 256 when G divides its 128-row tile
+// and every tensor starts on 16 bytes
 bool takes_tma(int hd, int G, const void* q, const void* k, const void* v, const void* o) {
   const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
-  return (hd == 64 || hd == 128) && G <= kFaRows && kFaRows % G == 0 && any % 16 == 0;
+  return (hd == 64 || hd == 128 || hd == 256) && G <= kFaRows && kFaRows % G == 0 &&
+         any % 16 == 0;
+}
+
+template <int HD>
+cudaError_t launch_tma_hd(const void* q, const void* k, const void* v, const int* lens,
+                          const int* q_off, const int* kv_rows, void* o, int B, int Bk, int S,
+                          int T_, int H, int K, int causal, int window, float softcap,
+                          cudaStream_t st) {
+  if (q_off != nullptr || kv_rows != nullptr)
+    return launch_tma<HD, true>(q, k, v, lens, q_off, kv_rows, o, B, Bk, S, T_, H, K, causal,
+                                window, softcap, st);
+  return launch_tma<HD, false>(q, k, v, lens, q_off, kv_rows, o, B, Bk, S, T_, H, K, causal,
+                               window, softcap, st);
 }
 
 template <typename T>
@@ -561,9 +607,11 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, con
 #define FLASH_ARGS q, k, v, lens, q_off, kv_rows, o, B, Bk, S, T_, H, K, causal, window, softcap, st
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (takes_tma(hd, H / K, q, k, v, o)) {
-      if (q_off != nullptr || kv_rows != nullptr)
-        return hd == 128 ? launch_tma<128, true>(FLASH_ARGS) : launch_tma<64, true>(FLASH_ARGS);
-      return hd == 128 ? launch_tma<128, false>(FLASH_ARGS) : launch_tma<64, false>(FLASH_ARGS);
+      switch (hd) {
+        case 64: return launch_tma_hd<64>(FLASH_ARGS);
+        case 128: return launch_tma_hd<128>(FLASH_ARGS);
+        case 256: return launch_tma_hd<256>(FLASH_ARGS);
+      }
     }
   }
   switch (hd) {
@@ -571,6 +619,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, con
     case 32: return launch<T, 32>(FLASH_ARGS);
     case 64: return launch<T, 64>(FLASH_ARGS);
     case 128: return launch<T, 128>(FLASH_ARGS);
+    case 256: return launch<T, 256>(FLASH_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS

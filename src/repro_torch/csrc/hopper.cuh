@@ -8,8 +8,8 @@
 // Layout convention. Every tile in shared memory is written by TMA with the 128-byte
 // swizzle: rows of exactly 128 bytes (64 bf16 or 128 int8 values), 8 rows to a
 // 1024-byte swizzle atom, each 16-byte chunk c of row r stored at chunk c ^ (r % 8).
-// A wider row (hd = 128 in bf16) is loaded as two 64-column boxes, one after the
-// other. Tiles start on 1024-byte boundaries, which the swizzle and the descriptors
+// A wider row (hd = 128 or 256 in bf16) is loaded as two or four 64-column boxes, one
+// after the other. Tiles start on 1024-byte boundaries, which the swizzle and the descriptors
 // below assume.
 //
 // Tensor maps. `cuTensorMapEncodeTiled` is a driver function and the libraries link no
@@ -203,6 +203,23 @@ __device__ __forceinline__ void wgmma_bf16_ss_n128(float (&d)[64], uint64_t da, 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16, K-major in shared memory) * B (64 x 16,
+// bf16, K-major in shared memory); D is zeroed first when scale_d == 0.
+__device__ __forceinline__ void wgmma_bf16_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -4,10 +4,12 @@ Every ``src/repro_torch/csrc/<name>.cu`` compiles on its own into
 ``<package>/build/<name>-<hash>.so`` with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC
+         -Xcompiler -fPIC --split-compile=0
 
 The sources have a plain C interface (no PyTorch headers), so a build takes
-seconds. The library name carries a hash of its source, of the shared
+seconds per kernel instantiation; ``--split-compile=0`` lets the device
+compiler optimise a source's many instantiations (head_dim x group bound
+x type in the decode kernels) on every core at once. The library name carries a hash of its source, of the shared
 headers in ``csrc/*.cuh`` (``hopper.cuh``: the TMA, mbarrier and wgmma
 helpers) and of the flags, so an edited source or header rebuilds and a
 stale library is never loaded. The tensor-core kernels fetch the CUDA
@@ -33,7 +35,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
 
 
 def sources() -> Dict[str, Path]:

@@ -9,10 +9,15 @@ a CUDA input the kernel cannot take raises. ``decode_attn.launches`` and
 not count).
 
 Both kernels split S (``csrc/decode_split.cuh``): ``chunk_plan`` picks the
-keys per block from the bytes of a K row (``ref.row_chunks`` are the chunks
-a row reads), and rows of more than one chunk merge their chunks in the
-same launch through an f32 scratch allocated per call and one int32 ticket
-counter per (row, kv head). The two kernels share the counters: they are
+keys per block from the bytes of a K row and the block's shared memory
+(``smem_bytes``: the K/V rows and the group's f32 accumulators;
+``ref.row_chunks`` are the chunks a row reads), and rows of more than one
+chunk merge their chunks through an f32 scratch allocated per call: in the
+same launch, by the block that draws the last of one int32 ticket counter
+per (row, kv head), or, where a row's records could pass 12 KB (gemma2-27b's
+and gemma-2b's decode), in a second kernel of the same call (one launch
+counted; ``scripts/torch_decode_merge.py`` times both merges). The two
+kernels share the counters: they are
 allocated zeroed once per device and every launch of either kernel leaves
 them zero (a replayed CUDA graph's launches too), so launches that run in
 turn on one stream (the engine's) share them; two launches that run at
@@ -32,8 +37,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn.ref import (decode_attn_int8_ref,
                                                  decode_attn_ref)
 
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_GROUP = 8          # query heads per kv head held in registers
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_GROUP = 16         # query heads per kv head (8 at a time in registers)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -54,32 +59,53 @@ CHUNK_MIN, CHUNK_MAX = 64, 256      # keys per block
 INT8_CHUNK_MIN, INT8_CHUNK_MAX = CHUNK_MIN, CHUNK_MAX
 BLOCKS_PER_SM = 16
 CHUNK_SMEM = 160 * 1024   # bytes of K and V rows a block may hold
+CARD_SMEM = 227 * 1024    # a block's dynamic shared memory on the H100
 SMEM_PAD = 16             # bytes after each K/V row in shared memory
 
 
-def chunk_plan(B: int, K: int, S: int, sms: int, row_bytes: int) -> int:
-    """Keys per block of the split-S decode kernels, for K/V rows of
-    ``row_bytes`` bytes (head_dim times 1 for int8, 2 for bf16, 4 for f32):
-    64, doubled (up to 256) while the grid of K * B * ceil(S/chunk) blocks
-    would hold more than 16 per SM for rows of up to 128 bytes, and
-    proportionally fewer for wider rows (8 at 256 bytes, 4 at 512), which
-    bounds the scratch, the records one merge reads and the blocks the card
-    cannot hold at once; and while the doubled chunk's K and V rows
-    (2 * chunk * (row_bytes + 16) bytes in shared memory) stay within
-    160 KB, which keeps a block within the card's 227 KB."""
+def chunk_warps(chunk: int) -> int:
+    """Warps a block of a ``chunk``-key chunk has (``csrc/decode_split.cuh``
+    ``chunk_warps``): 4 at 64-key chunks, 8 from 128 keys on."""
+    return 4 if chunk % 128 else 8
+
+
+def smem_bytes(row_bytes: int, hd: int, group: int, chunk: int) -> int:
+    """Dynamic shared memory of one block (``csrc/decode_split.cuh``
+    ``smem_bytes``): the chunk's K and V rows padded by 16 bytes, then the
+    group's q and each warp's (acc, m, l) in f32."""
+    return 2 * chunk * (row_bytes + SMEM_PAD) + 4 * (
+        group * hd + chunk_warps(chunk) * group * (hd + 2))
+
+
+def chunk_plan(B: int, K: int, S: int, sms: int, hd: int, elem_bytes: int,
+               group: int) -> int:
+    """Keys per block of the split-S decode kernels, for K/V rows of ``hd``
+    elements of ``elem_bytes`` bytes (1 int8, 2 bf16, 4 f32) and ``group``
+    query heads per kv head: 64, doubled (up to 256) while the grid of K *
+    B * ceil(S/chunk) blocks would hold more than 16 per SM for rows of up
+    to 128 bytes, and proportionally fewer for wider rows (8 at 256 bytes,
+    4 at 512, 2 at 1024), which bounds the scratch, the records one merge
+    reads and the blocks the card cannot hold at once; and while the
+    doubled chunk's K and V rows (2 * chunk * (row bytes + 16) in shared
+    memory) stay within 160 KB and its whole block (``smem_bytes``, the
+    group's accumulators included) within the card's 227 KB. (hd 256 at G
+    16 keeps 64 keys: 150 KB in bf16, 215 KB in f32; 128 keys on 8 warps
+    would take 283 KB in bf16.)"""
+    row_bytes = hd * elem_bytes
     per_sm = BLOCKS_PER_SM * 128 // max(row_bytes, 128)
     chunk = CHUNK_MIN
     while chunk < CHUNK_MAX \
             and B * K * -(-S // chunk) > per_sm * sms \
-            and 2 * 2 * chunk * (row_bytes + SMEM_PAD) <= CHUNK_SMEM:
+            and 2 * 2 * chunk * (row_bytes + SMEM_PAD) <= CHUNK_SMEM \
+            and smem_bytes(row_bytes, hd, group, 2 * chunk) <= CARD_SMEM:
         chunk *= 2
     return chunk
 
 
-def int8_chunk_plan(B: int, K: int, S: int, sms: int) -> int:
-    """``chunk_plan`` of the int8 kernel, whose rows (at most 128 bytes)
-    never reach the shared-memory cap."""
-    return chunk_plan(B, K, S, sms, HEAD_DIMS[-1])
+def int8_chunk_plan(B: int, K: int, S: int, sms: int, hd: int,
+                    group: int) -> int:
+    """``chunk_plan`` of the int8 kernel (1-byte elements)."""
+    return chunk_plan(B, K, S, sms, hd, 1, group)
 
 
 _TICKETS = {}
@@ -180,8 +206,8 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attn kernel needs k and v at 16-byte aligned "
                          "addresses")
     o = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
-    chunk = chunk_plan(B, K, S, _build.sm_count(q.device.index),
-                       hd * k.element_size())
+    chunk = chunk_plan(B, K, S, _build.sm_count(q.device.index), hd,
+                       k.element_size(), H // K)
     part = _scratch(B, H, K, S, hd, chunk, q.device)
     lib = _lib()
     err = lib.decode_attn_fwd(
@@ -248,7 +274,8 @@ def decode_attn_int8(q: torch.Tensor, kq: torch.Tensor, k_scale: torch.Tensor,
         raise ValueError("decode_attn_int8 kernel needs kq and vq at 16-byte "
                          "aligned addresses")
     o = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
-    chunk = chunk_plan(B, K, S, _build.sm_count(q.device.index), hd)
+    chunk = int8_chunk_plan(B, K, S, _build.sm_count(q.device.index), hd,
+                            H // K)
     part = _scratch(B, H, K, S, hd, chunk, q.device)
     lib = _lib_int8()
     err = lib.decode_attn_int8_fwd(

@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

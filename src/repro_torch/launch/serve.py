@@ -1,7 +1,8 @@
 """Serving launcher of the port: ``python -m repro_torch.launch.serve --arch
 deepseek-7b --requests 16`` (or ``--arch gemma2-27b``, local and global
-layers in turn) — continuous-batching LM serving with bucketed
-batched prefill on the card (``--device cpu`` runs the plain versions of
+layers in turn; or ``--arch gemma-2b``, MQA at head_dim 256 with padded
+heads) — continuous-batching LM serving with bucketed batched prefill on
+the card (``--device cpu`` runs the plain versions of
 the kernels on the host). ``--smoke`` (the default) serves the reduced
 config; ``--full-config`` the published widths. The request trace is the
 JAX launcher's: the same seeded generator, lengths and priorities.
@@ -518,8 +519,10 @@ def _chunk_arg(v: str):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b",
-                    help="deepseek-7b or gemma2-27b, or dlrm for the "
-                         "recommendation pipeline")
+                    help="deepseek-7b, gemma2-27b or gemma-2b, or dlrm for "
+                         "the recommendation pipeline (--smoke reduces an LM "
+                         "with reduce_for_smoke, which drops gemma-2b's "
+                         "head padding and head_dim 256)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)

@@ -40,18 +40,25 @@ Cache = Dict[str, torch.Tensor]
 
 
 class Attention(nn.Module):
-    """``wq`` (d,H,hd), ``wk``/``wv`` (d,K,hd), ``wo`` (H,hd,d): the JAX
-    layout, so converted weights load as they are."""
+    """``wq`` (d,Hp,hd), ``wk``/``wv`` (d,K,hd), ``wo`` (Hp,hd,d): the JAX
+    layout, so converted weights load as they are. ``Hp`` is
+    ``cfg.padded_heads``: heads H..Hp-1 are padding, their ``wo`` rows
+    zero at init (as the JAX package's), so the kernels attend them and
+    the output projection discards them exactly. Every reshape after the
+    projections takes its head count from the weights, never from
+    ``cfg.num_heads``."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
         dt = dtype_of(cfg.param_dtype)
         d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
-        self.wq = mk_param((d, H, hd), dt, device, gen)
+        Hp = cfg.padded_heads
+        self.wq = mk_param((d, Hp, hd), dt, device, gen)
         self.wk = mk_param((d, K, hd), dt, device, gen)
         self.wv = mk_param((d, K, hd), dt, device, gen)
-        self.wo = mk_param((H, hd, d), dt, device, gen)
+        self.wo = mk_param((Hp, hd, d), dt, device, gen)
+        self.wo.data[H:] = 0          # the padded heads' output rows
 
 
 def cache_slots(cfg: ModelConfig, max_len: int, kind: str) -> int:
@@ -106,9 +113,9 @@ def _ring_newest_positions(last: torch.Tensor, win: int) -> torch.Tensor:
 
 
 def _head_proj(x: torch.Tensor, w, cfg: ModelConfig) -> torch.Tensor:
-    """x (B,S,d) @ w (d,N,hd) -> (B,S,N,hd); the quantized form holds the
-    head axes flattened ((d, N*hd) int8) and they are restored from
-    ``cfg.head_dim``."""
+    """x (B,S,d) @ w (d,N,hd) -> (B,S,N,hd), N the weight's heads (padded
+    ones included); the quantized form holds the head axes flattened
+    ((d, N*hd) int8) and they are restored from ``cfg.head_dim``."""
     B, S, d = x.shape
     if is_quantized_dense(w):
         return dense_w8a8(x, w).view(B, S, -1, cfg.head_dim)

@@ -1,7 +1,7 @@
 """Model assembly for the port: a dense attention LM (embedding, a stack of
 global and local blocks in the order of ``cfg.layer_kinds()``, final
-RMSNorm, greedy head) — the path deepseek-7b and gemma2-27b serving run in
-``repro/models/model.py``. The JAX package scans stacked layer
+RMSNorm, greedy head) — the path deepseek-7b, gemma2-27b and gemma-2b
+serving run in ``repro/models/model.py``. The JAX package scans stacked layer
 parameters with ``jax.lax.scan``; here the layers are an ``nn.ModuleList``
 walked by a Python loop, and the caches a list with one dict per layer.
 """
@@ -29,7 +29,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "recurrent blocks": cfg.recurrent is not None,
         "encoder-decoder": cfg.encdec is not None,
         "M-RoPE": cfg.rope_mode != "standard",
-        "padded heads": cfg.padded_heads != cfg.num_heads,
         "q/k/v/o biases": cfg.qkv_bias or cfg.o_bias,
         "non-gated or biased MLP": not cfg.glu or cfg.mlp_bias,
         "layernorm": cfg.norm_type != "rmsnorm",

@@ -47,8 +47,8 @@ def _qkv(rng, B, H, K, hd, S, dtype):
 
 
 # (B, H, K, hd, S, per-row pos, softcap, dtype): pos on, before and after the
-# 64-, 128- and 256-key chunk edges, 0, at and past S-1; G from 1 to 8; hd
-# from 16 to 128
+# 64-, 128- and 256-key chunk edges, 0, at and past S-1; G from 1 to 8, 12
+# and 16; hd from 16 to 256
 SPLIT_CASES = [
     (4, 32, 32, 128, 1024, [1023, 600, 31, 0], 0.0, torch.bfloat16),
     (4, 8, 8, 128, 600, [0, 62, 63, 64], 0.0, torch.bfloat16),
@@ -62,6 +62,11 @@ SPLIT_CASES = [
     (2, 12, 2, 32, 300, [257, 134], 30.0, torch.float32),
     (2, 14, 2, 64, 300, [299, 199], 0.0, torch.bfloat16),
     (2, 16, 2, 128, 300, [511, 8], 50.0, torch.float32),
+    # hd 256 at G 8, 12 and 16 (gemma-2b: 16 padded heads over one kv head)
+    (2, 8, 1, 256, 300, [255, 64], 0.0, torch.bfloat16),
+    (2, 24, 2, 256, 300, [127, 299], 30.0, torch.float32),
+    (2, 16, 1, 256, 300, [63, 191], 0.0, torch.float32),
+    (2, 16, 1, 256, 300, [299, 128], 0.0, torch.bfloat16),
 ]
 
 
@@ -101,7 +106,9 @@ def test_split_ref_row_without_keys_is_exactly_zero(dt):
 # (B, H, K, hd, S, pos_frac, softcap)
 JAX_DECODE_CASES = [(2, 8, 8, 64, 256, 0.5, 0.0), (2, 8, 2, 64, 256, 0.9, 0.0),
                     (1, 8, 1, 128, 512, 0.3, 0.0), (4, 4, 4, 32, 64, 0.0, 0.0),
-                    (2, 8, 4, 64, 256, 0.7, 50.0)]
+                    (2, 8, 4, 64, 256, 0.7, 50.0),
+                    (2, 16, 1, 256, 256, 0.6, 0.0),     # hd 256, G 16
+                    (1, 12, 1, 256, 256, 0.9, 30.0)]    # G 12
 
 
 @pytest.mark.parametrize(
@@ -122,7 +129,7 @@ def test_split_ref_matches_jax_flash_decode(case):
              np.asarray(jax_decode_ref(*jargs, jnp.int32(pos), softcap=cap))]
     t = [torch.from_numpy(a) for a in arrays]
     pos_t = torch.full((B,), pos, dtype=torch.int32)
-    for chunk in (64, chunk_plan(B, K, S, H100_SMS, hd * 4)):
+    for chunk in (64, chunk_plan(B, K, S, H100_SMS, hd, 4, H // K)):
         got = decode_attn_split_ref(*t, pos_t, chunk, softcap=cap).numpy()
         for want in wants:
             np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
@@ -136,8 +143,13 @@ PLAN_SHAPES = [(4, 32, 1024), (1, 1, 64), (64, 32, 4096), (3, 2, 300),
 
 @pytest.mark.parametrize("row_bytes", ROW_BYTES)
 def test_chunk_plan_covers_each_row_once(row_bytes):
+    # every (head_dim, element size) of these row bytes plans alike at G 1
+    widths = [(hd, e) for e in (1, 2, 4) for hd in (16, 32, 64, 128)
+              if hd * e == row_bytes]
     for B, K, S in PLAN_SHAPES:
-        chunk = chunk_plan(B, K, S, H100_SMS, row_bytes)
+        plans = {chunk_plan(B, K, S, H100_SMS, hd, e, 1) for hd, e in widths}
+        assert len(plans) == 1
+        chunk = plans.pop()
         assert CHUNK_MIN <= chunk <= CHUNK_MAX and chunk % CHUNK_MIN == 0
         # the K/V rows of a chunk, q and the 4 warps' states of 8 query
         # heads at hd 128 fit a block
@@ -157,16 +169,16 @@ def test_chunk_plan_by_row_width():
     # the main decode shape: int8 keeps 64-key chunks, bf16 and f32 rows
     # (256 and 512 bytes at hd 128) take 128 (f32 stops there: 256 keys
     # would not fit the shared memory)
-    assert chunk_plan(4, 32, 1024, H100_SMS, 128) == 64
-    assert chunk_plan(4, 32, 1024, H100_SMS, 256) == 128
-    assert chunk_plan(4, 32, 1024, H100_SMS, 512) == 128
-    assert chunk_plan(64, 32, 4096, H100_SMS, 512) == 128
-    assert chunk_plan(64, 32, 4096, H100_SMS, 256) == 256
+    assert chunk_plan(4, 32, 1024, H100_SMS, 128, 1, 1) == 64
+    assert chunk_plan(4, 32, 1024, H100_SMS, 128, 2, 1) == 128
+    assert chunk_plan(4, 32, 1024, H100_SMS, 128, 4, 1) == 128
+    assert chunk_plan(64, 32, 4096, H100_SMS, 128, 4, 1) == 128
+    assert chunk_plan(64, 32, 4096, H100_SMS, 128, 2, 1) == 256
     for B, K, S in PLAN_SHAPES:      # the int8 kernel's plan is unchanged
-        assert int8_chunk_plan(B, K, S, H100_SMS) \
-            == chunk_plan(B, K, S, H100_SMS, 128)
-        assert chunk_plan(B, K, S, H100_SMS, 64) \
-            == chunk_plan(B, K, S, H100_SMS, 16)
+        assert int8_chunk_plan(B, K, S, H100_SMS, 128, 1) \
+            == chunk_plan(B, K, S, H100_SMS, 128, 1, 1)
+        assert chunk_plan(B, K, S, H100_SMS, 64, 1, 1) \
+            == chunk_plan(B, K, S, H100_SMS, 16, 1, 1)
 
 
 # ---- SLS ----------------------------------------------------------------

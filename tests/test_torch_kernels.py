@@ -55,7 +55,7 @@ def _close(got: torch.Tensor, want, tol: float):
                                rtol=tol, atol=tol)
 
 
-# the nine cases of repro/kernels/flash_attn/ops.py:
+# the nine cases of repro/kernels/flash_attn/ops.py and gemma-2b's hd 256:
 # (B, S, H, K, hd, dtype, lens_frac, kwargs)
 FLASH_CASES = {
     "mha_64": (2, 64, 4, 4, 32, "f32", None, {}),
@@ -67,6 +67,13 @@ FLASH_CASES = {
     "noncausal": (2, 64, 4, 4, 32, "f32", None, {"causal": False}),
     "odd_seq_96": (1, 96, 4, 4, 32, "f32", None, {}),
     "bf16": (2, 128, 8, 2, 64, "bf16", None, {}),
+    # gemma-2b's domain: head_dim 256, G 8, 12 and 16 query heads per kv
+    # head (16 padded heads over one kv head), a window and a softcap
+    "hd256_G8": (1, 64, 8, 1, 256, "f32", None, {}),
+    "hd256_G12_window": (2, 48, 24, 2, 256, "f32", 0.6, {"window": 16}),
+    "hd256_G16_softcap": (1, 64, 16, 1, 256, "f32", None,
+                          {"softcap": 30.0}),
+    "hd256_G16_bf16": (2, 64, 16, 1, 256, "bf16", 0.6, {}),
 }
 
 
@@ -90,14 +97,17 @@ def test_flash_plain_matches_jax(name):
     _close(got, jax_flash_ref(qj, kj, vj, lj, **kw), tol)
 
 
-# the cases of repro/kernels/decode_attn/ops.py: (B, H, K, hd, S, pos_frac,
-# softcap)
+# the cases of repro/kernels/decode_attn/ops.py and gemma-2b's hd 256 at G
+# 8, 12 and 16: (B, H, K, hd, S, pos_frac, softcap)
 DECODE_CASES = [
     (2, 8, 8, 64, 256, 0.5, 0.0),      # MHA
     (2, 8, 2, 64, 256, 0.9, 0.0),      # GQA
     (1, 8, 1, 128, 512, 0.3, 0.0),     # MQA
     (4, 4, 4, 32, 64, 0.0, 0.0),       # pos=0 edge
     (2, 8, 4, 64, 256, 0.7, 50.0),     # softcap
+    (2, 8, 1, 256, 256, 0.9, 0.0),     # hd 256, G 8
+    (2, 24, 2, 256, 256, 0.5, 0.0),    # hd 256, G 12
+    (2, 16, 1, 256, 256, 0.7, 30.0),   # hd 256, G 16 (gemma-2b), softcap
 ]
 
 

@@ -25,9 +25,9 @@ from repro.kernels.decode_attn.ref import \
     decode_attn_int8_ref as jax_decode_int8_ref
 from repro.kernels.w8a8.ops import w8a8 as jax_w8a8
 from repro.kernels.w8a8.ref import w8a8_ref as jax_w8a8_ref
-from repro_torch.kernels.decode_attn.ops import (INT8_CHUNK_MAX,
-                                                 INT8_CHUNK_MIN,
-                                                 int8_chunk_plan)
+from repro_torch.kernels.decode_attn.ops import (CARD_SMEM, INT8_CHUNK_MAX,
+                                                 INT8_CHUNK_MIN, chunk_plan,
+                                                 int8_chunk_plan, smem_bytes)
 from repro_torch.kernels.decode_attn.ref import (decode_attn_int8_ref,
                                                  decode_attn_int8_split_ref,
                                                  row_chunks)
@@ -105,15 +105,55 @@ def test_int8_row_chunks_cover_each_row_once(S, pos, chunk):
 
 def test_int8_chunk_plan():
     # the main shape: 4 rows, 32 kv heads, S 1024 -> 64 keys a block
-    assert int8_chunk_plan(4, 32, 1024, H100_SMS) == 64
+    assert int8_chunk_plan(4, 32, 1024, H100_SMS, 128, 1) == 64
     for B, K, S in [(4, 32, 1024), (1, 1, 64), (64, 32, 4096), (3, 2, 300),
                     (8, 32, 32768), (1, 8, 1 << 20)]:
-        chunk = int8_chunk_plan(B, K, S, H100_SMS)
+        chunk = int8_chunk_plan(B, K, S, H100_SMS, 128, 1)
         assert INT8_CHUNK_MIN <= chunk <= INT8_CHUNK_MAX and chunk % 64 == 0
         # at most 16 blocks per SM unless the largest chunk is reached
         assert chunk == INT8_CHUNK_MAX \
             or B * K * -(-S // chunk) <= 16 * H100_SMS
-    assert int8_chunk_plan(64, 32, 4096, H100_SMS) == 256
+    assert int8_chunk_plan(64, 32, 4096, H100_SMS, 128, 1) == 256
+
+
+def test_int8_chunk_plan_takes_the_row_bytes():
+    """The int8 row is ``hd`` bytes: 128 at deepseek-7b's head_dim (the
+    plans pinned above), 256 at gemma-2b's, which halves the blocks a plan
+    lets an SM hold."""
+    for B, K, S in [(4, 32, 1024), (64, 32, 4096), (8, 32, 32768)]:
+        assert int8_chunk_plan(B, K, S, H100_SMS, 128, 1) \
+            == chunk_plan(B, K, S, H100_SMS, 128, 1, 1) \
+            == chunk_plan(B, K, S, H100_SMS, 64, 2, 1)
+    assert int8_chunk_plan(8, 32, 32768, H100_SMS, 256, 1) == 256
+    # the main shape: 2048 blocks of 64 keys are within 16 an SM for
+    # 128-byte rows, not within 8 for 256-byte ones
+    assert int8_chunk_plan(4, 32, 1024, H100_SMS, 128, 1) == 64
+    assert int8_chunk_plan(4, 32, 1024, H100_SMS, 256, 1) == 128
+
+
+# (B, K, S) of the plans: the main and reduced shapes, gemma-2b's decode (4
+# rows, 1 kv head, 4608 positions) and longer caches
+SMEM_SHAPES = [(4, 32, 1024), (1, 1, 64), (64, 32, 4096), (4, 1, 4608),
+               (8, 1, 32768), (1, 8, 1 << 20), (64, 1, 4608)]
+
+
+@pytest.mark.parametrize("elem", [4, 2, 1], ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("group", [8, 12, 16])
+def test_chunk_plan_keeps_a_block_within_the_card_at_hd256(elem, group):
+    """At hd 256 a block's shared memory grows with the group: the plan
+    never picks a chunk whose block (K/V rows plus q and each warp's state
+    of G heads, ``smem_bytes``) passes the card's 227 KB; G 16 at
+    gemma-2b's decode shape keeps 64-key chunks (150 KB in bf16, 215 KB in
+    f32)."""
+    hd, rb = 256, 256 * elem
+    for B, K, S in SMEM_SHAPES:
+        chunk = chunk_plan(B, K, S, H100_SMS, hd, elem, group)
+        assert INT8_CHUNK_MIN <= chunk <= INT8_CHUNK_MAX and chunk % 64 == 0
+        assert smem_bytes(rb, hd, group, chunk) <= CARD_SMEM
+    assert smem_bytes(512, 256, 16, 64) == 150016
+    assert smem_bytes(1024, 256, 16, 64) == 215552
+    assert smem_bytes(512, 256, 16, 128) > CARD_SMEM
+    assert chunk_plan(4, 1, 4608, H100_SMS, hd, elem, 16) == 64
 
 
 # ---- the split plain versions ---------------------------------------------
@@ -187,7 +227,7 @@ def _int8_cache(rng, shape):
 
 
 # (B, H, K, hd, S, per-row pos, softcap): chunk boundaries at 64 / 128, pos
-# 0, pos >= S-1, G from 1 to 8, hd from 16 to 128
+# 0, pos >= S-1, G from 1 to 8, 12 and 16, hd from 16 to 256
 DECODE_SPLIT_CASES = [
     (4, 32, 32, 128, 1024, [1023, 600, 31, 0], 0.0),
     (3, 8, 8, 64, 300, [63, 64, 299], 0.0),
@@ -196,6 +236,9 @@ DECODE_SPLIT_CASES = [
     (2, 6, 2, 128, 257, [256, 191], 50.0),
     (1, 5, 5, 64, 64, [63], 0.0),
     (3, 16, 2, 16, 130, [65, 129, 2], 0.0),
+    (2, 16, 1, 256, 300, [63, 299], 0.0),        # hd 256, G 16
+    (2, 24, 2, 256, 200, [128, 64], 30.0),       # hd 256, G 12
+    (1, 8, 1, 256, 129, [128], 0.0),             # hd 256, G 8
 ]
 
 
@@ -220,7 +263,10 @@ def test_decode_int8_split_ref_matches_plain(case):
 JAX_DECODE_INT8_CASES = [(2, 8, 8, 64, 256, 0.5, 0.0),
                          (2, 8, 2, 64, 256, 0.9, 0.0),
                          (1, 8, 1, 128, 512, 0.3, 0.0),
-                         (2, 8, 4, 64, 256, 0.7, 50.0)]
+                         (2, 8, 4, 64, 256, 0.7, 50.0),
+                         (2, 16, 1, 256, 256, 0.6, 0.0),    # hd 256, G 16
+                         (2, 24, 2, 256, 256, 0.9, 0.0),    # G 12
+                         (1, 8, 1, 256, 256, 0.5, 0.0)]     # G 8
 
 
 @pytest.mark.parametrize(
@@ -240,7 +286,7 @@ def test_decode_int8_split_ref_matches_jax(case):
                                                interpret=True)))
     t = [torch.from_numpy(a) for a in (qn, *cache)]
     pos_t = torch.full((B,), pos, dtype=torch.int32)
-    for chunk in (64, int8_chunk_plan(B, K, S, H100_SMS)):
+    for chunk in (64, int8_chunk_plan(B, K, S, H100_SMS, hd, H // K)):
         got = decode_attn_int8_split_ref(*t, pos_t, chunk, softcap=cap).numpy()
         for w in want:
             np.testing.assert_allclose(got, w, rtol=2e-3, atol=2e-3)
