@@ -78,7 +78,11 @@ result line):
              and 12, non-causal, chunks); both decode kernels at B 4, S 4608,
              pos (4095, 3000, 1200, 31) and at G 9, 12 and 16 around the
              chunk edges; w8a8 at gemma-2b's projections. Every G-16 case
-             holds 16 different heads (``heads_distinct``).
+             holds 16 different heads (``heads_distinct``). w8a8 at
+             gemma2-27b's projections (K 4608 -> 4096, 2048, 36864; 4096 ->
+             4608; 36864 -> 4608) at M 4 and 2048, each on the split-K or
+             the TMA kernel (the device window must name it, not the
+             fallback kernel), bit for bit, timed beside ``torch._int_mm``.
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``, its stages
              captured as CUDA graphs (the card's default): 8 requests, 32
@@ -101,6 +105,9 @@ result line):
              decode kernels must have run and the bf16 decode kernel not;
              the greedy agreement with phase 3 is printed, not held (the
              logits of random full-width weights are near-flat).
+             check-deepseek-layers then holds one full-width w8a8 +
+             int8-KV decode step's final hidden state to bf16's, as
+             check-gemma2b-layers does (6c).
 4a. serve-eager-w8a8 — phase 3b for the quantized engine.
 4b. serve-chunked, serve-chunked-w8a8 — the same weights and requests
              through ``prefill_chunk=128`` engines, bf16 and then w8a8 with
@@ -199,8 +206,26 @@ result line):
 6f. serve-gemma2-chunked — the same through ``prefill_chunk=512``: flash at
              a query offset and with a window; the agreement with 6d printed,
              not held. One chunk call at offsets past the window is
-             profiled, and the local layers' ring gather timed alone. The
-             gemma2-27b weights are then freed.
+             profiled, and the local layers' ring gather timed alone.
+6g. serve-gemma2-w8a8, check-gemma2-layers, serve-gemma2-chunked-w8a8 —
+             first the bf16 side of check-gemma2-layers (one decode step
+             after prompts of 4600, 4200, 300 and 1 tokens, max_len 5120:
+             the rings wrap), then the §V build step with
+             ``release_fp=True``: each int8 site's fp weights move to the
+             host once it is quantized, so the card never holds the bf16
+             model and its int8 form together (~75 GiB); its time,
+             decisions, peak memory beside the card's total, and the host
+             bytes it moved are printed. No leaf of the quantized model may
+             be off the card. Then 6e's requests through a w8a8 engine with
+             an int8 KV cache, monolithic and through ``prefill_chunk=512``
+             (the same build): 8/8 requests of 32 tokens; flash with a
+             window (and at a query offset, chunked), the w8a8 and int8
+             decode kernels launched, bf16 decode not; the agreement with
+             6e printed, not held; each decode stage profiled with its rings
+             full. Between them check-gemma2-layers holds the w8a8 +
+             int8-KV step to the bf16 one (6c's error, tolerance and
+             planted faults). The gemma2-27b weights (and their host
+             copies) are then freed.
 7. serve-dlrm — with the LM weights freed: DLRM ``PAPER_COMPLEX``
              at its published widths with every table halved (one shard,
              a 58.6 GB row-wise int8 slab made on the card from a seed)
@@ -233,10 +258,10 @@ L2 flush; the device window's times leave out the host's enqueue gap.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` are those of the phases whose path runs it, summed: serve,
-serve-chunked, the three gemma-2b serves, serve-gemma2 and
-serve-gemma2-chunked for flash, serve, the bf16 gemma-2b serves and both
-gemma2 serves for bf16 decode, serve-w8a8 and serve-gemma2b-w8a8 for the
-int8 kernels, serve-dlrm, or
+serve-chunked, the three gemma-2b serves and the four gemma2-27b serves
+for flash, serve, the bf16 gemma-2b serves and the two bf16 gemma2 serves
+for bf16 decode, serve-w8a8, serve-gemma2b-w8a8 and the two w8a8 gemma2
+serves for the int8 kernels, serve-dlrm, or
 check-dlrm for the fp32 and int4 SLS kernels, and every fleet phase; each
 phase zeroes the counters just before it and reads them just after); the
 last line is
@@ -1152,6 +1177,12 @@ def require_flash_kernel(name: str, fn, tma: bool) -> None:
                              f"hd 256, the profile names {names}")
 
 
+# gemma2-27b's dense projections (K, N): wq, wk and wv, gate and up, wo,
+# down
+GEMMA2_PROJECTIONS = ((4608, 4096), (4608, 2048), (4608, 36864),
+                      (4096, 4608), (36864, 4608))
+
+
 def gemma_2b_decode_split(gen) -> None:
     """Where gemma-2b's decode time goes, for both decode kernels: the
     split kernel and the merge kernel (its rows' records pass 12 KB, so
@@ -1280,6 +1311,7 @@ def phase_kernels() -> dict:
             {"softcap": 50.0}),
     }
     device_fns = {}
+    routes = {}
     main = {}
     for name, (B, S, H, K, hd, dt, lens, kw) in flash_cases.items():
         r = flash_case(name, gen, B, S, H, K, hd, dt, lens,
@@ -1414,6 +1446,12 @@ def phase_kernels() -> dict:
         for K, N in ((2048, 4096), (2048, 256), (2048, 16384), (4096, 2048),
                      (16384, 2048)):
             w8a8_cases[f"gemma_2b_M{M}_K{K}_N{N}"] = (M, K, N, True)
+    # gemma2-27b's projections: wq (4608 -> 32 heads x 128), wk and wv (->
+    # 16 x 128), gate and up (-> 36864), wo (4096 -> 4608), down (36864 ->
+    # 4608), at decode (4 rows) and prefill (2048 rows)
+    for M in (4, 2048):
+        for K, N in GEMMA2_PROJECTIONS:
+            w8a8_cases[f"gemma2_M{M}_K{K}_N{N}"] = (M, K, N, True)
     # the tensor-core kernel's edges (ragged M, a partial K tile, a partial
     # N tile) and the other two routes (M <= 16; K % 16 != 0)
     for M in (17, 65, 2047):
@@ -1440,9 +1478,15 @@ def phase_kernels() -> dict:
         _show("w8a8_matmul", name, r)
         if name == "main_M4_K4096_N11008":
             main["w8a8_matmul"] = r
-        if name.startswith(("main_M", "gemma_2b")):
+        if name.startswith(("main_M", "gemma_2b", "gemma2_M")):
             device_fns["w8a8_matmul " + name] = r["call"]
             device_fns["torch._int_mm + scales " + name] = r["library_call"]
+        if name.startswith("gemma2_M"):
+            # the split-K kernel for decode rows, the TMA kernel past 16
+            # rows; never the fallback kernel (``w8a8_kernel<...>``)
+            routes["w8a8_matmul " + name] = (
+                "w8a8_splitk_kernel" if M <= 16 else "w8a8_kernel_tma",
+                "w8a8_kernel<")
     # the JAX package's int8 cases (repro/kernels/decode_attn/ops.py),
     # scalar pos broadcast, then deepseek-7b decode over an int8 cache
     decode_int8_cases = {
@@ -1483,7 +1527,7 @@ def phase_kernels() -> dict:
             _gemma2_fns(device_fns, "decode_attn_int8", name, r)
     gemma_2b_decode_split(gen)
     main.update(sls_cases(gen, device_fns))
-    device_window(device_fns)
+    device_window(device_fns, routes=routes)
     for r in main.values():         # let the main shapes' tables go
         r.pop("call", None)
         r.pop("library_call", None)
@@ -1494,14 +1538,17 @@ def phase_kernels() -> dict:
     return main
 
 
-def device_window(fns: dict, iters: int = 10) -> None:
+def device_window(fns: dict, iters: int = 10, routes=None) -> None:
     """Device time of one call of each of ``fns`` (a name -> callable; None
     is skipped), from one ``torch.profiler`` window. Each call follows an
     L2 flush and sits between two marker kernels (``torch.cuda._sleep``'s
     ``spin_kernel``); its time is the sum of the device activities between
     its two markers. (Kernels launched through ctypes carry no PyTorch op
     to attribute them to, so the markers, not ``record_function``, say
-    which call a kernel belongs to.)"""
+    which call a kernel belongs to.) ``routes``: a name of ``fns`` -> (a
+    kernel name its calls must run, one they must not); the window must
+    then be read, and each such call's kernels are printed."""
+    routes = routes or {}
     fns = {k: f for k, f in fns.items() if f is not None}
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
     for fn in fns.values():
@@ -1526,9 +1573,23 @@ def device_window(fns: dict, iters: int = 10) -> None:
         print(f"device time per call: not measured ({len(marks)} marker "
               f"kernels in the trace, {2 * iters * len(fns)} launched)",
               flush=True)
+        if routes:
+            raise AssertionError(f"device window unread: the kernels of "
+                                 f"{sorted(routes)} cannot be checked")
         return
+    pairs = list(zip(marks[::2], marks[1::2]))
     times = [sum(e.time_range.elapsed_us() for e in events[a + 1:b]) / 1e3
-             for a, b in zip(marks[::2], marks[1::2])]
+             for a, b in pairs]
+    for i, name in enumerate(fns):
+        if name not in routes:
+            continue
+        want, never = routes[name]
+        ran = sorted({e.name for a, b in pairs[i * iters:(i + 1) * iters]
+                      for e in events[a + 1:b]})
+        print(f"{name}: device kernels {ran}", flush=True)
+        if not any(want in n for n in ran) or any(never in n for n in ran):
+            raise AssertionError(f"{name}: expected {want} and no "
+                                 f"{never}, the window names {ran}")
     print("device time per call (one torch.profiler window, after an L2 "
           "flush each): " + "; ".join(
               f"{name} {sum(times[i * iters:(i + 1) * iters]) / iters:.4f} ms"
@@ -1745,7 +1806,8 @@ def _serve(eng, cfg, label: str, base: int, trace=None, warm=None,
     ttft = tel.ttft_percentiles()
     n_tok = sum(len(r.output) for r in reqs)
     peak = torch.cuda.max_memory_allocated()
-    print(f"{label}: {model} full width bf16, {cfg.num_layers} layers, "
+    prec = "w8a8 + int8 KV" if eng.precision == "w8a8" else "bf16"
+    print(f"{label}: {model} full width {prec}, {cfg.num_layers} layers, "
           f"prompts {sorted(len(r.tokens) for r in reqs)}; served "
           f"{tel.served}/{len(reqs)} in {wall:.3f} s, {n_tok / wall:.1f} "
           f"tok/s, TTFT p50 {ttft['p50']:.2f} ms p99 {ttft['p99']:.2f} ms, "
@@ -2457,6 +2519,107 @@ def phase_serve_gemma2_chunked(cfg, params, mono_outputs, kw=GEMMA2_KW,
     return launches
 
 
+# check-gemma2-layers' prompts: two past the 4096 window (every ring
+# wraps), one short, one of a single token
+GEMMA2_LAYERS_LENS = (4600, 4200, 300, 1)
+
+
+def _host_mem_available() -> float:
+    """``MemAvailable`` of ``/proc/meminfo``, GB (NaN where there is
+    none)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return float("nan")
+
+
+def build_gemma2_w8a8(cfg, params) -> QuantizedParams:
+    """The §V build step on the card with ``release_fp=True`` (each int8
+    site's fp weights moved to the host once it is quantized: the bf16
+    model and its int8 form would need ~75 GiB together). Prints its time,
+    decisions, the card's peak memory during it beside the card's total,
+    and the bytes it moved to the host; no leaf of the quantized model may
+    be off the card."""
+    label = "build-gemma2-w8a8"
+    _free_card()
+    avail = _host_mem_available()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    quant = build_quantized_params(cfg, params, release_fp=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.mem_get_info()[1]
+    host = sum(p.numel() * p.element_size() for p in params.parameters()
+               if p.device.type == "cpu")
+    off = model_mod.off_device(quant.params, model_mod.model_device(params))
+    if off:
+        raise AssertionError(f"{label}: {len(off)} leaves of the quantized "
+                             f"model are off the card, e.g. {off[:3]}")
+    print(f"{label}: build step {build_s:.1f} s: {quant.quantized_sites} "
+          f"sites int8, {quant.fallback_sites} fall back to bf16 "
+          f"(calibration disagreement {quant.result.metric_delta:.4f}, "
+          f"budget 0.05, {quant.result.iterations} fall-backs); "
+          f"{quant.schemes}", flush=True)
+    print(f"{label}: card memory {before / 2**30:.2f} GiB allocated before "
+          f"the build, peak {peak / 2**30:.2f} GiB during it, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after (the "
+          f"quantized model and what the fp model keeps on the card), of "
+          f"the card's {total / 2**30:.2f} GiB (mem_get_info); the int8 "
+          f"sites' fp weights moved to the host: {host / 1e9:.2f} GB "
+          f"(MemAvailable before the build {avail:.2f} GB)", flush=True)
+    return quant
+
+
+def phase_serve_gemma2_w8a8(cfg, params, quant, bf16_outputs, chunk=None,
+                            decode_pos=(4600, 4400, 300, 100)):
+    """gemma2-27b's requests through a w8a8 engine with an int8 KV cache
+    (``cfg``) on the released build ``quant``, graphed and warmed on the
+    same requests; with ``chunk``, through ``prefill_chunk=chunk``. Flash
+    with a window (and at a query offset, chunked), the w8a8 GEMM and the
+    int8 decode kernel must have run and the bf16 decode kernel not; the
+    agreement with the bf16 serve's outputs is printed, not held
+    (near-flat logits of random full-width weights). The graphed decode
+    stage is profiled at positions ``decode_pos`` (rings full). Returns
+    (launches, outputs)."""
+    label = "serve-gemma2-chunked-w8a8" if chunk else "serve-gemma2-w8a8"
+    trace = lambda: gemma2_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(cfg, params, precision="w8a8",
+                          quantized_params=quant, prefill_chunk=chunk,
+                          **GEMMA2_KW)
+    launches, outputs = _serve(eng, cfg, label, base, trace=trace,
+                               warm=trace, model=cfg.name)
+    need = ["flash_attn", "flash_attn with a window", "w8a8_matmul",
+            "decode_attn_int8"]
+    if chunk:
+        need.append("flash_attn at a q_off")
+    _require_launched(label, launches, need)
+    if launches["decode_attn"]:
+        raise AssertionError(f"{label}: the bf16 decode kernel ran "
+                             f"{launches['decode_attn']} times over an int8 "
+                             f"cache")
+    peak, total = torch.cuda.max_memory_allocated(), \
+        torch.cuda.mem_get_info()[1]
+    print(f"{label}: peak memory {peak / 2**30:.2f} GiB of the card's "
+          f"{total / 2**30:.2f} GiB (mem_get_info)", flush=True)
+    agree = token_agreement(zip(outputs, bf16_outputs))
+    div = _first_divergence(outputs, bf16_outputs)
+    print(f"{label}: greedy-token agreement with serve-gemma2 {agree:.4f} "
+          f"({'tokens identical' if div is None else div}) (printed, not "
+          f"held: near-flat logits of random full-width weights; "
+          f"check-gemma2-layers holds the layers)", flush=True)
+    profile_decode_stage(eng, f"{label}: graphed ", pos=decode_pos)
+    return launches, outputs
+
+
 def profile_gemma2_chunk(cfg, params, caches, C: int,
                          start=(4096, 4608, 2048, 512)) -> None:
     """One full-width chunk call through the model layer on a served
@@ -2694,7 +2857,9 @@ def phase_serve_gemma_2b(cfg, params, label: str = "serve-gemma2b",
             raise AssertionError(f"{label}: agreement with the bf16 serve "
                                  f"{agree} < 0.90")
     if quant:
-        check_gemma_2b_layers(base_cfg, params, cfg, eng.quant.params)
+        check_w8a8_layers("check-gemma2b-layers", layers_reference(
+            base_cfg, params, (512, 300, 77, 1), 1024), cfg,
+            eng.quant.params)
     if not kw.get("prefill_chunk"):
         profile_decode_stage(eng, f"{label}: graphed ",
                              pos=(4000, 3500, 300, 100))
@@ -2706,83 +2871,102 @@ def phase_serve_gemma_2b(cfg, params, label: str = "serve-gemma2b",
 W8A8_LAYERS_TOL = 0.10
 
 
-def check_gemma_2b_layers(cfg, params, qcfg, qparams) -> None:
-    """check-gemma2b-layers: one full-width decode step of the w8a8 model
-    ``qparams`` over an int8 KV cache (``qcfg``) against the bf16 model's,
-    on the same prompts (4 rows of 512 tokens, lens 512, 300, 77, 1, then
-    one token each). The greedy agreement of the serves can hold while the
-    layers are broken, if the embedding carries the argmax; so the error
-    here is ||h_w8a8 - h_bf16|| / ||h_bf16 - h_embed||, the final hidden
-    state's error over what the layers add to it (``h_embed``: the final
-    norm of the embedded token alone), held to ``W8A8_LAYERS_TOL``. Two
-    planted faults must each leave it: every layer's ``wo`` scale zeroed
-    (no attention reaches the residual) and the int8 cache's value scales
-    negated after the prefill (the int8 decode kernel reads -V: each
-    layer's decode attention flips sign)."""
-    B, S, max_len = 4, 512, 1024
-    lens = torch.tensor([512, 300, 77, 1], device=DEV)
+def _layers_step(ref: dict, params, cfg, fault=None) -> torch.Tensor:
+    """One prefill of ``ref``'s prompts into fresh caches of ``cfg``'s
+    format, ``fault(caches)`` if given, then one decode step of the next
+    tokens: the final hidden state (B, d) in f32."""
+    B = ref["toks"].shape[0]
+    with torch.inference_mode():
+        caches = model_mod.init_caches(cfg, B, ref["max_len"], DEV)
+        model_mod.forward(params, cfg, {"tokens": ref["toks"]},
+                          mode="prefill", caches=caches,
+                          kv_valid=ref["valid"])
+        if fault is not None:
+            fault(caches)
+        h, _ = model_mod.decode_step(params, cfg, ref["nxt"], caches,
+                                     ref["pos"])
+        return h.float()
+
+
+def layers_reference(cfg, params, lens, max_len: int) -> dict:
+    """The bf16 side of a layers check (``check_w8a8_layers``): 4 prompts
+    of lengths ``lens`` (one row of max(lens) tokens each, right-padded)
+    prefilled at ``max_len``, then one token each. Keeps the inputs, the
+    bf16 step's final hidden state ``ref`` and what the layers add to it:
+    ||ref - h_embed||, ``h_embed`` the final norm of the embedded next
+    token alone. Computed from the whole fp model, before any build step
+    releases a leaf of it."""
+    B, S = len(lens), max(lens)
+    lens = torch.tensor(lens, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                          device=DEV, dtype=torch.int32)
     nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
                         device=DEV, dtype=torch.int32)
-    valid = torch.arange(S, device=DEV)[None, :] < lens[:, None]
-    pos = lens.to(torch.int32)
-
-    @torch.inference_mode()
-    def step(p, c, fault=None):
-        caches = model_mod.init_caches(c, B, max_len, DEV)
-        model_mod.forward(p, c, {"tokens": toks}, mode="prefill",
-                          caches=caches, kv_valid=valid)
-        if fault is not None:
-            fault(caches)
-        h, _ = model_mod.decode_step(p, c, nxt, caches, pos)
-        return h.float()
-
+    ref = dict(toks=toks, nxt=nxt, max_len=max_len, lens=lens.tolist(),
+               valid=torch.arange(S, device=DEV)[None, :] < lens[:, None],
+               pos=lens.to(torch.int32))
+    ref["ref"] = _layers_step(ref, params, cfg)
     with torch.inference_mode():
-        ref = step(params, cfg)
         h_embed = params.final_norm(
             vocab_mod.embed_lookup(params.embed, nxt, cfg),
             cfg.norm_eps)[:, -1].float()
-    layers = (ref - h_embed).norm()
+    ref["layers"] = (ref["ref"] - h_embed).norm()
+    return ref
+
+
+def check_w8a8_layers(label: str, ref: dict, qcfg, qparams) -> None:
+    """One full-width decode step of the w8a8 model ``qparams`` over an
+    int8 KV cache (``qcfg``) against the bf16 model's (``ref``, from
+    ``layers_reference`` on the same prompts). The greedy agreement of the
+    serves can hold while the layers are broken, if the embedding carries
+    the argmax; so the error here is ||h_w8a8 - h_bf16|| / ||h_bf16 -
+    h_embed||, the final hidden state's error over what the layers add to
+    it, held to ``W8A8_LAYERS_TOL``. Two planted faults must each leave
+    it: every layer's ``wo`` scale zeroed (no attention reaches the
+    residual) and the int8 cache's value scales negated after the prefill
+    (the int8 decode kernel reads -V: each layer's decode attention flips
+    sign)."""
+    want, layers = ref["ref"], ref["layers"]
 
     def err(h) -> float:
         if not torch.isfinite(h).all():
             return float("inf")
-        return ((h - ref).norm() / layers).item()
+        return ((h - want).norm() / layers).item()
 
-    got = err(step(qparams, qcfg))
+    got = err(_layers_step(ref, qparams, qcfg))
     wo = [lay.attn.wo for lay in qparams.layers]
     held = [w.scale if isinstance(w, QuantDense) else w.data for w in wo]
     saved = [t.clone() for t in held]
     for t in held:
         t.zero_()
     try:
-        no_attn = err(step(qparams, qcfg))
+        no_attn = err(_layers_step(ref, qparams, qcfg))
     finally:
         for t, v in zip(held, saved):
             t.copy_(v)
-    neg_v = err(step(qparams, qcfg, lambda cs: [
+    neg_v = err(_layers_step(ref, qparams, qcfg, lambda cs: [
         c["v_scale"].neg_() for c in cs]))
-    if err(step(qparams, qcfg)) != got:
-        raise AssertionError("check-gemma2b-layers: the w8a8 step changed "
-                             "after the planted faults were undone")
-    print(f"check-gemma2b-layers: full-width decode step, 4 rows at pos "
-          f"{lens.tolist()}: the layers move the bf16 final hidden state "
-          f"by {(layers / ref.norm()).item():.4f} of its norm; w8a8 + int8 "
-          f"KV error over that {got:.4f} (tol {W8A8_LAYERS_TOL}); planted "
-          f"faults: wo scales zeroed {no_attn:.4f}, int8 value scales "
-          f"negated {neg_v:.4f}", flush=True)
+    if err(_layers_step(ref, qparams, qcfg)) != got:
+        raise AssertionError(f"{label}: the w8a8 step changed after the "
+                             f"planted faults were undone")
+    print(f"{label}: full-width decode step, {len(ref['lens'])} rows at pos "
+          f"{ref['lens']} (max_len {ref['max_len']}): the layers move the "
+          f"bf16 final hidden state by {(layers / want.norm()).item():.4f} "
+          f"of its norm; w8a8 + int8 KV error over that {got:.4f} (tol "
+          f"{W8A8_LAYERS_TOL}); planted faults: wo scales zeroed "
+          f"{no_attn:.4f}, int8 value scales negated {neg_v:.4f}",
+          flush=True)
     if not got <= W8A8_LAYERS_TOL:
-        raise AssertionError(f"check-gemma2b-layers: w8a8 + int8 KV error "
-                             f"{got} > {W8A8_LAYERS_TOL}")
+        raise AssertionError(f"{label}: w8a8 + int8 KV error {got} > "
+                             f"{W8A8_LAYERS_TOL}")
     for name, e in (("wo scales zeroed", no_attn),
                     ("int8 value scales negated", neg_v)):
         if not e > W8A8_LAYERS_TOL:
-            raise AssertionError(f"check-gemma2b-layers: the planted fault "
-                                 f"'{name}' stays within the tolerance "
-                                 f"({e} <= {W8A8_LAYERS_TOL}): the check "
-                                 f"cannot see it")
+            raise AssertionError(f"{label}: the planted fault '{name}' "
+                                 f"stays within the tolerance ({e} <= "
+                                 f"{W8A8_LAYERS_TOL}): the check cannot see "
+                                 f"it")
 
 
 # ---- DLRM -------------------------------------------------------------------
@@ -3526,6 +3710,9 @@ def main():
     launches_c = phase_serve_chunked(cfg, params, bf16_outputs)
     launches_q, quant, w8a8_outputs, eng = phase_serve_quant(cfg, params,
                                                              bf16_outputs)
+    check_w8a8_layers("check-deepseek-layers", layers_reference(
+        cfg, params, (512, 300, 77, 1), SERVE_KW["max_len"]), _int8_kv(cfg),
+        quant.params)
     phase_serve_eager("serve-eager-w8a8", eng, launches_q, w8a8_outputs,
                       _int8_kv(cfg), params, precision="w8a8",
                       quantized_params=quant)
@@ -3586,8 +3773,24 @@ def main():
     launches_gc = phase_serve_gemma2_chunked(g2cfg, g2, g2_outputs)
     for k in ("flash_attn", "decode_attn"):
         launches[k] += launches_g[k] + launches_gc[k]
-    # the DLRM slab needs the card: drop the gemma2-27b weights
-    del g2
+    # w8a8 + int8 KV: the layers check's bf16 step first, on the whole
+    # bf16 model, then the build that releases the int8 sites' bf16 leaves
+    _free_card()
+    g2ref = layers_reference(g2cfg, g2, GEMMA2_LAYERS_LENS,
+                             GEMMA2_KW["max_len"])
+    g2qcfg = _int8_kv(g2cfg)
+    g2q = build_gemma2_w8a8(g2qcfg, g2)
+    launches_gq, _ = phase_serve_gemma2_w8a8(g2qcfg, g2, g2q, g2_outputs)
+    _free_card()
+    check_w8a8_layers("check-gemma2-layers", g2ref, g2qcfg, g2q.params)
+    _free_card()
+    launches_gqc, _ = phase_serve_gemma2_w8a8(g2qcfg, g2, g2q, g2_outputs,
+                                              chunk=512)
+    for k in ("flash_attn", "decode_attn", "w8a8_matmul", "decode_attn_int8"):
+        launches[k] += launches_gq[k] + launches_gqc[k]
+    # the DLRM slab needs the card: drop the gemma2-27b weights (on the
+    # card and on the host)
+    del g2, g2q, g2ref
     _free_card()
     print(f"freed gemma2-27b: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB still allocated", flush=True)

@@ -13,7 +13,10 @@ size one 80 GB card holds.
 ``--precision w8a8`` serves the calibrated int8 path (the §V build step,
 then the w8a8 kernel for every int8 site); ``--verify-quant`` replays the
 trace on an unquantized engine and exits non-zero when the greedy-token
-agreement falls below the 0.90 guardrail.
+agreement falls below the 0.90 guardrail. One w8a8 engine's build moves
+the int8 sites' fp weights to the host (``release_fp``), so the fp and int8
+models are never on the device together (gemma2-27b's would not fit one
+80 GB card); ``--verify-quant`` serves its fp reference before the build.
 ``--prefill-chunk N`` splits prompts into N-token chunks interleaved with
 decode steps; ``--verify-chunked`` replays the trace monolithically and
 exits non-zero unless every output is token-identical. ``--prefix-cache N``
@@ -53,6 +56,7 @@ from repro_torch.data.synthetic import dlrm_batches
 from repro_torch.kernels import _build
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import model as model_mod
+from repro_torch.models.quantize import build_quantized_params
 from repro_torch.serving.dlrm_engine import DLRMEngine
 from repro_torch.serving.dlrm_engine import make_replicas as dlrm_replicas
 from repro_torch.serving.engine import InferenceEngine, Request, make_replicas
@@ -219,6 +223,20 @@ def serve_lm(args):
     if args.verify_quant and args.precision != "w8a8":
         raise SystemExit("--verify-quant needs --precision w8a8 "
                          "(or a mixed --replica-precisions fleet)")
+    ref_reqs = None
+    if args.precision == "w8a8":
+        if args.verify_quant:
+            # the fp reference serves first: the build below moves the int8
+            # sites' fp weights to the host, after which no fp engine can
+            # serve ``params``
+            ref_reqs = InferenceEngine(cfg, params, precision="fp32",
+                                       **kw).run(_lm_requests(args, cfg))
+        t0 = time.perf_counter()
+        quant = build_quantized_params(cfg, params, release_fp=True)
+        kw["quantized_params"] = quant
+        print(f"w8a8 build step in {time.perf_counter() - t0:.2f}s: "
+              f"{quant.quantized_sites} sites int8 (their fp weights moved "
+              f"to the host), {quant.fallback_sites} fp fallbacks")
     fitted_knee = None
     if args.verify_autotune:
         if args.prefill_chunk != "auto":
@@ -277,9 +295,6 @@ def serve_lm(args):
               f"requests token-identical to hand-set chunk "
               f"{AUTOTUNE_REF_CHUNK}")
     if args.verify_quant:
-        ref = InferenceEngine(cfg, params, precision="fp32", **kw)
-        ref_reqs = _lm_requests(args, cfg)
-        ref.run(ref_reqs)
         agreement = token_agreement([(r.output, m.output)
                                      for r, m in zip(reqs, ref_reqs)])
         if agreement < QUANT_AGREEMENT_THRESHOLD:

@@ -67,6 +67,15 @@ def model_device(params: Model) -> torch.device:
     return params.embed.device
 
 
+def off_device(params: nn.Module, device) -> List[Tuple[str, torch.device]]:
+    """(name, device) of every parameter and buffer of ``params`` (a
+    ``QuantDense`` leaf's ``q8`` and ``scale`` included) not on
+    ``device``."""
+    device = torch.device(device)
+    leaves = list(params.named_parameters()) + list(params.named_buffers())
+    return [(name, t.device) for name, t in leaves if t.device != device]
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cuda") -> List[attn_mod.Cache]:
     """One preallocated K/V cache dict per layer, a ring of

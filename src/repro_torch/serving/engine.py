@@ -46,7 +46,11 @@ replayed stage calls.
 ``precision="w8a8"`` serves through the §V build step's quantized model
 (``models/quantize.py``): every int8-decided projection runs the w8a8
 kernel, and ``run_params`` is what the stages run on. The KV cache format
-follows the config (``cfg.quant.kv_cache_dtype``).
+follows the config (``cfg.quant.kv_cache_dtype``). A model whose fp and
+int8 forms do not fit the device together is built with
+``build_quantized_params(..., release_fp=True)`` and passed in as
+``quantized_params``; every leaf the stages read must be on the engine's
+device, and an engine refuses a model with one elsewhere.
 """
 from __future__ import annotations
 
@@ -129,7 +133,11 @@ class InferenceEngine:
                 want.index is not None and self.device.index != want.index):
             raise ValueError(f"params live on {self.device}, the engine was "
                              f"asked for {want}")
-        self.params = params               # fp reference weights
+        # the caller's fp model. A w8a8 engine reads it only to size the
+        # perf model (``PerfModel.for_params`` counts its leaves); after a
+        # build with ``release_fp=True`` its int8 sites' fp weights are on
+        # the host, so it pins none of them on the device
+        self.params = params
         self.precision = precision
         self.quant = None                  # QuantizedParams build record
         if precision == "w8a8":
@@ -138,14 +146,20 @@ class InferenceEngine:
             if quantized_params is None:
                 quantized_params = build_quantized_params(
                     cfg, params, budget=quant_budget)
-            qdev = model_mod.model_device(quantized_params.params)
-            if qdev != self.device:
-                raise ValueError(f"quantized params live on {qdev}, the "
-                                 f"engine serves on {self.device}")
             self.quant = quantized_params
             self.run_params = quantized_params.params
         else:
             self.run_params = params
+        # every leaf the stages read must be on the engine's device: one
+        # left on the host (a released fp weight) would run its matmul
+        # there, or fail inside a kernel wrapper
+        off = model_mod.off_device(self.run_params, self.device)
+        if off:
+            name, where = off[0]
+            raise ValueError(
+                f"{'quantized' if precision == 'w8a8' else 'fp'} params: "
+                f"{name} lives on {where}, the engine serves on "
+                f"{self.device} ({len(off)} leaves off the device)")
         self.max_len = max_len
         self.batch_slots = batch_slots
         self.buckets = tuple(b for b in prefill_buckets if b <= max_len)
