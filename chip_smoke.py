@@ -185,6 +185,34 @@ result line):
              layers add (the hidden state less the embedded token's own)
              within 0.10, and two planted faults (every layer's ``wo``
              scale zeroed; the int8 cache's value scales negated) past it.
+6c'. check-recurrentgemma, check-recurrentgemma-block, serve-recurrentgemma,
+             serve-eager-recurrentgemma, profile-recurrentgemma,
+             serve-recurrentgemma-chunked — after gemma-2b: recurrentgemma-9b
+             cut to 8 layers ((recurrent, recurrent, local) x 2 and the
+             (recurrent, recurrent) tail) of d_model 256 and lru_width 256,
+             16 heads of head_dim 256 over one kv head, window 64
+             (``reduce_recurrentgemma``) through 6d's checks, the snapshot
+             round trips also at max_len 48 (below the window); then full
+             width (38 layers, 26 recurrent and 12 local, d_model 4096, d_ff
+             12288, vocab 256000; 17.3 GB of random bf16 weights from seed
+             0). check-recurrentgemma-block runs its first (recurrent,
+             recurrent, local) unit on the card in bf16 and on the host in
+             f32 through the plain versions, 4 rows of 256, 200, 65 and 1
+             tokens then 4 decode steps: the card's error over what the
+             unit adds within 0.05, and the conv taps reversed and ``h``
+             zeroed between decode steps both past it. Then 4 slots,
+             max_len 4608, graphed and warmed on the same requests: 8
+             prompts x 32 new tokens (4 of 2100-4000 tokens, past the 2048
+             window, 4 of 70-450): flash with a window and bf16 decode
+             launched; its eager twin (launches equal, agreement >= 0.95;
+             both decode stages profiled with the rings full); the
+             RG-LRU's share of an eager prefill call and decode step, and
+             of its scan, from their profiler spans; then through
+             ``prefill_chunk=512`` (flash at a query offset; agreement
+             printed). The kernel phase adds flash's prefill (4 x 4096,
+             window 2048) and chunk (4 x 512 over a gathered 2048 + 512-key
+             ring) and decode on a 2048-slot ring at G 16, hd 256, each
+             timed beside SDPA with a boolean mask.
 6d. check-gemma2 — gemma2-27b cut to
              4 layers (local, global, local, global) of d_model 256, head_dim
              128, G 2, window 64, both softcaps (``reduce_gemma2``), in f32
@@ -258,9 +286,10 @@ L2 flush; the device window's times leave out the host's enqueue gap.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` are those of the phases whose path runs it, summed: serve,
-serve-chunked, the three gemma-2b serves and the four gemma2-27b serves
-for flash, serve, the bf16 gemma-2b serves and the two bf16 gemma2 serves
-for bf16 decode, serve-w8a8, serve-gemma2b-w8a8 and the two w8a8 gemma2
+serve-chunked, the three gemma-2b serves, the two graphed recurrentgemma
+serves and the four gemma2-27b serves for flash, serve, the bf16 gemma-2b
+serves, the two graphed recurrentgemma serves and the two bf16 gemma2
+serves for bf16 decode, serve-w8a8, serve-gemma2b-w8a8 and the two w8a8 gemma2
 serves for the int8 kernels, serve-dlrm, or
 check-dlrm for the fp32 and int4 SLS kernels, and every fleet phase; each
 phase zeroes the counters just before it and reads them just after); the
@@ -306,9 +335,11 @@ from repro_torch.kernels.sls.ref import (  # noqa: E402
 from repro_torch.kernels.w8a8.ops import w8a8_matmul  # noqa: E402
 from repro_torch.kernels.w8a8.ref import w8a8_ref  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import blocks as blk_mod  # noqa: E402
 from repro_torch.models import dlrm as dlrm_mod  # noqa: E402
 from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models import rglru as rglru_mod  # noqa: E402
 from repro_torch.core.quantization import QuantDense  # noqa: E402
 from repro_torch.models.quantize import (  # noqa: E402
     QuantizedParams, build_quantized_params)
@@ -1270,6 +1301,42 @@ def gemma_2b_flash_cases(gen, device_fns: dict) -> None:
                          lengths, window)
 
 
+def recurrentgemma_kernel_cases(gen, device_fns: dict) -> None:
+    """Flash and bf16 decode at recurrentgemma-9b's local layers (bf16, 16
+    query heads of head_dim 256 over one kv head: G 16; window 2048; no
+    softcap): the prefill of a 4096 bucket with uneven lens, a chunk call
+    (4 x 512 over each ring gathered into position order, 2048 + 512 keys,
+    at query offsets 2048, 2048, 1000, 0) and decode on a 2048-slot ring
+    (pos clamped to 2047 once it is full, the model's ring rule); each held
+    against its plain version and timed beside SDPA with a boolean mask of
+    the same keys (causal, window, lengths) and its bound. The profile must
+    name ``flash_fwd_kernel_tma<256, ...>`` for the prefill and the
+    chunk."""
+    bf16 = torch.bfloat16
+    name = "recurrentgemma_local_B4_S4096_H16_K1_hd256_w2048"
+    r = flash_case(name, gen, 4, 4096, 16, 1, 256, bf16,
+                   [4096, 3900, 2100, 300], window=2048)
+    _show("flash_attn", name, r)
+    require_flash_kernel(name, r["call"], tma=True)
+    device_fns["flash_attn " + name] = r["call"]
+    device_fns["SDPA (boolean mask) " + name] = r["library_call"]
+    name = "recurrentgemma_local_chunk_P4_C512_T2560_hd256_w2048"
+    r = flash_chunk_case(name, gen, 4, 2560, 16, 1, 256, 512, bf16,
+                         slots=[0, 1, 2, 3], start=[2048, 2048, 1000, 0],
+                         lengths=[512, 300, 512, 77], window=2048,
+                         measure=True)
+    _show("flash_attn", name, r)
+    require_flash_kernel(name, r["call"], tma=True)
+    device_fns["flash_attn " + name] = r["call"]
+    device_fns["SDPA (boolean mask) " + name] = r["library_call"]
+    name = "recurrentgemma_ring_B4_H16_K1_hd256_S2048"
+    r = decode_case(name, gen, 4, 16, 1, 256, 2048, [2047, 2047, 2047, 300],
+                    bf16)
+    _show("decode_attn", name, r)
+    device_fns["decode_attn " + name] = r["call"]
+    device_fns["SDPA " + name] = r["library_call"]
+
+
 def phase_kernels() -> dict:
     """Every case of both kernels; returns the main-path measurements."""
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1379,6 +1446,7 @@ def phase_kernels() -> dict:
         _show("flash_attn", name, r)
         _gemma2_fns(device_fns, "flash_attn", name, r)
     gemma_2b_flash_cases(gen, device_fns)
+    recurrentgemma_kernel_cases(gen, device_fns)
     # the JAX package's cases (repro/kernels/decode_attn/ops.py), scalar
     # pos broadcast to every row, then deepseek-7b decode at per-row pos
     decode_cases = {
@@ -1897,16 +1965,20 @@ def _first_divergence(got, want):
 
 
 def phase_serve_eager(label: str, graphed, launches, outputs, cfg, params,
-                      **kw) -> None:
+                      engine_kw=SERVE_KW, trace=None,
+                      decode_pos=(512, 300, 77, 1), **kw) -> None:
     """The serve phase's requests through an engine that runs the same
     stages eagerly (``cuda_graphs=False``), in the same run as the graphed
     ``graphed``: each kernel's launches must equal the graphed run's and
     the greedy agreement reach 0.95 (identical tokens expected: a replay
-    runs the kernels the eager stage runs). Then one decode stage call of
-    each engine is profiled at 4 rows."""
+    runs the kernels the eager stage runs). Then the decode stage of each
+    engine is profiled at 4 rows from ``decode_pos``. ``engine_kw`` and
+    ``trace``: the graphed engine's settings and requests (by default the
+    deepseek-7b serve phase's)."""
     base = torch.cuda.memory_allocated()
-    eng = InferenceEngine(cfg, params, cuda_graphs=False, **SERVE_KW, **kw)
-    got_launches, got = _serve(eng, cfg, label, base)
+    eng = InferenceEngine(cfg, params, cuda_graphs=False, **engine_kw, **kw)
+    got_launches, got = _serve(eng, cfg, label, base, trace=trace,
+                               model=cfg.name)
     if got_launches != launches:
         raise AssertionError(f"{label}: kernel launches {got_launches}, the "
                              f"graphed engine's {launches}")
@@ -1921,7 +1993,7 @@ def phase_serve_eager(label: str, graphed, launches, outputs, cfg, params,
         raise AssertionError(f"{label}: eager vs graphed agreement {agree} "
                              f"< 0.95")
     for e, tag in ((graphed, "graphed"), (eng, "eager")):
-        profile_decode_stage(e, f"{label}: {tag} ")
+        profile_decode_stage(e, f"{label}: {tag} ", pos=decode_pos)
 
 
 def phase_serve_chunked(cfg, params, mono_outputs, quant=None):
@@ -2068,7 +2140,7 @@ def _check_round_trip(small, card, kw, n: int = 16,
                 raise AssertionError(f"{label}: {k} row did not "
                                      f"round-trip bit for bit")
     st = eng.transfer_stats
-    dtype = eng.caches[0]["k"].dtype
+    dtype = next(c["k"].dtype for c in eng.caches if "k" in c)
     print(f"{label}: {dtype} cache, snapshot -> restore bit for bit "
           f"({src.bytes_partial} of {src.bytes_full} row bytes shipped; "
           f"{st.num_transfers_batched} batched copies for "
@@ -2434,7 +2506,7 @@ def phase_profile(cfg, params, tag: str = ""):
     profile_chunk(cfg, params, caches, tag)
 
 
-# ---- gemma2-27b ---------------------------------------------------------------
+# ---- gemma2-27b -------------------------------------------------------------
 
 # 4 slots of 5120 positions (the 23 global layers' K/V 3.9 GB, the 23 rings
 # of 4096 slots 3.1 GB); the bucket ladder reaches the longest prompt
@@ -2620,6 +2692,14 @@ def phase_serve_gemma2_w8a8(cfg, params, quant, bf16_outputs, chunk=None,
     return launches, outputs
 
 
+def _span_ms(prof, name: str):
+    """(spans named ``name`` in a trace, the device time of the kernels
+    their ops launched, ms)."""
+    spans = [e for e in prof.events() if e.name == name
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    return len(spans), sum(e.device_time_total for e in spans) / 1e3
+
+
 def profile_gemma2_chunk(cfg, params, caches, C: int,
                          start=(4096, 4608, 2048, 512)) -> None:
     """One full-width chunk call through the model layer on a served
@@ -2643,16 +2723,12 @@ def profile_gemma2_chunk(cfg, params, caches, C: int,
                           chunk, 1)
     if prof is None:
         return
-    # the local layers' gather spans (``attention.RING_GATHER_SPAN``): the
-    # device time of the kernels their ops launched
-    spans = [e for e in prof.events()
-             if e.name == attn_mod.RING_GATHER_SPAN
-             and e.device_type == torch.autograd.DeviceType.CPU]
-    ms = sum(e.device_time_total for e in spans) / 1e3
+    # the local layers' gather spans (``attention.RING_GATHER_SPAN``)
+    spans, ms = _span_ms(prof, attn_mod.RING_GATHER_SPAN)
     n_local = sum(kind == "local" for kind in cfg.layer_kinds())
-    if len(spans) != n_local or not ms:
+    if spans != n_local or not ms:
         print(f"profile: {label}: local ring gather not measured "
-              f"({len(spans)} gather spans in the trace for {n_local} local "
+              f"({spans} gather spans in the trace for {n_local} local "
               f"layers, {ms:.3f} ms device time)", flush=True)
         return
     call_ms = sum(e.self_device_time_total
@@ -2681,7 +2757,8 @@ def phase_check_gemma2(kw=None):
     check_reduced("check-gemma2", "reduced gemma2-27b", reduce_gemma2, kw)
 
 
-def check_reduced(label: str, arch: str, make, kw=None) -> None:
+def check_reduced(label: str, arch: str, make, kw=None,
+                  below_window=None) -> None:
     """``make(dtype)`` in f32 and bf16, each fp and w8a8 + int8 KV (one
     build step on the host, copied to the card), prompts of 40-200 tokens:
     card vs host greedy agreement >= 0.95; chunked (8, 16) vs monolithic
@@ -2690,7 +2767,9 @@ def check_reduced(label: str, arch: str, make, kw=None) -> None:
     exact K/V); graphed == eager tokens, monolithic and chunk 16, the
     caches' difference printed. Then, fp in each type: a prefix hit over a
     96-token shared prompt identical to a cold engine, and snapshot ->
-    restore bit for bit over fp and int8 caches."""
+    restore bit for bit over fp and int8 caches; with ``below_window`` (a
+    max_len below the window and its buckets), over a 30-token prefix of
+    engines of that max_len too (the rings clamped, positional)."""
     kw = kw or dict(batch_slots=3, max_len=256,
                     prefill_buckets=(64, 128, 256))
     for dtype in ("float32", "bfloat16"):
@@ -2768,9 +2847,12 @@ def check_reduced(label: str, arch: str, make, kw=None) -> None:
                                  f"with cold {agree}")
         for c in (small, _int8_kv(small)):
             _check_round_trip(c, card, kw, n=100, label=label)
+            if below_window is not None:
+                _check_round_trip(c, card, dict(kw, **below_window), n=30,
+                                  label=label)
 
 
-# ---- gemma-2b -----------------------------------------------------------------
+# ---- gemma-2b ---------------------------------------------------------------
 
 GEMMA_2B_KW = dict(batch_slots=4, max_len=4608,
                    prefill_buckets=(128, 256, 512, 1024, 2048, 4096),
@@ -2967,6 +3049,300 @@ def check_w8a8_layers(label: str, ref: dict, qcfg, qparams) -> None:
                                  f"stays within the tolerance ({e} <= "
                                  f"{W8A8_LAYERS_TOL}): the check cannot see "
                                  f"it")
+
+
+# ---- recurrentgemma-9b ------------------------------------------------------
+
+# 4 slots of 4608 positions: the 12 local layers' rings of 2048 slots (50 MB)
+# and the 26 recurrent layers' state (``h`` in f32 and the conv tail, 1.2 MB);
+# the bucket ladder reaches the longest prompt
+RECURRENTGEMMA_KW = dict(batch_slots=4, max_len=4608,
+                         prefill_buckets=(128, 256, 512, 1024, 2048, 4096),
+                         device=DEV)
+# the served decode stage is profiled from these positions on (rings full)
+RECURRENTGEMMA_DECODE_POS = (4000, 3500, 2100, 300)
+
+
+def reduce_recurrentgemma(dtype: str):
+    """recurrentgemma-9b cut to 8 layers ((recurrent, recurrent, local) x 2,
+    then the (recurrent, recurrent) tail) of d_model 256 and lru_width 256
+    (8 gate blocks of 32), keeping 16 query heads of head_dim 256 over one
+    kv head (G 16); window 64, d_ff 512, vocab 256; d_conv 4, GeGLU, tied
+    embeddings and the embedding multiplier as at full width; in
+    ``dtype``."""
+    cfg = get_config("recurrentgemma-9b")
+    return dataclasses.replace(
+        reduce_for_smoke(cfg), num_layers=8, d_model=256, num_heads=16,
+        num_kv_heads=1, head_dim=256, d_ff=512, window_size=64,
+        recurrent=dataclasses.replace(cfg.recurrent, lru_width=256),
+        param_dtype=dtype, activation_dtype=dtype)
+
+
+def phase_check_recurrentgemma(kw=None):
+    """``reduce_recurrentgemma`` in f32 and bf16, each fp and w8a8 + int8
+    KV: card vs host, chunked vs monolithic, graphed vs eager, prefix hit
+    vs cold, snapshot round trips at max_len 256 (the rings whole) and 48
+    (below the window: the rings positional), the recurrent state moved
+    whole in both (``check_reduced``)."""
+    check_reduced("check-recurrentgemma", "reduced recurrentgemma-9b",
+                  reduce_recurrentgemma, kw,
+                  below_window=dict(max_len=48, prefill_buckets=(16, 32, 48)))
+
+
+# check-recurrentgemma-block: the card's bf16 run of one (recurrent,
+# recurrent, local) unit against the host's f32 run of the same weights,
+# its error over what the three blocks add. At full width bf16 rounding
+# gives 0.0204 there, ``h`` zeroed between decode steps 0.4627 and the
+# reversed conv taps 1.3553 (H100 80GB HBM3, 700 W; this script)
+RECURRENT_BLOCK_TOL = 0.05
+
+
+def _unit_run(blocks, cfg, x0, valid, steps, fault=None):
+    """A prefill of ``x0`` (B,S,d), real where ``valid`` (B,S), through
+    ``blocks`` into fresh caches of ``cfg`` (whose layers are those
+    blocks), then one decode step of each input of ``steps`` ((B,1,d))
+    at positions lens + i. ``fault``: "taps", the recurrent layers' conv
+    taps reversed for the run, or "h", every recurrent layer's ``h``
+    zeroed between decode steps. Returns (the prefill's output at the real
+    tokens, the decode outputs (n,B,d)), f32 on the host."""
+    dev = x0.device
+    B, S = valid.shape
+    recs = [b.rec for b in blocks if b.kind == "recurrent"]
+    saved = [r.conv_w.detach().clone() for r in recs]
+    with torch.inference_mode():
+        if fault == "taps":
+            for r in recs:
+                r.conv_w.copy_(r.conv_w.flip(0))
+        try:
+            caches = model_mod.init_caches(cfg, B, S + len(steps), dev)
+            x = x0
+            for b, c in zip(blocks, caches):
+                x = blk_mod.apply_block(
+                    b, x, cfg, mode="prefill", cache=c,
+                    positions=torch.arange(S, device=dev).expand(B, S),
+                    kv_valid=valid, rows=torch.arange(B, device=dev))
+            pos = valid.sum(-1).to(torch.int32)
+            outs = []
+            for i, y in enumerate(steps):
+                if fault == "h" and i:
+                    for c in caches:
+                        if "h" in c:
+                            c["h"].zero_()
+                for b, c in zip(blocks, caches):
+                    y = blk_mod.apply_block(b, y, cfg, mode="decode",
+                                            cache=c, pos=pos + i)
+                outs.append(y[:, 0])
+        finally:
+            for r, w in zip(recs, saved):
+                r.conv_w.copy_(w)
+        return x[valid].float().cpu(), torch.stack(outs).float().cpu()
+
+
+def check_recurrent_block(label: str, cfg, params, lens=(256, 200, 65, 1),
+                          steps: int = 4) -> None:
+    """The first (recurrent, recurrent, local) unit of ``params`` run two
+    ways from the same weights and inputs: on ``DEV`` in the model's type
+    through the kernels, and on the host in f32 through the plain
+    versions. The inputs are the embedded tokens of 4 rows of ``lens``
+    real tokens (right-padded), then ``steps`` decode steps of one token.
+    The greedy agreement of a served model cannot show a broken recurrent
+    layer, so the error here is ||out - out_host|| / ||out_host - in||,
+    the unit's output error over what its three blocks add, the larger of
+    the prefill's (its real tokens) and the decode steps', held to
+    ``RECURRENT_BLOCK_TOL``. Two planted faults must each leave it: the
+    conv taps reversed, and ``h`` zeroed between decode steps."""
+    kinds = cfg.block_pattern
+    ucfg = dataclasses.replace(cfg, num_layers=len(kinds))
+    blocks = list(params.layers[:len(kinds)])
+    if tuple(b.kind for b in blocks) != kinds:
+        raise AssertionError(f"{label}: the first layers are "
+                             f"{[b.kind for b in blocks]}, not {kinds}")
+    B, S = len(lens), max(lens)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    with torch.inference_mode():
+        emb = vocab_mod.embed_lookup(params.embed, toks, cfg)
+    lens_t = torch.tensor(lens, device=DEV)
+    valid = torch.arange(S, device=DEV)[None, :] < lens_t[:, None]
+    x0, xs = emb[:, :S], [emb[:, S + i:S + i + 1] for i in range(steps)]
+    hcfg = dataclasses.replace(ucfg, param_dtype="float32",
+                               activation_dtype="float32")
+    host = [copy.deepcopy(b).to(device="cpu", dtype=torch.float32)
+            for b in blocks]
+    t0 = time.perf_counter()
+    want = _unit_run(host, hcfg, x0.float().cpu(), valid.cpu(),
+                     [x.float().cpu() for x in xs])
+    host_s = time.perf_counter() - t0
+    base = (x0[valid].float().cpu(),
+            torch.stack([x[:, 0] for x in xs]).float().cpu())
+
+    def errs(fault=None) -> tuple:
+        """(prefill, decode) error over what the unit adds."""
+        got = _unit_run(blocks, ucfg, x0, valid, xs, fault)
+        return tuple(((g - w).norm() / (w - b).norm()).item()
+                     if torch.isfinite(g).all() else float("inf")
+                     for g, w, b in zip(got, want, base))
+
+    parts = errs()
+    got = max(parts)
+    faults = {"conv taps reversed": max(errs("taps")),
+              "h zeroed between decode steps": max(errs("h"))}
+    if errs() != parts:
+        raise AssertionError(f"{label}: the unit's output changed after "
+                             f"the planted faults were undone")
+    print(f"{label}: layers {list(kinds)} of d_model {cfg.d_model}, "
+          f"{B} rows of {list(lens)} tokens then {steps} decode steps; "
+          f"{params.embed.dtype} on {DEV} vs f32 on the host ({host_s:.1f} "
+          f"s): error over what the unit adds {got:.4f} (prefill "
+          f"{parts[0]:.4f}, decode {parts[1]:.4f}; tol "
+          f"{RECURRENT_BLOCK_TOL}); planted faults: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in faults.items()), flush=True)
+    if not got <= RECURRENT_BLOCK_TOL:
+        raise AssertionError(f"{label}: error {got} > {RECURRENT_BLOCK_TOL}")
+    for name, e in faults.items():
+        if not e > RECURRENT_BLOCK_TOL:
+            raise AssertionError(f"{label}: the planted fault '{name}' "
+                                 f"stays within the tolerance ({e} <= "
+                                 f"{RECURRENT_BLOCK_TOL}): the check cannot "
+                                 f"see it")
+
+
+def recurrentgemma_requests(vocab: int):
+    """The recurrentgemma serve phases' traffic: 8 prompts x 32 new tokens,
+    long and short in turn: 4 of 2100-4000 tokens (past the 2048 window,
+    so the rings wrap and the scan runs long) and 4 of 70-450."""
+    rng = np.random.default_rng(0)
+    lens = np.stack([rng.integers(2100, 4001, 4),
+                     rng.integers(70, 451, 4)], 1).reshape(-1)
+    return [Request(i, rng.integers(0, vocab, int(L)).astype(np.int32),
+                    max_new_tokens=32) for i, L in enumerate(lens)]
+
+
+def phase_serve_recurrentgemma(cfg, params, label="serve-recurrentgemma",
+                               mono_outputs=None, **kw):
+    """Full-width recurrentgemma-9b serving in bf16, graphed and warmed on
+    the same requests, so every stage key is captured before the measured
+    run; with ``prefill_chunk`` in ``kw``, chunked. Flash with a window
+    (the local layers; at a query offset when chunked) and bf16 decode must
+    have run. A chunked serve's greedy agreement with the monolithic
+    ``mono_outputs`` is printed, not held (near-flat logits of random
+    full-width weights). Returns (launches, outputs, the engine)."""
+    trace = lambda: recurrentgemma_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(cfg, params, **RECURRENTGEMMA_KW, **kw)
+    launches, outputs = _serve(eng, cfg, label, base, trace=trace,
+                               warm=trace, model=cfg.name)
+    need = ["flash_attn", "flash_attn with a window", "decode_attn"]
+    if kw.get("prefill_chunk"):
+        need.append("flash_attn at a q_off")
+    _require_launched(label, launches, need)
+    if mono_outputs is not None:
+        agree = token_agreement(zip(outputs, mono_outputs))
+        div = _first_divergence(outputs, mono_outputs)
+        print(f"{label}: greedy-token agreement with serve-recurrentgemma "
+              f"{agree:.4f} ({'tokens identical' if div is None else div}; "
+              f"printed, not held)", flush=True)
+    print(f"{label}: card total "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+          f"GiB", flush=True)
+    return launches, outputs, eng
+
+
+def profile_rglru(cfg, params, caches, lens=(4096, 3900, 2100, 300),
+                  pos=RECURRENTGEMMA_DECODE_POS, steps: int = 4) -> None:
+    """The RG-LRU's share of a prefill call (4 rows of ``lens`` tokens) and
+    of a decode step (4 rows at ``pos`` on), each through the model layer,
+    eagerly, on a served engine's caches: from one trace each, the device
+    time of its ``rglru.RGLRU_SPAN`` spans (one a recurrent layer and
+    call; the projections, conv, gates and scan) and ``RGLRU_SCAN_SPAN``
+    spans (the scan alone) against the call's."""
+    B, S = len(lens), max(lens)
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    lens_t = torch.tensor(lens, device=DEV)
+    valid = torch.arange(S, device=DEV)[None, :] < lens_t[:, None]
+    p0 = torch.tensor(pos, dtype=torch.int32, device=DEV)
+
+    @torch.inference_mode()
+    def prefill():
+        x, _ = model_mod.forward(params, cfg, {"tokens": toks},
+                                 mode="prefill", caches=caches,
+                                 kv_valid=valid)
+        return model_mod.greedy_next(
+            params, cfg, x[torch.arange(B, device=DEV), lens_t - 1]).cpu()
+
+    @torch.inference_mode()
+    def decode():
+        nxt = toks[:, :1]
+        for i in range(steps):
+            h, _ = model_mod.decode_step(params, cfg, nxt, caches, p0 + i)
+            nxt = model_mod.greedy_next(params, cfg, h)[:, None].to(
+                torch.int32)
+        return nxt.cpu()
+
+    n_rec = sum(k == "recurrent" for k in cfg.layer_kinds())
+    label = "profile-recurrentgemma"
+    for what, fn, n in ((f"prefill {B}x{S} (lens {list(lens)})", prefill, 1),
+                        (f"decode step, {B} rows at pos {list(pos)}+",
+                         decode, steps)):
+        prof = profile_window(f"{label}: eager {what}", fn, n)
+        if prof is None:
+            continue
+        call_ms = sum(e.self_device_time_total
+                      for e in _device_events(prof)) / 1e3
+        spans, ms = _span_ms(prof, rglru_mod.RGLRU_SPAN)
+        scans, scan_ms = _span_ms(prof, rglru_mod.RGLRU_SCAN_SPAN)
+        if spans != n_rec * n or not ms:
+            print(f"profile: {label}: {what}: RG-LRU not measured ({spans} "
+                  f"spans for {n_rec} recurrent layers x {n} calls, {ms:.3f}"
+                  f" ms device time)", flush=True)
+            continue
+        print(f"profile: {label}: {what}: RG-LRU {ms / n:.3f} ms of "
+              f"{call_ms / n:.3f} ms device time a call "
+              f"({100 * ms / call_ms:.1f}%; {spans // n} recurrent layers, "
+              f"{ms / spans:.4f} ms a layer), of which the scan "
+              f"{scan_ms / n:.3f} ms ({100 * scan_ms / call_ms:.1f}%, "
+              f"{scans // n} scans)", flush=True)
+
+
+def phase_recurrentgemma() -> dict:
+    """check-recurrentgemma, then full-width recurrentgemma-9b (38 layers,
+    26 recurrent and 12 local; 17.3 GB of random bf16 weights from seed
+    0): check-recurrentgemma-block on its first unit, serve-recurrentgemma
+    and its eager twin, profile-recurrentgemma, serve-recurrentgemma-chunked.
+    Frees the weights; returns the flash and bf16 decode launches of the
+    graphed monolithic and chunked serves."""
+    phase_check_recurrentgemma()
+    cfg = get_config("recurrentgemma-9b")
+    t0 = time.perf_counter()
+    params = model_mod.init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"init: recurrentgemma-9b full width, "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check_recurrent_block("check-recurrentgemma-block", cfg, params)
+    launches, outputs, eng = phase_serve_recurrentgemma(cfg, params)
+    phase_serve_eager("serve-eager-recurrentgemma", eng, launches, outputs,
+                      cfg, params, engine_kw=RECURRENTGEMMA_KW,
+                      trace=lambda: recurrentgemma_requests(cfg.vocab_size),
+                      decode_pos=RECURRENTGEMMA_DECODE_POS)
+    profile_rglru(cfg, params, eng.caches)
+    del eng
+    _free_card()
+    chunked, _, eng = phase_serve_recurrentgemma(
+        cfg, params, "serve-recurrentgemma-chunked", outputs,
+        prefill_chunk=512)
+    del eng, params
+    _free_card()
+    print(f"freed recurrentgemma-9b: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+          flush=True)
+    return {k: launches[k] + chunked[k] for k in ("flash_attn",
+                                                   "decode_attn")}
 
 
 # ---- DLRM -------------------------------------------------------------------
@@ -3759,6 +4135,8 @@ def main():
     _free_card()
     print(f"freed gemma-2b: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB still allocated", flush=True)
+    for k, n in phase_recurrentgemma().items():
+        launches[k] += n
     phase_check_gemma2()
     g2cfg = get_config("gemma2-27b")
     t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 """Serving launcher of the port: ``python -m repro_torch.launch.serve --arch
 deepseek-7b --requests 16`` (or ``--arch gemma2-27b``, local and global
 layers in turn; or ``--arch gemma-2b``, MQA at head_dim 256 with padded
-heads) — continuous-batching LM serving with bucketed batched prefill on
+heads; or ``--arch recurrentgemma-9b``, two RG-LRU recurrent blocks to each
+local one) — continuous-batching LM serving with bucketed batched prefill on
 the card (``--device cpu`` runs the plain versions of
 the kernels on the host). ``--smoke`` (the default) serves the reduced
 config; ``--full-config`` the published widths. The request trace is the
@@ -534,7 +535,8 @@ def _chunk_arg(v: str):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b",
-                    help="deepseek-7b, gemma2-27b or gemma-2b, or dlrm for "
+                    help="deepseek-7b, gemma2-27b, gemma-2b or "
+                         "recurrentgemma-9b, or dlrm for "
                          "the recommendation pipeline (--smoke reduces an LM "
                          "with reduce_for_smoke, which drops gemma-2b's "
                          "head padding and head_dim 256)")

@@ -1,7 +1,8 @@
-"""Residual attention block of the global or local kind: pre-norm attention
-then a pre-norm MLP, each output normed again before its residual add when
+"""Residual blocks of the global, local and recurrent kinds: a pre-norm
+mixer (attention, or the RG-LRU for ``recurrent``) then a pre-norm MLP,
+each output normed again before its residual add when
 ``cfg.post_attn_norm`` is set (gemma2's sandwich norms) — the attention
-path of ``repro/models/blocks.py``."""
+and recurrent paths of ``repro/models/blocks.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,8 +10,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, \
+    ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.common import RMSNorm, dtype_of
 from repro_torch.models.mlp import MLP, apply_mlp
 
@@ -22,7 +25,13 @@ class Block(nn.Module):
         self.kind = kind
         dt = dtype_of(cfg.param_dtype)
         self.pre_norm = RMSNorm(cfg.d_model, dt, device)
-        self.attn = attn.Attention(cfg, gen, device)
+        if kind == RECURRENT:
+            self.rec = rglru_mod.RGLRU(cfg, gen, device)
+        elif kind in (ATTN_GLOBAL, ATTN_LOCAL):
+            self.attn = attn.Attention(cfg, gen, device)
+        else:
+            raise ValueError(f"block kind must be {ATTN_GLOBAL!r}, "
+                             f"{ATTN_LOCAL!r} or {RECURRENT!r}, got {kind!r}")
         if cfg.post_attn_norm:
             self.post_norm = RMSNorm(cfg.d_model, dt, device)
         self.pre_mlp_norm = RMSNorm(cfg.d_model, dt, device)
@@ -31,35 +40,51 @@ class Block(nn.Module):
             self.post_mlp_norm = RMSNorm(cfg.d_model, dt, device)
 
 
+def _recurrent(p: Block, h: torch.Tensor, mode: str, cache, kv_valid, rows,
+               chunk, active) -> torch.Tensor:
+    if mode == "decode":
+        return rglru_mod.rglru_decode_step(p.rec, h, cache, active=active)
+    if mode == "chunk":
+        return rglru_mod.rglru_chunk_step(p.rec, h, cache, chunk.kv_rows,
+                                          chunk.q_off,
+                                          chunk.lens - chunk.q_off)
+    return rglru_mod.rglru_forward(
+        p.rec, h, valid=kv_valid, cache=cache if mode == "prefill" else None,
+        rows=rows)
+
+
 def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                cache: attn.Cache, positions: Optional[torch.Tensor] = None,
+                cache, positions: Optional[torch.Tensor] = None,
                 pos: Optional[torch.Tensor] = None,
                 kv_valid: Optional[torch.Tensor] = None,
                 rows: Optional[torch.Tensor] = None,
                 chunk: Optional[attn.ChunkCoords] = None,
                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """mode 'full': causal attention over x, no cache; mode 'prefill': the
-    same, K/V written into cache rows ``rows``; mode 'chunk': one prompt
-    chunk per row against the live cache at the coordinates ``chunk``;
-    mode 'decode': one token per row at ``pos``, the rows ``active`` leaves
-    out keeping their cache. The cache is updated in place."""
+    """mode 'full': causal attention (or the recurrence) over x, no cache;
+    mode 'prefill': the same, the layer's state written into cache rows
+    ``rows``; mode 'chunk': one prompt chunk per row against the live
+    cache at the coordinates ``chunk``; mode 'decode': one token per row
+    at ``pos``, the rows ``active`` leaves out keeping their cache. The
+    cache is updated in place."""
+    if mode not in ("full", "prefill", "chunk", "decode"):
+        raise ValueError(f"mode must be 'full', 'prefill', 'chunk' or "
+                         f"'decode', got {mode!r}")
     kind = p.kind
     h = p.pre_norm(x, cfg.norm_eps)
-    if mode == "decode":
+    if kind == RECURRENT:
+        y = _recurrent(p, h, mode, cache, kv_valid, rows, chunk, active)
+    elif mode == "decode":
         y, _ = attn.decode_attention(p.attn, h, cache, pos, cfg,
                                      active=active, kind=kind)
     elif mode == "chunk":
         y = attn.chunk_prefill_attention(p.attn, h, cache, chunk, cfg, kind)
-    elif mode in ("full", "prefill"):
+    else:
         y, (k, v) = attn.full_attention(p.attn, h, cfg, positions, kv_valid,
                                         kind=kind)
         if mode == "prefill":
             attn.fill_cache_from_prefill(
                 cache, k, v, rows, kind,
                 None if kv_valid is None else kv_valid.sum(-1))
-    else:
-        raise ValueError(f"mode must be 'full', 'prefill', 'chunk' or "
-                         f"'decode', got {mode!r}")
     if cfg.post_attn_norm:
         y = p.post_norm(y, cfg.norm_eps)
     x = x + y

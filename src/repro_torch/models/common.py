@@ -1,6 +1,6 @@
 """Shared model utilities: parameter init, RMSNorm, activations, the logit
-softcap, RoPE and vocab padding (counterpart of
-``repro/models/common.py``)."""
+softcap, the recurrent blocks' causal conv with a carried tail, RoPE and
+vocab padding (counterpart of ``repro/models/common.py``)."""
 from __future__ import annotations
 
 import math
@@ -23,14 +23,17 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def mk_param(shape: Sequence[int], dtype: torch.dtype, device,
-             gen: torch.Generator = None, init: str = "normal") -> nn.Parameter:
+             gen: torch.Generator = None, init: str = "normal",
+             scale: float = 1.0) -> nn.Parameter:
     """Inference parameter with the JAX package's init distribution:
-    normal with std ``1/sqrt(shape[0])`` (drawn in f32, then cast), or
-    zeros (norm scales)."""
+    normal with std ``scale/sqrt(shape[0])`` (drawn in f32, then cast),
+    zeros (norm scales, biases) or ones."""
     if init == "zeros":
         data = torch.zeros(shape, dtype=dtype, device=device)
+    elif init == "ones":
+        data = torch.ones(shape, dtype=dtype, device=device)
     elif init == "normal":
-        std = 1.0 / math.sqrt(max(shape[0], 1))
+        std = scale / math.sqrt(max(shape[0], 1))
         data = (torch.randn(shape, generator=gen, dtype=torch.float32,
                             device=device) * std).to(dtype)
     else:
@@ -74,6 +77,38 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def causal_conv_with_carry(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           carry: torch.Tensor):
+    """Depthwise causal conv of ``x`` (B,C,ch) with kernel ``w`` (K,ch)
+    whose left context is ``carry`` (B,K-1,ch): the last K-1 pre-conv
+    inputs before ``x`` (zeros at sequence start). Returns (out (B,C,ch),
+    the concatenated (B,K-1+C,ch) input). The taps are summed in order
+    i = 0..K-1 and ``b`` added last, each step rounded in x.dtype, as the
+    reference sums them."""
+    K, C = w.shape[0], x.shape[1]
+    full = torch.cat([carry.to(x.dtype), x], dim=1)
+    out = full[:, 0:C] * w[0]
+    for i in range(1, K):
+        out = out + full[:, i:i + C] * w[i]
+    return out + b, full
+
+
+def tail_at_lengths(seq: torch.Tensor, lengths: torch.Tensor, k: int,
+                    prepend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The last ``k`` entries of ``seq`` (B,S,...) ending at each row's
+    position ``lengths`` (B,): the causal-conv carry of a row whose real
+    tokens stop mid-sequence. Entries before position 0 come from
+    ``prepend`` (B,k,...), the carry entering ``seq``, or are zero (None:
+    sequence start)."""
+    if prepend is None:
+        prepend = seq.new_zeros((seq.shape[0], k) + seq.shape[2:])
+    full = torch.cat([prepend.to(seq.dtype), seq], dim=1)
+    idx = lengths.long()[:, None] + torch.arange(k, device=seq.device)
+    idx = idx.view(idx.shape + (1,) * (seq.dim() - 2)).expand(
+        idx.shape + seq.shape[2:])
+    return torch.gather(full, 1, idx)
 
 
 def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float):

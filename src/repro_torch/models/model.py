@@ -1,9 +1,10 @@
-"""Model assembly for the port: a dense attention LM (embedding, a stack of
-global and local blocks in the order of ``cfg.layer_kinds()``, final
-RMSNorm, greedy head) — the path deepseek-7b, gemma2-27b and gemma-2b
-serving run in ``repro/models/model.py``. The JAX package scans stacked layer
-parameters with ``jax.lax.scan``; here the layers are an ``nn.ModuleList``
-walked by a Python loop, and the caches a list with one dict per layer.
+"""Model assembly for the port: an LM (embedding, a stack of global, local
+and recurrent blocks in the order of ``cfg.layer_kinds()``, final RMSNorm,
+greedy head) — the path deepseek-7b, gemma2-27b, gemma-2b and
+recurrentgemma-9b serving run in ``repro/models/model.py``. The JAX
+package scans stacked layer parameters with ``jax.lax.scan``; here the
+layers are an ``nn.ModuleList`` walked by a Python loop, and the caches a
+list with one dict per layer.
 """
 from __future__ import annotations
 
@@ -12,9 +13,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
+                                      ModelConfig)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.common import RMSNorm, dtype_of, mk_param
 from repro_torch.sharding import vocab as vocab_mod
 
@@ -22,11 +25,11 @@ from repro_torch.sharding import vocab as vocab_mod
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a config that uses a feature the port does not have yet."""
     unsupported = {
-        "block kinds other than global and local":
-            not set(cfg.block_pattern) <= {ATTN_GLOBAL, ATTN_LOCAL},
+        "block kinds other than global, local and recurrent":
+            not set(cfg.block_pattern) <= {ATTN_GLOBAL, ATTN_LOCAL,
+                                           RECURRENT},
         "mixture of experts": cfg.moe is not None,
         "SSM blocks": cfg.ssm is not None,
-        "recurrent blocks": cfg.recurrent is not None,
         "encoder-decoder": cfg.encdec is not None,
         "M-RoPE": cfg.rope_mode != "standard",
         "q/k/v/o biases": cfg.qkv_bias or cfg.o_bias,
@@ -78,10 +81,14 @@ def off_device(params: nn.Module, device) -> List[Tuple[str, torch.device]]:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device="cuda") -> List[attn_mod.Cache]:
-    """One preallocated K/V cache dict per layer, a ring of
-    ``min(window_size, max_len)`` slots for a local layer (int8 values and
-    fp16 scales when ``cfg.quant.kv_cache_dtype == "int8"``)."""
-    return [attn_mod.init_kv_cache(cfg, batch, max_len, device, kind)
+    """One preallocated cache dict per layer: K/V for an attention layer, a
+    ring of ``min(window_size, max_len)`` slots for a local one (int8
+    values and fp16 scales when ``cfg.quant.kv_cache_dtype == "int8"``);
+    ``h`` and ``conv`` for a recurrent layer (``rglru.init_rglru_cache``,
+    whatever the KV cache's format)."""
+    return [rglru_mod.init_rglru_cache(cfg, batch, device)
+            if kind == RECURRENT
+            else attn_mod.init_kv_cache(cfg, batch, max_len, device, kind)
             for kind in cfg.layer_kinds()]
 
 
@@ -90,9 +97,11 @@ def cache_extents(cfg: ModelConfig, caches
     """(positions a global layer's row holds, slots a local layer's ring
     holds) of ``init_caches``' caches, None for a kind the model has no
     layer of: the bounds of a chunk call's writes (``chunk_writes``), read
-    here by the engine and by ``chunk_prefill_step`` alike."""
+    here by the engine and by ``chunk_prefill_step`` alike. A recurrent
+    layer's state has no positions and bounds nothing."""
     extent = {kind: c["k"].shape[1]
-              for c, kind in zip(caches, cfg.layer_kinds())}
+              for c, kind in zip(caches, cfg.layer_kinds())
+              if kind != RECURRENT}
     return extent.get(ATTN_GLOBAL), extent.get(ATTN_LOCAL)
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -110,7 +119,8 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     mode 'full': batch {'tokens' (B,S)}, causal over every position, no
     caches (pass None; the build step's calibration forward).
     mode 'prefill': batch {'tokens' (B,S)} right-padded, ``kv_valid`` (B,S)
-    marks real tokens; batch row j's K/V goes to cache row
+    marks real tokens; batch row j's state (K/V, or a recurrent layer's
+    exit state) goes to cache row
     ``cache_rows[j]`` (default row j); a negative entry marks a padded
     group row, which writes nothing of its own.
     mode 'chunk': batch {'tokens' (P,C)}, one prompt chunk per group row at
@@ -178,7 +188,7 @@ def chunk_prefill_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     max_len, ring = cache_extents(cfg, caches)
     arrays, dequant = attn_mod.chunk_writes(
         slots, start, write_pos, lengths, tokens.shape[1], max_len,
-        caches[0]["k"].shape[0], ring=ring)
+        next(iter(caches[0].values())).shape[0], ring=ring)
     chunk = attn_mod.chunk_coords(
         {k: torch.from_numpy(a).to(device) for k, a in arrays.items()},
         tokens.shape[1], dequant)

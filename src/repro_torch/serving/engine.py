@@ -23,8 +23,9 @@ the acquired cache rows, and a decode step writes every row, the inactive
 ones writing back what they held. (The JAX engine builds a fresh cache per
 prefill group, scatters it into the slot rows, and donates the cache to
 every step.) The cache's batch and sequence axes are fixed by construction
-(dims 0 and 1 of every tensor; a local layer's dim 1 is its ring of
-``min(window_size, max_len)`` slots), so no shape probing is needed.
+(dims 0 and 1 of every K/V tensor; a local layer's dim 1 is its ring of
+``min(window_size, max_len)`` slots; a recurrent layer's ``h`` and conv
+tail have a batch axis only), so no shape probing is needed.
 
 The stages (prefill per ``(bucket, P, precision)``, chunk prefill per
 ``(bucket, P, precision)``, decode per ``(precision,)``, the keys the JAX
@@ -63,7 +64,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN_GLOBAL, ModelConfig
+from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.core.bucketing import pick_bucket
 from repro_torch.core.transfer import (SnapshotStaging, TransferStats,
                                        snapshot_device_get,
@@ -209,11 +210,12 @@ class InferenceEngine:
         # per layer: is its state positional (a snapshot slices it to the
         # written prefix)? A ring is, only when max_len clamps it below its
         # window (the JAX package's ``_cache_seq_axes``: the ring's extent
-        # then grows with max_len)
-        self._positional = [kind == ATTN_GLOBAL or cfg.window_size > max_len
-                            for kind in cfg.layer_kinds()]
+        # then grows with max_len); a recurrent layer's state never is
+        self._positional = [kind == ATTN_GLOBAL or (
+            kind == ATTN_LOCAL and cfg.window_size > max_len)
+            for kind in cfg.layer_kinds()]
         # an int8 chunk stage holds one graph per dequantized extent
-        self._int8_kv = "k_scale" in self.caches[0]
+        self._int8_kv = any("k_scale" in c for c in self.caches)
         self.states = SequenceStateManager(batch_slots, cfg)
 
         # movable sequence state: one snapshot contract, three consumers

@@ -7,6 +7,7 @@ detector, fleet prefix index, router, performance model, controller,
 fleet simulator, and the engines' replica hooks) stay copies: the same
 code, and the same decisions on the same seeded operation sequences."""
 import ast
+import dataclasses
 import inspect
 import textwrap
 
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 from repro.configs import dlrm_paper as jax_dlrm_cfg
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduce_for_smoke as jax_reduce
 from repro.core import backend as jax_backend
 from repro.core import metrics as jax_metrics
 from repro.core import partitioner as jax_part
@@ -33,6 +36,7 @@ from repro.serving import scheduler as jax_sched
 from repro.serving import state as jax_state
 from repro.serving import telemetry as jax_tel
 from repro_torch.configs import dlrm_paper as dlrm_cfg
+from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core import backend
 from repro_torch.core import metrics
 from repro_torch.core import partitioner as part
@@ -268,3 +272,14 @@ def test_quantization_workflow_decides_like_the_original(budget):
         assert d.error == pytest.approx(e.error, rel=1e-5)
     assert (got.passed, got.metric_delta, got.iterations) == \
         (want.passed, want.metric_delta, want.iterations)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "gemma2-27b", "gemma-2b",
+                                  "recurrentgemma-9b"])
+def test_config_copy_equals_the_original(arch):
+    """Each config the port registers is the JAX package's, field for
+    field, at full width and through ``reduce_for_smoke``."""
+    assert dataclasses.asdict(get_config(arch)) \
+        == dataclasses.asdict(jax_get_config(arch))
+    assert dataclasses.asdict(reduce_for_smoke(get_config(arch))) \
+        == dataclasses.asdict(jax_reduce(jax_get_config(arch)))
