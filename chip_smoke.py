@@ -185,6 +185,40 @@ result line):
              layers add (the hidden state less the embedded token's own)
              within 0.10, and two planted faults (every layer's ``wo``
              scale zeroed; the int8 cache's value scales negated) past it.
+6c". check-xlmr, serve-xlmr, serve-eager-xlmr, check-xlmr-encoder,
+             serve-xlmr-launcher — after gemma-2b, before recurrentgemma:
+             the paper's XLM-R encoder. check-xlmr cuts it to
+             ``reduce_for_smoke`` (f32, hd 16) and to d_model 256 with 4
+             heads of 64 (bf16), every bias and norm parameter drawn
+             nonzero (``draw_biases``): 24 sentences in length-sorted
+             batches of 8 over buckets 32/64/128 pooled on the card
+             (graphed) and on the host within 2e-3 / 2e-2, graphed ==
+             eager bit for bit, and one sentence's embedding the same in
+             buckets 32, 64 and 128 (and not, with ``kv_valid`` dropped).
+             Then full width (24 layers, d_model 1024, 16 heads of 64,
+             GELU d_ff 4096 with biases, LayerNorm, tied vocab 250002;
+             558.4 M parameters in bf16 from seed 0, biases and norms
+             drawn): serve-xlmr serves 256 sentences of
+             ``xlmr_sentences(seed=0, max_len=512)`` in length-sorted
+             batches of 8 through ``EncoderServer``, one CUDA graph per
+             bucket captured in a warm-up pass, then again timed (every
+             sentence served, pooled outputs finite and nonzero, every
+             flash launch non-causal); prints both batchings' padding
+             waste, batches per bucket, sentences/s, real tokens/s,
+             p50/p99 by bucket and peak memory; then the same sentences in
+             arrival order (wall time printed, not held); serve-eager-xlmr
+             the sorted batches eagerly (launches equal, outputs
+             identical); check-xlmr-encoder holds 8 sentences of 65-128
+             tokens at bucket 128 pooled in bf16 to an f32 copy of the
+             weights on the card, ||bf16 - f32|| / ||f32|| <= 0.05, with
+             causal attention, the pads attended and the biases dropped
+             each past it; serve-xlmr-launcher runs ``--arch xlmr-paper
+             --full-config`` (one graph per bucket reached). The kernel
+             phase adds flash at XLM-R's shapes (B 8, 16 heads of 64, G 1,
+             non-causal, per-row lengths) at buckets 32, 128 and 512, timed
+             beside SDPA with a boolean key mask (the profile must name
+             ``flash_fwd_kernel_tma<64, ...>``), and a bucket-32 batch with
+             empty rows, which must give exactly 0.
 6c'. check-recurrentgemma, check-recurrentgemma-block, serve-recurrentgemma,
              serve-eager-recurrentgemma, profile-recurrentgemma,
              serve-recurrentgemma-chunked — after gemma-2b: recurrentgemma-9b
@@ -286,8 +320,8 @@ L2 flush; the device window's times leave out the host's enqueue gap.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` are those of the phases whose path runs it, summed: serve,
-serve-chunked, the three gemma-2b serves, the two graphed recurrentgemma
-serves and the four gemma2-27b serves for flash, serve, the bf16 gemma-2b
+serve-chunked, the three gemma-2b serves, serve-xlmr's timed pass, the two
+graphed recurrentgemma serves and the four gemma2-27b serves for flash, serve, the bf16 gemma-2b
 serves, the two graphed recurrentgemma serves and the two bf16 gemma2
 serves for bf16 decode, serve-w8a8, serve-gemma2b-w8a8 and the two w8a8 gemma2
 serves for the int8 kernels, serve-dlrm, or
@@ -304,6 +338,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -320,7 +355,11 @@ from repro_torch.configs import dlrm_paper  # noqa: E402
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
 from repro_torch.core.backend import DEFAULT_BACKEND  # noqa: E402
 from repro_torch.core.metrics import token_agreement  # noqa: E402
+from repro_torch.configs.xlmr_paper import SEQ_BUCKETS  # noqa: E402
+from repro_torch.core.bucketing import (  # noqa: E402
+    length_sorted_batches, pad_ragged_to_bucket)
 from repro_torch.data.synthetic import dlrm_batches  # noqa: E402
+from repro_torch.data.synthetic import xlmr_sentences  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
     chunk_plan, decode_attn, decode_attn_int8, int8_chunk_plan)
@@ -347,6 +386,8 @@ from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.serving.dlrm_engine import DLRMEngine  # noqa: E402
 from repro_torch.serving.dlrm_engine import (  # noqa: E402
     make_replicas as dlrm_make_replicas)
+from repro_torch.serving.encoder import (  # noqa: E402
+    EncoderServer, arrival_batches, encode_pooled, padding_waste)
 from repro_torch.serving.engine import (  # noqa: E402
     InferenceEngine, Request, make_replicas)
 from repro_torch.serving.perf_model import PerfModel  # noqa: E402
@@ -1195,17 +1236,25 @@ def kernel_times(fn, iters: int = 10) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def require_flash_kernel(name: str, fn, tma: bool) -> None:
-    """One call of ``fn`` ran flash's hd-256 kernel on the tensor cores
-    (``flash_fwd_kernel_tma<256, ...>``) or on the CUDA cores."""
+def _template_args(kernel: str) -> list:
+    """The template arguments of a demangled kernel name (``void
+    (anonymous namespace)::flash_fwd_kernel_tma<64, false>(...)`` ->
+    ['64', 'false'])."""
+    m = re.search(r"<([^<>]*)>\(", kernel)
+    return [a.strip() for a in m.group(1).split(",")] if m else []
+
+
+def require_flash_kernel(name: str, fn, tma: bool, hd: int = 256) -> None:
+    """One call of ``fn`` ran flash's head_dim-``hd`` kernel on the tensor
+    cores (``flash_fwd_kernel_tma<hd, ...>``) or on the CUDA cores."""
     names = [n for n in kernel_times(fn, 1) if "flash_fwd_kernel" in n]
-    ran = [n for n in names if "256" in n
+    ran = [n for n in names if str(hd) in _template_args(n)
            and ("flash_fwd_kernel_tma" in n) == tma]
     print(f"flash_attn[{name}]: the profile names {names}", flush=True)
     if not ran:
         raise AssertionError(f"flash_attn[{name}]: expected the "
                              f"{'TMA' if tma else 'CUDA-core'} kernel at "
-                             f"hd 256, the profile names {names}")
+                             f"hd {hd}, the profile names {names}")
 
 
 # gemma2-27b's dense projections (K, N): wq, wk and wv, gate and up, wo,
@@ -1337,6 +1386,44 @@ def recurrentgemma_kernel_cases(gen, device_fns: dict) -> None:
     device_fns["SDPA " + name] = r["library_call"]
 
 
+# XLM-R's flash calls: 8 sentences a batch in buckets 32, 128 and 512 (rows
+# 1r, 1s, 1t of PERF.md), each row's length that of a sentence of the
+# bucket, as length-sorted batches of ``xlmr_sentences`` hold them
+XLMR_FLASH = {"1r": (32, [32, 30, 27, 25, 22, 20, 17, 12]),
+              "1s": (128, [128, 119, 104, 97, 88, 77, 70, 65]),
+              "1t": (512, [512, 488, 431, 390, 333, 301, 280, 257])}
+# a bucket-32 batch of a short last batch's kind: empty rows (length 0),
+# length 1, one short of the bucket and the whole bucket
+XLMR_PADDED_LENS = [1, 0, 31, 32, 16, 0, 5, 32]
+
+
+def xlmr_flash_cases(gen, device_fns: dict) -> None:
+    """Flash at XLM-R's shapes (bf16, non-causal, 16 heads of head_dim 64,
+    G 1, per-row lengths): a batch of 8 in buckets 32, 128 and 512, held
+    against the plain version, timed beside SDPA with a boolean key-padding
+    mask and the bound; the profile must name
+    ``flash_fwd_kernel_tma<64, ...>``. Then a bucket-32 batch with empty
+    rows, whose outputs must be exactly 0 (the plain version's too)."""
+    bf16 = torch.bfloat16
+    for row, (S, lens) in XLMR_FLASH.items():
+        name = f"xlmr_{row}_B8_S{S}_H16_K16_hd64_noncausal"
+        r = flash_case(name, gen, 8, S, 16, 16, 64, bf16, lens,
+                       causal=False)
+        _show("flash_attn", name, r)
+        require_flash_kernel(name, r["call"], tma=True, hd=64)
+        device_fns["flash_attn " + name] = r["call"]
+        device_fns["SDPA (boolean mask) " + name] = r["library_call"]
+    name = "xlmr_1r_B8_S32_hd64_noncausal_empty_rows"
+    r = flash_case(name, gen, 8, 32, 16, 16, 64, bf16, XLMR_PADDED_LENS,
+                   causal=False)
+    _show("flash_attn", name, r)
+    empty = [i for i, n in enumerate(XLMR_PADDED_LENS) if n == 0]
+    out = r["call"]()
+    if out[empty].abs().max().item() != 0.0:
+        raise AssertionError(f"flash_attn[{name}]: rows {empty} have no key "
+                             f"and must give 0")
+
+
 def phase_kernels() -> dict:
     """Every case of both kernels; returns the main-path measurements."""
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1447,6 +1534,7 @@ def phase_kernels() -> dict:
         _gemma2_fns(device_fns, "flash_attn", name, r)
     gemma_2b_flash_cases(gen, device_fns)
     recurrentgemma_kernel_cases(gen, device_fns)
+    xlmr_flash_cases(gen, device_fns)
     # the JAX package's cases (repro/kernels/decode_attn/ops.py), scalar
     # pos broadcast to every row, then deepseek-7b decode at per-row pos
     decode_cases = {
@@ -3345,6 +3433,343 @@ def phase_recurrentgemma() -> dict:
                                                    "decode_attn")}
 
 
+# ---- XLM-R ----------------------------------------------------------------
+
+XLMR_BATCH = 8                  # the example's batch of sentences
+XLMR_SENTENCES = 256
+# the leaves init_params leaves at zero: biases and norm parameters
+XLMR_DRAWN = ("bq", "bk", "bv", "bo", "b_up", "b_down", "bias", "scale")
+XLMR_ENCODER_TOL = 0.05
+
+
+def draw_biases(params, seed: int) -> None:
+    """Every bias and norm parameter of ``params`` drawn from N(0, 0.5^2)
+    by a seeded ``torch.Generator`` on its device, in place: they are zeros
+    at init, where a port that dropped them would still agree."""
+    gen = torch.Generator(device=model_mod.model_device(params)) \
+        .manual_seed(seed)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            if name.rsplit(".", 1)[-1] in XLMR_DRAWN:
+                p.copy_(0.5 * torch.randn(p.shape, generator=gen,
+                                          device=p.device))
+
+
+def reduce_xlmr(dtype: str):
+    """XLM-R cut for the card-vs-host checks: ``reduce_for_smoke`` (2
+    layers, d_model 64, 4 heads of head_dim 16) in f32, and in bf16 at the
+    flash kernel's head_dim 64 (d_model 256, 4 heads of 64, d_ff 512)."""
+    cfg = reduce_for_smoke(get_config("xlmr-paper"))
+    if dtype == "float32":
+        return cfg
+    return dataclasses.replace(cfg, d_model=256, num_heads=4,
+                               num_kv_heads=4, head_dim=64, d_ff=512,
+                               param_dtype=dtype, activation_dtype=dtype)
+
+
+def _pooled_in(params, cfg, sent, bucket: int, kv_valid: bool = True):
+    """``sent``'s pooled embedding (d,) f32 in a batch of ``bucket``
+    (beside an empty row); without ``kv_valid`` the forward attends the
+    pads (the pooling still takes the real tokens only)."""
+    toks, mask = pad_ragged_to_bucket([sent, sent[:0]], bucket)
+    toks, mask = (torch.from_numpy(a).to(model_mod.model_device(params))
+                  for a in (toks, mask))
+    with torch.inference_mode():
+        if kv_valid:
+            return encode_pooled(params, cfg, toks, mask)[0].float().cpu()
+        x, _ = model_mod.forward(params, cfg, {"tokens": toks}, mode="full",
+                                 caches=None)
+        m = mask.float()[..., None]
+        return ((x.float() * m).sum(1) / m.sum(1).clamp(min=1.0))[0].cpu()
+
+
+def bucket_invariance(label: str, params, cfg, tol: float) -> float:
+    """A 20-token sentence pooled in buckets 32, 64 and 128: within ``tol``
+    of one another; with ``kv_valid`` dropped the 32 and 64 buckets must
+    differ past it. Returns the largest difference."""
+    sent = np.random.default_rng(4).integers(0, cfg.vocab_size, 20) \
+        .astype(np.int32)
+    ref = _pooled_in(params, cfg, sent, 32)
+    diff = max((_pooled_in(params, cfg, sent, b) - ref).abs().max().item()
+               for b in (64, 128))
+    unmasked = [_pooled_in(params, cfg, sent, b, kv_valid=False)
+                for b in (32, 64)]
+    fault = (unmasked[1] - unmasked[0]).abs().max().item()
+    print(f"{label}: one sentence's pooled embedding in buckets 32, 64, 128: "
+          f"max difference {diff:.3e} (tol {tol}); with kv_valid dropped, "
+          f"buckets 32 vs 64 differ by {fault:.3e}", flush=True)
+    if not diff <= tol:
+        raise AssertionError(f"{label}: the pooled embedding depends on the "
+                             f"bucket ({diff} > {tol})")
+    if not fault > tol:
+        raise AssertionError(f"{label}: with kv_valid dropped the buckets "
+                             f"still agree ({fault} <= {tol}): the check "
+                             f"cannot see a dropped mask")
+    return diff
+
+
+def phase_check_xlmr() -> None:
+    """check-xlmr: ``reduce_xlmr`` in f32 and bf16 with every bias and norm
+    parameter drawn nonzero: 24 sentences of 1-128 tokens in length-sorted
+    batches of 8 over buckets 32/64/128, pooled on the card (graphed) and
+    on the host (plain versions) from the same weights, within 2e-3 (f32)
+    and 2e-2 (bf16); the graphed server's replays identical to an eager
+    server's; then bucket invariance on the card."""
+    buckets = (32, 64, 128)
+    for dtype in ("float32", "bfloat16"):
+        cfg = reduce_xlmr(dtype)
+        dt = dtype_of(dtype)
+        params = model_mod.init_params(cfg, seed=1, device=DEV)
+        draw_biases(params, seed=2)
+        host = copy.deepcopy(params).to("cpu")
+        sents = xlmr_sentences(cfg.vocab_size, 24, seed=3, min_len=1,
+                               max_len=128)
+        batches = length_sorted_batches([len(s) for s in sents], XLMR_BATCH)
+        graphed = EncoderServer(cfg, params, batch_size=XLMR_BATCH,
+                                buckets=buckets)
+        graphed.serve(sents, batches)                  # warm-up, capture
+        got = graphed.serve(sents, batches)            # replays
+        eager = EncoderServer(cfg, params, batch_size=XLMR_BATCH,
+                              buckets=buckets, cuda_graphs=False)
+        want_eager = eager.serve(sents, batches)
+        want = EncoderServer(cfg, host, batch_size=XLMR_BATCH,
+                             buckets=buckets).serve(sents, batches)
+        label = f"check-xlmr[{dtype} hd {cfg.head_dim}]"
+        err = compare(label, torch.from_numpy(got.embeds),
+                      torch.from_numpy(want.embeds), dt)
+        gap = np.abs(got.embeds - want_eager.embeds).max()
+        ex = graphed.executor
+        print(f"{label}: {len(sents)} sentences in {len(batches)} batches "
+              f"over buckets {sorted(set(got.buckets))}: card (graphed, "
+              f"{ex.captures['encode']} graphs, {ex.replays['encode']} "
+              f"replays) vs host max abs err {err:.3e} (tol {TOL[dt]}); "
+              f"graphed vs eager max abs difference {gap:.3e}", flush=True)
+        if gap != 0:
+            raise AssertionError(f"{label}: graphed and eager pooled "
+                                 f"embeddings differ (max {gap})")
+        if ex.captures["encode"] != graphed.exe.compile_count:
+            raise AssertionError(f"{label}: {ex.captures['encode']} graphs "
+                                 f"for {graphed.exe.compile_count} buckets")
+        bucket_invariance(label, params, cfg, TOL[dt])
+        del params, host, graphed, eager
+        _free_card()
+
+
+def _xlmr_launches() -> dict:
+    return {"flash_attn": flash_attn.launches,
+            "flash_attn non-causal": flash_attn.noncausal_launches,
+            **{k: fn.launches for k, fn in LAUNCHERS.items()
+               if k != "flash_attn"}}
+
+
+def _serve_xlmr(label: str, srv, sents, batches):
+    """One pass of ``batches`` with every launch counter zeroed just
+    before and read just after; raises unless every sentence got a finite,
+    nonzero embedding. Returns (the ``EncodeRun``, launches)."""
+    _zero_launches()
+    torch.cuda.synchronize()
+    run = srv.serve(sents, batches)
+    launches = _xlmr_launches()
+    served = sorted(i for b in run.batches for i in b)
+    if served != list(range(len(sents))):
+        raise AssertionError(f"{label}: served {len(served)} of "
+                             f"{len(sents)} sentences")
+    if not np.isfinite(run.embeds).all() \
+            or not (np.abs(run.embeds).sum(1) > 0).all():
+        raise AssertionError(f"{label}: a pooled embedding is not finite or "
+                             f"is zero")
+    return run, launches
+
+
+def phase_serve_xlmr(cfg, params) -> tuple:
+    """serve-xlmr: 256 sentences of ``xlmr_sentences(seed=0, max_len=512)``
+    in length-sorted batches of 8 through the per-bucket graphs (a warm-up
+    pass captures them first), then the same sentences in arrival order;
+    serve-eager-xlmr: the sorted batches through a ``cuda_graphs=False``
+    server, launches equal and pooled outputs identical. Returns (the
+    graphed sorted pass's launches, its ``EncodeRun``)."""
+    sents = xlmr_sentences(cfg.vocab_size, XLMR_SENTENCES, seed=0, min_len=4,
+                           max_len=SEQ_BUCKETS[-1])
+    lengths = [len(s) for s in sents]
+    naive = arrival_batches(len(sents), XLMR_BATCH)
+    batches = length_sorted_batches(lengths, XLMR_BATCH)
+    waste = [padding_waste(lengths, b, SEQ_BUCKETS) * 100
+             for b in (naive, batches)]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    srv = EncoderServer(cfg, params, batch_size=XLMR_BATCH,
+                        buckets=SEQ_BUCKETS)
+    t0 = time.perf_counter()
+    srv.serve(sents, batches)
+    warm_s = time.perf_counter() - t0
+    ex = srv.executor
+    warm_replays = ex.replays["encode"]
+    run, launches = _serve_xlmr("serve-xlmr", srv, sents, batches)
+    replays = ex.replays["encode"] - warm_replays
+    peak = torch.cuda.max_memory_allocated()
+    per_bucket = {b: len(s) for b, s in run.by_bucket().items()}
+    print(f"serve-xlmr: xlmr-paper full width bf16, {cfg.num_layers} "
+          f"layers, {len(sents)} sentences of {min(lengths)}-{max(lengths)} "
+          f"tokens ({sum(lengths)} real tokens); padding waste: naive "
+          f"batching {waste[0]:.2f}%, length-sorted {waste[1]:.2f}%; "
+          f"batches per bucket {per_bucket}; graphs captured "
+          f"{ex.captures['encode']}, one per stage key "
+          f"{sorted(k for _, k in ex.cached_keys('encode'))} "
+          f"({srv.exe.compile_count} buckets built; "
+          f"warm-up pass {warm_s:.3f} s, capture seconds "
+          f"{ex.capture_s['encode']:.3f}), replays in the timed pass "
+          f"{replays}; "
+          f"peak memory {peak / 2**30:.2f} GiB, "
+          f"{(peak - base) / 2**30:.3f} GiB above the weights", flush=True)
+    print("serve-xlmr: " + run.report().replace("\n", "\nserve-xlmr: "),
+          flush=True)
+    print(f"serve-xlmr: kernel launches {launches}", flush=True)
+    if ex.captures["encode"] != srv.exe.compile_count \
+            or replays != len(batches):
+        raise AssertionError(f"serve-xlmr: {ex.captures['encode']} graphs "
+                             f"for {srv.exe.compile_count} buckets, "
+                             f"{replays} replays for {len(batches)} "
+                             f"batches")
+    if not 0 < launches["flash_attn non-causal"] == launches["flash_attn"]:
+        raise AssertionError(f"serve-xlmr: flash launches {launches}: "
+                             f"expected every one non-causal, and some")
+    captured = ex.captures["encode"]
+    arrival, _ = _serve_xlmr("serve-xlmr arrival order", srv, sents, naive)
+    print(f"serve-xlmr: arrival order: {len(naive)} batches in "
+          f"{arrival.wall_s:.4f} s against length-sorted {run.wall_s:.4f} s "
+          f"(graphs captured in this pass: "
+          f"{ex.captures['encode'] - captured}; neither time held)",
+          flush=True)
+    eager = EncoderServer(cfg, params, batch_size=XLMR_BATCH,
+                          buckets=SEQ_BUCKETS, cuda_graphs=False)
+    erun, elaunches = _serve_xlmr("serve-eager-xlmr", eager, sents, batches)
+    gap = np.abs(erun.embeds - run.embeds).max()
+    print("serve-eager-xlmr: " + erun.report().replace(
+        "\n", "\nserve-eager-xlmr: "), flush=True)
+    print(f"serve-eager-xlmr: launches {elaunches} (graphed {launches}); "
+          f"pooled outputs max abs difference {gap:.3e}", flush=True)
+    if elaunches != launches:
+        raise AssertionError("serve-eager-xlmr: launches differ from the "
+                             "graphed run's")
+    if gap != 0:
+        raise AssertionError(f"serve-eager-xlmr: pooled outputs differ (max "
+                             f"{gap})")
+    return launches, run
+
+
+def check_xlmr_encoder(label: str, cfg, params) -> None:
+    """8 sentences of 65-128 tokens at bucket 128 pooled by the full-width
+    bf16 model and by an f32 copy of its weights, both on the card: the
+    relative error ||bf16 - f32|| / ||f32|| over the batch within
+    ``XLMR_ENCODER_TOL``, and three planted faults past it: causal
+    attention, the lengths dropped (the pads attended), the biases
+    dropped."""
+    rng = np.random.default_rng(5)
+    sents = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in rng.integers(65, 129, XLMR_BATCH)]
+    toks, mask = pad_ragged_to_bucket(sents, 128)
+    toks, mask = (torch.from_numpy(a).to(DEV) for a in (toks, mask))
+    f32cfg = dataclasses.replace(cfg, param_dtype="float32",
+                                 activation_dtype="float32")
+    f32 = copy.deepcopy(params).float()
+    with torch.inference_mode():
+        want = encode_pooled(f32, f32cfg, toks, mask)
+    del f32
+    _free_card()
+    biases = [p for n, p in params.named_parameters()
+              if n.rsplit(".", 1)[-1] in ("bq", "bk", "bv", "b_up", "b_down")]
+
+    def rel(fault=None) -> float:
+        fcfg = dataclasses.replace(cfg, family="dense") \
+            if fault == "causal" else cfg
+        saved = [b.detach().clone() for b in biases]
+        try:
+            with torch.inference_mode():
+                if fault == "biases":
+                    for b in biases:
+                        b.zero_()
+                if fault == "lens":
+                    x, _ = model_mod.forward(params, cfg, {"tokens": toks},
+                                             mode="full", caches=None)
+                    m = mask.float()[..., None]
+                    got = (x.float() * m).sum(1) / m.sum(1).clamp(min=1.0)
+                else:
+                    got = encode_pooled(params, fcfg, toks, mask)
+        finally:
+            with torch.no_grad():
+                for b, s in zip(biases, saved):
+                    b.copy_(s)
+        if not torch.isfinite(got).all():
+            return float("inf")
+        return ((got - want).norm() / want.norm()).item()
+
+    err = rel()
+    faults = {"causal attention": rel("causal"),
+              "lens dropped (pads attended)": rel("lens"),
+              "biases dropped": rel("biases")}
+    if rel() != err:
+        raise AssertionError(f"{label}: the output changed after the "
+                             f"planted faults were undone")
+    print(f"{label}: {XLMR_BATCH} sentences of "
+          f"{sorted(len(s) for s in sents)} tokens at bucket 128: bf16 vs "
+          f"f32 weights on {DEV}, ||bf16 - f32|| / ||f32|| {err:.4f} (tol "
+          f"{XLMR_ENCODER_TOL}); planted faults: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in faults.items()), flush=True)
+    if not err <= XLMR_ENCODER_TOL:
+        raise AssertionError(f"{label}: error {err} > {XLMR_ENCODER_TOL}")
+    for name, e in faults.items():
+        if not e > XLMR_ENCODER_TOL:
+            raise AssertionError(f"{label}: the planted fault '{name}' stays "
+                                 f"within the tolerance ({e} <= "
+                                 f"{XLMR_ENCODER_TOL}): the check cannot "
+                                 f"see it")
+
+
+def phase_serve_xlmr_launcher() -> None:
+    """The launcher's ``--arch xlmr-paper --full-config`` on the card: its
+    own seed-0 weights, 256 sentences in batches of 8, one captured graph
+    per bucket reached."""
+    srv, run = serve_launcher.main(
+        ["--arch", "xlmr-paper", "--full-config", "--requests",
+         str(XLMR_SENTENCES), "--slots", str(XLMR_BATCH)])
+    captures, graphs = srv.executor.captures["encode"], srv.executor.graphs
+    reached = len(set(run.buckets))
+    print(f"serve-xlmr-launcher: {len(run.embeds)} sentences through "
+          f"{captures} graphs for {reached} buckets reached", flush=True)
+    if not (graphs and captures == reached == srv.exe.compile_count):
+        raise AssertionError(f"serve-xlmr-launcher: {captures} graphs for "
+                             f"{reached} buckets")
+    del srv, run             # the server's stages hold its weights
+    _free_card()
+
+
+def phase_xlmr() -> dict:
+    """check-xlmr, then full-width xlmr-paper (24 layers, d_model 1024, 16
+    heads of 64, d_ff 4096, vocab 250002 padded to 250112; ~1.04 GiB of
+    random bf16 weights from seed 0, every bias and norm parameter drawn
+    nonzero): serve-xlmr and serve-eager-xlmr, check-xlmr-encoder, then the
+    launcher's own run. Frees the weights; returns the flash launches of
+    the graphed sorted serve."""
+    phase_check_xlmr()
+    cfg = get_config("xlmr-paper")
+    t0 = time.perf_counter()
+    params = model_mod.init_params(cfg, seed=0, device=DEV)
+    draw_biases(params, seed=1)
+    torch.cuda.synchronize()
+    print(f"init: xlmr-paper full width, "
+          f"{sum(p.numel() for p in params.parameters()) / 1e6:.3f} M "
+          f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches, _ = phase_serve_xlmr(cfg, params)
+    check_xlmr_encoder("check-xlmr-encoder", cfg, params)
+    del params
+    _free_card()
+    phase_serve_xlmr_launcher()
+    print(f"freed xlmr-paper: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB still allocated", flush=True)
+    return {"flash_attn": launches["flash_attn"]}
+
+
 # ---- DLRM -------------------------------------------------------------------
 
 DLRM_REQUESTS, DLRM_BATCH = 64, 64
@@ -3357,6 +3782,7 @@ def _zero_launches() -> None:
         fn.launches = 0
     flash_attn.offset_launches = 0
     flash_attn.window_launches = 0
+    flash_attn.noncausal_launches = 0
 
 
 def _require_sls(label: str, launches: dict, kind: str, n: int) -> None:
@@ -4135,6 +4561,7 @@ def main():
     _free_card()
     print(f"freed gemma-2b: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB still allocated", flush=True)
+    launches["flash_attn"] += phase_xlmr()["flash_attn"]
     for k, n in phase_recurrentgemma().items():
         launches[k] += n
     phase_check_gemma2()

@@ -3,21 +3,24 @@
 Only the architectures the port serves are registered (deepseek-7b, all
 global; gemma2-27b, local and global layers in turn; gemma-2b, MQA at
 head_dim 256 with padded heads; recurrentgemma-9b, RG-LRU recurrent
-blocks between local layers); the others join with the slices that port
-their block kinds."""
+blocks between local layers; xlmr-paper, the paper's bidirectional
+encoder with LayerNorm, q/k/v biases and a plain biased GELU MLP, served
+in length buckets); the others join with the slices that port their block
+kinds."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (deepseek_7b, gemma2_27b, gemma_2b,
-                                 recurrentgemma_9b)
+                                 recurrentgemma_9b, xlmr_paper)
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
                                       ModelConfig, QuantConfig,
                                       reduce_for_smoke)
 
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (deepseek_7b.CONFIG, gemma2_27b.CONFIG,
-                        gemma_2b.CONFIG, recurrentgemma_9b.CONFIG)}
+                        gemma_2b.CONFIG, recurrentgemma_9b.CONFIG,
+                        xlmr_paper.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

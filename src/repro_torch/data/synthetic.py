@@ -1,8 +1,9 @@
-"""Synthetic DLRM click logs of the port (numpy copies of ``zipf_indices``
-and ``dlrm_batches`` from ``repro/data/synthetic.py``, held to the
-originals by ``tests/test_torch_serving.py``): dense features, power-law
-sparse bags padded to ``max_lookups_per_table``, and labels, from a numpy
-seed, so both packages see the same batches."""
+"""Synthetic data of the port (numpy copies of ``zipf_indices``,
+``dlrm_batches`` and ``xlmr_sentences`` from ``repro/data/synthetic.py``,
+held to the originals by ``tests/test_torch_serving.py``): DLRM click logs
+(dense features, power-law sparse bags padded to
+``max_lookups_per_table``, and labels) and XLM-R's variable-length
+sentences, from a numpy seed, so both packages see the same data."""
 from __future__ import annotations
 
 from typing import Dict, Iterator
@@ -47,3 +48,11 @@ def dlrm_batches(cfg: DLRMConfig, batch: int, *, seed: int = 0,
             labels = rng.integers(0, 2, batch).astype(np.float32)
         yield {"dense": dense, "indices": indices, "lengths": lengths,
                "labels": labels}
+
+
+def xlmr_sentences(vocab: int, n: int, *, seed: int = 0,
+                   min_len: int = 4, max_len: int = 256) -> list:
+    """Variable-length 'sentences' with the paper's skew (short dominates)."""
+    rng = np.random.default_rng(seed)
+    lens = np.clip(rng.lognormal(3.2, 0.8, n).astype(int), min_len, max_len)
+    return [rng.integers(0, vocab, l, dtype=np.int32) for l in lens]

@@ -6,8 +6,10 @@ fallback: a CUDA input the kernel cannot take raises. ``flash_attn.launches``
 counts kernel launches (plain-version calls do not count),
 ``flash_attn.offset_launches`` those of them given a ``q_off`` (the model's
 chunk path always passes one, so that a chunk stage's launch does not
-depend on its offsets' values), and ``flash_attn.window_launches`` those
-given a sliding window (a local layer's).
+depend on its offsets' values), ``flash_attn.window_launches`` those
+given a sliding window (a local layer's) and
+``flash_attn.noncausal_launches`` those with ``causal=False`` (an
+encoder's).
 """
 from __future__ import annotations
 
@@ -108,9 +110,11 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash_attn.launches += 1
     flash_attn.offset_launches += q_off is not None
     flash_attn.window_launches += window > 0
+    flash_attn.noncausal_launches += not causal
     return o
 
 
 flash_attn.launches = 0
 flash_attn.offset_launches = 0
 flash_attn.window_launches = 0
+flash_attn.noncausal_launches = 0

@@ -11,6 +11,13 @@ JAX launcher's: the same seeded generator, lengths and priorities.
 (batches of 64 from ``dlrm_batches``, a full-trace warm-up first);
 ``--full-config`` is ``PAPER_COMPLEX`` with halved tables on one shard, the
 size one 80 GB card holds.
+``--arch xlmr-paper`` serves the paper's XLM-R encoder (``serve_encoder``):
+``--requests`` sentences from ``xlmr_sentences``, length-sorted into
+batches of ``--slots`` rows, each batch padded to its length bucket (32 ..
+512) and encoded by that bucket's stage (one CUDA graph per bucket on the
+card) into mean-pooled embeddings; it prints the naive and the sorted
+batching's padding waste, sentences/s, real tokens/s, the latency by
+bucket, the graphs captured and the peak memory.
 ``--precision w8a8`` serves the calibrated int8 path (the §V build step,
 then the w8a8 kernel for every int8 site); ``--verify-quant`` replays the
 trace on an unquantized engine and exits non-zero when the greedy-token
@@ -52,14 +59,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs import dlrm_paper, get_config, reduce_for_smoke
+from repro_torch.configs.xlmr_paper import SEQ_BUCKETS
+from repro_torch.core.bucketing import length_sorted_batches
 from repro_torch.core.metrics import token_agreement
-from repro_torch.data.synthetic import dlrm_batches
+from repro_torch.data.synthetic import dlrm_batches, xlmr_sentences
 from repro_torch.kernels import _build
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.models import model as model_mod
 from repro_torch.models.quantize import build_quantized_params
 from repro_torch.serving.dlrm_engine import DLRMEngine
 from repro_torch.serving.dlrm_engine import make_replicas as dlrm_replicas
+from repro_torch.serving.encoder import (EncoderServer, arrival_batches,
+                                         padding_waste)
 from repro_torch.serving.engine import InferenceEngine, Request, make_replicas
 from repro_torch.serving.perf_model import PerfModel
 from repro_torch.serving.router import ReplicaRouter
@@ -524,6 +535,49 @@ def serve_dlrm(args):
     return tel
 
 
+def serve_encoder(args):
+    """The encoder half of ``examples/serve_lm_bucketed.py`` on the port:
+    the sorted batches are served once to build (and on the card capture)
+    each bucket's stage, then again, timed. Returns (the ``EncoderServer``,
+    the timed ``EncodeRun``)."""
+    cfg = reduce_for_smoke(get_config(args.arch)) if args.smoke \
+        else get_config(args.arch)
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        t0 = time.perf_counter()
+        _build.build_all()
+        print(f"CUDA kernels built in {time.perf_counter() - t0:.1f}s")
+    params = model_mod.init_params(cfg, seed=0, device=args.device)
+    sents = xlmr_sentences(cfg.vocab_size, args.requests, seed=0, min_len=4,
+                           max_len=SEQ_BUCKETS[-1])
+    lengths = [len(s) for s in sents]
+    naive = arrival_batches(len(sents), args.slots)
+    batches = length_sorted_batches(lengths, args.slots)
+    waste = [padding_waste(lengths, b, SEQ_BUCKETS) * 100
+             for b in (naive, batches)]
+    print(f"{len(sents)} sentences, lengths {min(lengths)}..{max(lengths)}; "
+          f"padding waste: naive batching {waste[0]:.1f}% -> length-sorted "
+          f"{waste[1]:.1f}%")
+    srv = EncoderServer(cfg, params, batch_size=args.slots,
+                        buckets=SEQ_BUCKETS)
+    warm = srv.serve(sents, batches)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    run = srv.serve(sents, batches)
+    if not np.isfinite(run.embeds).all():
+        raise SystemExit("serve_encoder: non-finite pooled embeddings")
+    print(f"served {len(sents)} sentences on {args.device} "
+          f"({cfg.name}, d_model {cfg.d_model}) through "
+          f"{srv.exe.compile_count} buckets "
+          f"(graphs captured {sum(srv.executor.captures.values())}); "
+          f"first pass {warm.wall_s:.3f} s")
+    print(run.report())
+    if cuda:
+        print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB")
+    return srv, run
+
+
 def _service_est(v: str):
     return v if v == "auto" else float(v)
 
@@ -536,7 +590,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b",
                     help="deepseek-7b, gemma2-27b, gemma-2b or "
-                         "recurrentgemma-9b, or dlrm for "
+                         "recurrentgemma-9b, xlmr-paper for the bucketed "
+                         "encoder (--requests sentences, --slots a batch), "
+                         "or dlrm for "
                          "the recommendation pipeline (--smoke reduces an LM "
                          "with reduce_for_smoke, which drops gemma-2b's "
                          "head padding and head_dim 256)")
@@ -623,6 +679,8 @@ def main(argv=None):
         return elastic_smoke()
     if args.arch == "dlrm":
         return serve_dlrm(args)
+    if get_config(args.arch).family == "encoder":
+        return serve_encoder(args)
     return serve_lm(args)
 
 

@@ -2,10 +2,12 @@
 deepseek-7b serving run in ``repro/models/attention.py``: ``global``
 (causal over every position) and ``local`` (a sliding window of
 ``cfg.window_size`` keys, its cache a ring of ``min(window_size, max_len)``
-slots per row), both with the optional logit softcap. Prefill and prefill
-chunks go through the flash kernel, decode through the flash-decode kernel
-(or its int8-cache twin). A projection whose weight the build step
-quantized (``QuantDense``) goes through the w8a8 kernel.
+slots per row), both with the optional logit softcap, and optional q/k/v
+and output biases (XLM-R's). Prefill and prefill chunks go through the
+flash kernel, and so does an encoder's non-causal attention; decode goes
+through the flash-decode kernel (or its int8-cache twin). A projection
+whose weight the build step quantized (``QuantDense``) goes through the
+w8a8 kernel.
 
 The KV cache is a dict of preallocated ``k``/``v`` tensors (B, slots, K, hd)
 that prefill and decode update in place. (The JAX package instead returns a
@@ -46,7 +48,9 @@ class Attention(nn.Module):
     zero at init (as the JAX package's), so the kernels attend them and
     the output projection discards them exactly. Every reshape after the
     projections takes its head count from the weights, never from
-    ``cfg.num_heads``."""
+    ``cfg.num_heads``. With ``cfg.qkv_bias`` it holds ``bq`` (Hp,hd),
+    ``bk`` and ``bv`` (K,hd), with ``cfg.o_bias`` ``bo`` (d,): zeros at
+    init, as the JAX package's."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
@@ -59,6 +63,12 @@ class Attention(nn.Module):
         self.wv = mk_param((d, K, hd), dt, device, gen)
         self.wo = mk_param((Hp, hd, d), dt, device, gen)
         self.wo.data[H:] = 0          # the padded heads' output rows
+        if cfg.qkv_bias:
+            self.bq = mk_param((Hp, hd), dt, device, init="zeros")
+            self.bk = mk_param((K, hd), dt, device, init="zeros")
+            self.bv = mk_param((K, hd), dt, device, init="zeros")
+        if cfg.o_bias:
+            self.bo = mk_param((d,), dt, device, init="zeros")
 
 
 def cache_slots(cfg: ModelConfig, max_len: int, kind: str) -> int:
@@ -124,18 +134,27 @@ def _head_proj(x: torch.Tensor, w, cfg: ModelConfig) -> torch.Tensor:
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
-    q = apply_rope(_head_proj(x, p.wq, cfg), positions, cfg.rope_theta)
-    k = apply_rope(_head_proj(x, p.wk, cfg), positions, cfg.rope_theta)
+    """The projections, their biases (after the product, before RoPE, as
+    the reference adds them), then RoPE on q and k."""
+    q = _head_proj(x, p.wq, cfg)
+    k = _head_proj(x, p.wk, cfg)
     v = _head_proj(x, p.wv, cfg)
+    if hasattr(p, "bq"):
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _out_proj(p: Attention, o: torch.Tensor) -> torch.Tensor:
-    """o (B,S,H,hd) -> (B,S,d); ``wo`` contracts its leading head axes."""
+    """o (B,S,H,hd) -> (B,S,d); ``wo`` contracts its leading head axes,
+    then ``bo`` is added where the layer has one."""
     B, S = o.shape[:2]
     if is_quantized_dense(p.wo):
-        return dense_w8a8(o.reshape(B, S, -1), p.wo)
-    return o.reshape(B, S, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+        y = dense_w8a8(o.reshape(B, S, -1), p.wo)
+    else:
+        y = o.reshape(B, S, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+    return y + p.bo if hasattr(p, "bo") else y
 
 
 def _softcap(cfg: ModelConfig) -> float:
@@ -145,13 +164,14 @@ def _softcap(cfg: ModelConfig) -> float:
 def full_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                    positions: torch.Tensor,
                    kv_valid: Optional[torch.Tensor] = None, *,
-                   kind: str):
-    """Causal attention over a whole (right-padded) sequence: x (B,S,d),
-    ``kv_valid`` (B,S) marks real tokens; a local layer sees the last
+                   kind: str, causal: bool = True):
+    """Attention over a whole (right-padded) sequence, causal or (an
+    encoder's) not: x (B,S,d), ``kv_valid`` (B,S) marks real tokens, and no
+    query attends a padded key; a local layer sees the last
     ``window_size`` keys. Returns (y (B,S,d), (k, v))."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     lens = None if kv_valid is None else kv_valid.sum(-1).to(torch.int32)
-    o = flash_attn(q, k, v, lens, causal=True,
+    o = flash_attn(q, k, v, lens, causal=causal,
                    window=cfg.window_size if kind == ATTN_LOCAL else 0,
                    softcap=_softcap(cfg))
     return _out_proj(p, o), (k, v)

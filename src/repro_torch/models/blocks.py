@@ -1,8 +1,9 @@
 """Residual blocks of the global, local and recurrent kinds: a pre-norm
 mixer (attention, or the RG-LRU for ``recurrent``) then a pre-norm MLP,
 each output normed again before its residual add when
-``cfg.post_attn_norm`` is set (gemma2's sandwich norms) — the attention
-and recurrent paths of ``repro/models/blocks.py``."""
+``cfg.post_attn_norm`` is set (gemma2's sandwich norms); every norm is the
+one ``cfg.norm_type`` names (RMSNorm, or XLM-R's LayerNorm) — the
+attention and recurrent paths of ``repro/models/blocks.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,7 +15,7 @@ from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, \
     ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
-from repro_torch.models.common import RMSNorm, dtype_of
+from repro_torch.models.common import dtype_of, make_norm
 from repro_torch.models.mlp import MLP, apply_mlp
 
 
@@ -24,7 +25,7 @@ class Block(nn.Module):
         super().__init__()
         self.kind = kind
         dt = dtype_of(cfg.param_dtype)
-        self.pre_norm = RMSNorm(cfg.d_model, dt, device)
+        self.pre_norm = make_norm(cfg, dt, device)
         if kind == RECURRENT:
             self.rec = rglru_mod.RGLRU(cfg, gen, device)
         elif kind in (ATTN_GLOBAL, ATTN_LOCAL):
@@ -33,11 +34,11 @@ class Block(nn.Module):
             raise ValueError(f"block kind must be {ATTN_GLOBAL!r}, "
                              f"{ATTN_LOCAL!r} or {RECURRENT!r}, got {kind!r}")
         if cfg.post_attn_norm:
-            self.post_norm = RMSNorm(cfg.d_model, dt, device)
-        self.pre_mlp_norm = RMSNorm(cfg.d_model, dt, device)
+            self.post_norm = make_norm(cfg, dt, device)
+        self.pre_mlp_norm = make_norm(cfg, dt, device)
         self.mlp = MLP(cfg, gen, device)
         if cfg.post_attn_norm:
-            self.post_mlp_norm = RMSNorm(cfg.d_model, dt, device)
+            self.post_mlp_norm = make_norm(cfg, dt, device)
 
 
 def _recurrent(p: Block, h: torch.Tensor, mode: str, cache, kv_valid, rows,
@@ -59,8 +60,10 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 kv_valid: Optional[torch.Tensor] = None,
                 rows: Optional[torch.Tensor] = None,
                 chunk: Optional[attn.ChunkCoords] = None,
-                active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """mode 'full': causal attention (or the recurrence) over x, no cache;
+                active: Optional[torch.Tensor] = None,
+                causal: bool = True) -> torch.Tensor:
+    """mode 'full': attention (causal, or not for an encoder's
+    ``causal=False``; or the recurrence) over x, no cache;
     mode 'prefill': the same, the layer's state written into cache rows
     ``rows``; mode 'chunk': one prompt chunk per row against the live
     cache at the coordinates ``chunk``; mode 'decode': one token per row
@@ -80,7 +83,7 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         y = attn.chunk_prefill_attention(p.attn, h, cache, chunk, cfg, kind)
     else:
         y, (k, v) = attn.full_attention(p.attn, h, cfg, positions, kv_valid,
-                                        kind=kind)
+                                        kind=kind, causal=causal)
         if mode == "prefill":
             attn.fill_cache_from_prefill(
                 cache, k, v, rows, kind,

@@ -1,6 +1,7 @@
-"""Shared model utilities: parameter init, RMSNorm, activations, the logit
-softcap, the recurrent blocks' causal conv with a carried tail, RoPE and
-vocab padding (counterpart of ``repro/models/common.py``)."""
+"""Shared model utilities: parameter init, RMSNorm and LayerNorm,
+activations, the logit softcap, the recurrent blocks' causal conv with a
+carried tail, RoPE and vocab padding (counterpart of
+``repro/models/common.py``)."""
 from __future__ import annotations
 
 import math
@@ -60,6 +61,40 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dt)
+
+
+class LayerNorm(nn.Module):
+    """Holds the norm's ``scale`` and ``bias`` (the JAX leaf names; zeros at
+    init: the norm multiplies by ``1 + scale``)."""
+
+    def __init__(self, d: int, dtype: torch.dtype, device):
+        super().__init__()
+        self.scale = mk_param((d,), dtype, device, init="zeros")
+        self.bias = mk_param((d,), dtype, device, init="zeros")
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        return layer_norm(x, self.scale, self.bias, eps)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps) * (1 + scale) + bias`` in f32, back
+    in x.dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float()) + bias.float()).to(dt)
+
+
+def make_norm(cfg, dtype: torch.dtype, device) -> nn.Module:
+    """The norm ``cfg.norm_type`` names, of width ``cfg.d_model``."""
+    norms = {"rmsnorm": RMSNorm, "layernorm": LayerNorm}
+    if cfg.norm_type not in norms:
+        raise ValueError(f"norm_type must be one of {sorted(norms)}, got "
+                         f"{cfg.norm_type!r}")
+    return norms[cfg.norm_type](cfg.d_model, dtype, device)
 
 
 def activation_fn(name: str):

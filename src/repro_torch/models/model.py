@@ -1,7 +1,10 @@
 """Model assembly for the port: an LM (embedding, a stack of global, local
-and recurrent blocks in the order of ``cfg.layer_kinds()``, final RMSNorm,
+and recurrent blocks in the order of ``cfg.layer_kinds()``, final norm,
 greedy head) — the path deepseek-7b, gemma2-27b, gemma-2b and
-recurrentgemma-9b serving run in ``repro/models/model.py``. The JAX
+recurrentgemma-9b serving run in ``repro/models/model.py`` — and the
+XLM-R encoder (``cfg.family == "encoder"``: the same stack, non-causal,
+with LayerNorm, q/k/v biases and a plain biased MLP), whose hidden states
+mode 'full' gives. The JAX
 package scans stacked layer parameters with ``jax.lax.scan``; here the
 layers are an ``nn.ModuleList`` walked by a Python loop, and the caches a
 list with one dict per layer.
@@ -18,7 +21,7 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models import rglru as rglru_mod
-from repro_torch.models.common import RMSNorm, dtype_of, mk_param
+from repro_torch.models.common import dtype_of, make_norm, mk_param
 from repro_torch.sharding import vocab as vocab_mod
 
 
@@ -32,9 +35,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "SSM blocks": cfg.ssm is not None,
         "encoder-decoder": cfg.encdec is not None,
         "M-RoPE": cfg.rope_mode != "standard",
-        "q/k/v/o biases": cfg.qkv_bias or cfg.o_bias,
-        "non-gated or biased MLP": not cfg.glu or cfg.mlp_bias,
-        "layernorm": cfg.norm_type != "rmsnorm",
         "embedding inputs": cfg.input_kind != "tokens",
     }
     missing = [name for name, used in unsupported.items() if used]
@@ -52,7 +52,7 @@ class Model(nn.Module):
         self.embed = mk_param((Vp, cfg.d_model), dt, device, gen)
         self.layers = nn.ModuleList(blk.Block(cfg, gen, device, kind)
                                     for kind in cfg.layer_kinds())
-        self.final_norm = RMSNorm(cfg.d_model, dt, device)
+        self.final_norm = make_norm(cfg, dt, device)
         if not cfg.tie_embeddings:
             self.lm_head = mk_param((Vp, cfg.d_model), dt, device, gen)
 
@@ -116,10 +116,13 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     nothing waits on the device, so a serving stage built on it can be
     captured as a CUDA graph.
 
-    mode 'full': batch {'tokens' (B,S)}, causal over every position, no
-    caches (pass None; the build step's calibration forward).
-    mode 'prefill': batch {'tokens' (B,S)} right-padded, ``kv_valid`` (B,S)
-    marks real tokens; batch row j's state (K/V, or a recurrent layer's
+    mode 'full': batch {'tokens' (B,S)}, over every position (causal, but
+    not for an encoder config, as in the reference), no caches (pass None;
+    the build step's calibration forward, and the encoder's serving
+    mode); ``kv_valid`` (B,S), if given, marks real tokens of right-padded
+    rows, and no query attends a padded key.
+    mode 'prefill': the same, right-padded, ``kv_valid`` (B,S) marking real
+    tokens; batch row j's state (K/V, or a recurrent layer's
     exit state) goes to cache row
     ``cache_rows[j]`` (default row j); a negative entry marks a padded
     group row, which writes nothing of its own.
@@ -134,15 +137,16 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x = vocab_mod.embed_lookup(params.embed, tokens, cfg)
     B, S = tokens.shape
     positions = rows = None
+    causal = cfg.family != "encoder"
     if mode in ("full", "prefill"):
         positions = torch.arange(S, device=device).expand(B, S)
+        if kv_valid is not None:
+            kv_valid = kv_valid.to(device)
     if mode == "full":
         caches = [None] * cfg.num_layers
     elif mode == "prefill":
         rows = (torch.arange(B, device=device) if cache_rows is None
                 else cache_rows.to(device))
-        if kv_valid is not None:
-            kv_valid = kv_valid.to(device)
     elif mode == "decode":
         pos = torch.as_tensor(pos, dtype=torch.int32).to(device)
         if pos.dim() == 0:                     # one position for every row
@@ -152,7 +156,8 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     for layer, cache in zip(params.layers, caches):
         x = blk.apply_block(layer, x, cfg, mode=mode, cache=cache,
                             positions=positions, pos=pos, kv_valid=kv_valid,
-                            rows=rows, chunk=chunk, active=active)
+                            rows=rows, chunk=chunk, active=active,
+                            causal=causal)
     return params.final_norm(x, cfg.norm_eps), \
         (None if mode == "full" else caches)
 

@@ -70,7 +70,8 @@ WARM_CALLS_KEPT = 256
 COUNTERS = tuple((fn, "launches") for fn in (
     flash_attn, decode_attn, decode_attn_int8, w8a8_matmul, sls, sls_int8,
     sls_int4)) + ((flash_attn, "offset_launches"),
-                  (flash_attn, "window_launches"))
+                  (flash_attn, "window_launches"),
+                  (flash_attn, "noncausal_launches"))
 
 
 @dataclass

@@ -72,6 +72,13 @@ def test_module_list_covers_the_fleet_path():
             "repro_torch.serving.fleet_sim"} <= set(_modules())
 
 
+def test_module_list_covers_the_encoder_path():
+    """The blocked-import check walks the XLM-R encoder's modules too."""
+    assert {"repro_torch.configs.xlmr_paper", "repro_torch.core.bucketing",
+            "repro_torch.serving.encoder",
+            "repro_torch.launch.serve"} <= set(_modules())
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_neither_jax_nor_repro(path):

@@ -55,8 +55,9 @@ def _close(got: torch.Tensor, want, tol: float):
                                rtol=tol, atol=tol)
 
 
-# the nine cases of repro/kernels/flash_attn/ops.py and gemma-2b's hd 256:
-# (B, S, H, K, hd, dtype, lens_frac, kwargs)
+# the nine cases of repro/kernels/flash_attn/ops.py, gemma-2b's hd 256 and
+# XLM-R's encoder: (B, S, H, K, hd, dtype, lens, kwargs), ``lens`` a
+# fraction of S for every row, or each row's length
 FLASH_CASES = {
     "mha_64": (2, 64, 4, 4, 32, "f32", None, {}),
     "gqa_128": (2, 128, 8, 2, 64, "f32", None, {}),
@@ -74,21 +75,26 @@ FLASH_CASES = {
     "hd256_G16_softcap": (1, 64, 16, 1, 256, "f32", None,
                           {"softcap": 30.0}),
     "hd256_G16_bf16": (2, 64, 16, 1, 256, "bf16", 0.6, {}),
+    # XLM-R's domain: non-causal, head_dim 64, G 1, per-row lengths from 1
+    # to the whole bucket, f32 and bf16
+    "xlmr_noncausal_hd64_lens": (4, 32, 4, 4, 64, "f32", (1, 32, 17, 5),
+                                 {"causal": False}),
+    "xlmr_noncausal_hd64_bf16": (3, 64, 4, 4, 64, "bf16", (64, 1, 33),
+                                 {"causal": False}),
 }
 
 
 @pytest.mark.parametrize("name", list(FLASH_CASES))
 def test_flash_plain_matches_jax(name):
-    B, S, H, K, hd, dtype, lens_frac, kw = FLASH_CASES[name]
+    B, S, H, K, hd, dtype, lens, kw = FLASH_CASES[name]
     rng = np.random.default_rng(0)
     qj, qt = _pair(rng.standard_normal((B, S, H, hd), np.float32), dtype)
     kj, kt = _pair(rng.standard_normal((B, S, K, hd), np.float32), dtype)
     vj, vt = _pair(rng.standard_normal((B, S, K, hd), np.float32), dtype)
     lj = lt = None
-    if lens_frac is not None:
-        n = max(int(S * lens_frac), 1)
-        lj, lt = jnp.full((B,), n, jnp.int32), torch.full((B,), n,
-                                                          dtype=torch.int32)
+    if lens is not None:
+        n = lens if isinstance(lens, tuple) else [max(int(S * lens), 1)] * B
+        lj, lt = jnp.asarray(n, jnp.int32), torch.tensor(n, dtype=torch.int32)
     tol = 2e-2 if dtype == "bf16" else 2e-3
     got = flash_attn(qt, kt, vt, lt, **kw)
     assert got.dtype == qt.dtype and got.shape == qt.shape
@@ -167,12 +173,16 @@ def test_wrappers_on_cpu_run_plain_versions_and_count_no_launch():
     k = torch.from_numpy(rng.standard_normal((2, 16, 2, 32), np.float32))
     lens = torch.tensor([16, 5], dtype=torch.int32)
     f0, d0 = flash_attn.launches, decode_attn.launches
+    n0 = flash_attn.noncausal_launches
     assert torch.equal(flash_attn(q, k, k, lens),
                        flash_attention_ref(q, k, k, lens))
+    assert torch.equal(flash_attn(q, k, k, lens, causal=False),
+                       flash_attention_ref(q, k, k, lens, causal=False))
     pos = torch.tensor([15, 3], dtype=torch.int32)
     assert torch.equal(decode_attn(q[:, 0], k, k, pos),
                        decode_attn_ref(q[:, 0], k, k, pos))
-    assert (flash_attn.launches, decode_attn.launches) == (f0, d0) == (0, 0)
+    assert (flash_attn.launches, flash_attn.noncausal_launches,
+            decode_attn.launches) == (f0, n0, d0) == (0, 0, 0)
     kq = torch.from_numpy(rng.integers(-127, 128, (2, 16, 2, 32),
                                        dtype=np.int8))
     sc = torch.from_numpy(rng.uniform(0.001, 0.02, (2, 16, 2))

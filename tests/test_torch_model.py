@@ -167,6 +167,6 @@ def test_prefill_helper_returns_last_hidden(setup):
 
 def test_unsupported_config_raises():
     cfg = dataclasses.replace(reduce_for_smoke(get_config("deepseek-7b")),
-                              norm_type="layernorm")
-    with pytest.raises(NotImplementedError, match="layernorm"):
+                              rope_mode="mrope")
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
         model_mod.init_params(cfg, device="cpu")

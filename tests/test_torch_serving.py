@@ -19,6 +19,7 @@ from repro.configs import dlrm_paper as jax_dlrm_cfg
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduce_for_smoke as jax_reduce
 from repro.core import backend as jax_backend
+from repro.core import bucketing as jax_bucketing
 from repro.core import metrics as jax_metrics
 from repro.core import partitioner as jax_part
 from repro.core import pipeline as jax_pipe
@@ -38,6 +39,7 @@ from repro.serving import telemetry as jax_tel
 from repro_torch.configs import dlrm_paper as dlrm_cfg
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core import backend
+from repro_torch.core import bucketing
 from repro_torch.core import metrics
 from repro_torch.core import partitioner as part
 from repro_torch.core import pipeline as pipe
@@ -75,6 +77,10 @@ COPIED = [
     (jax_part, part, "TableAssignment"), (jax_part, part, "_greedy_assign"),
     (jax_part, part, "partition_tables"),
     (jax_synth, synth, "zipf_indices"), (jax_synth, synth, "dlrm_batches"),
+    (jax_synth, synth, "xlmr_sentences"),
+] + [(jax_bucketing, bucketing, name) for name in (
+    "pick_bucket", "pad_to_bucket", "pad_ragged_to_bucket",
+    "wasted_compute_fraction", "length_sorted_batches")] + [
     (jax_transfer, transfer, "TransferStats"),
     (jax_transfer, transfer, "SparseBatch"),
     (jax_transfer, transfer, "pack_sparse_inputs"),
@@ -275,7 +281,7 @@ def test_quantization_workflow_decides_like_the_original(budget):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "gemma2-27b", "gemma-2b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "xlmr-paper"])
 def test_config_copy_equals_the_original(arch):
     """Each config the port registers is the JAX package's, field for
     field, at full width and through ``reduce_for_smoke``."""
