@@ -219,6 +219,33 @@ result line):
              beside SDPA with a boolean key mask (the profile must name
              ``flash_fwd_kernel_tma<64, ...>``), and a bucket-32 batch with
              empty rows, which must give exactly 0.
+6c"'. check-whisper, serve-whisper, serve-eager-whisper,
+             check-whisper-layers — after XLM-R: whisper-medium's
+             encoder-decoder. check-whisper cuts it to ``reduce_for_smoke``
+             (f32, hd 16) and to d_model 256 with 4 heads of 64 (bf16),
+             biases and norms drawn nonzero, 4 rows of 1500 frames: the
+             encoder's output and a prefill + 8 decode steps' hidden states
+             on the card vs the host (2e-3 elementwise in f32; a relative
+             error within 2e-2 in bf16), then two batches through one
+             graphed ``EncDecServer``, the second's tokens and caches bit
+             for bit an eager server's. Then full width (24 + 24 layers,
+             d_model 1024, 16 heads of 64, 758.6 M bf16 parameters from
+             seed 0, biases and norms drawn): serve-whisper serves 8 rows
+             x 1500 stub frames, prompts of 4-16 tokens, 64 greedy tokens a
+             row, through the graphed encoder + prefill and decode stages
+             (a warm-up batch captures them, a second batch is timed): 72
+             flash launches a prefill (48 non-causal), 48 decode launches a
+             step; prints the prefill call, decode step p50/p99, new
+             tokens/s, graphs and peak memory; serve-eager-whisper the
+             same batch eagerly (launches equal, tokens identical);
+             check-whisper-layers holds bf16 to an f32 copy on the card
+             (the encoder's output and a decode step, with the stub frames
+             through the encoder and with N(0, 1) frames standing for its
+             output) within 0.02, four planted faults past it. The kernel
+             phase adds flash at the encoder (B 8, S = T = 1500,
+             non-causal) and the cross prefill (16 queries over 1500
+             frames), decode over 1500 frames at pos 1499 and over a 448-row
+             self cache, each timed beside SDPA.
 6c'. check-recurrentgemma, check-recurrentgemma-block, serve-recurrentgemma,
              serve-eager-recurrentgemma, profile-recurrentgemma,
              serve-recurrentgemma-chunked — after gemma-2b: recurrentgemma-9b
@@ -320,19 +347,20 @@ L2 flush; the device window's times leave out the host's enqueue gap.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` are those of the phases whose path runs it, summed: serve,
-serve-chunked, the three gemma-2b serves, serve-xlmr's timed pass, the two
-graphed recurrentgemma serves and the four gemma2-27b serves for flash, serve, the bf16 gemma-2b
-serves, the two graphed recurrentgemma serves and the two bf16 gemma2
-serves for bf16 decode, serve-w8a8, serve-gemma2b-w8a8 and the two w8a8 gemma2
-serves for the int8 kernels, serve-dlrm, or
+serve-chunked, the three gemma-2b serves, serve-xlmr's timed pass,
+serve-whisper's timed batch, the two graphed recurrentgemma serves and the
+four gemma2-27b serves for flash, serve, the bf16 gemma-2b serves,
+serve-whisper's timed batch, the two graphed recurrentgemma serves and the
+two bf16 gemma2 serves for bf16 decode, serve-w8a8, serve-gemma2b-w8a8
+and the two w8a8 gemma2 serves for the int8 kernels, serve-dlrm, or
 check-dlrm for the fp32 and int4 SLS kernels, and every fleet phase; each
 phase zeroes the counters just before it and reads them just after); the
-last line is
-``{"ok": true, "device": {...}}``. Needs one CUDA device and
+last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
 the repository's ``src/`` beside this file; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -386,6 +414,8 @@ from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.serving.dlrm_engine import DLRMEngine  # noqa: E402
 from repro_torch.serving.dlrm_engine import (  # noqa: E402
     make_replicas as dlrm_make_replicas)
+from repro_torch.serving.encdec import (  # noqa: E402
+    EncDecServer, stub_batch)
 from repro_torch.serving.encoder import (  # noqa: E402
     EncoderServer, arrival_batches, encode_pooled, padding_waste)
 from repro_torch.serving.engine import (  # noqa: E402
@@ -572,13 +602,15 @@ def heads_distinct(name: str, want: torch.Tensor, K: int, dtype) -> None:
 
 
 def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, q_scale=1.0,
-               **kw):
-    """One flash case on the card; returns the measurement dict. With a
-    softcap and a ``q_scale`` past 1, the softcap is shown live
-    (``softcap_live``) and SDPA without it timed as a stand-in."""
+               T=None, **kw):
+    """One flash case on the card, S queries over T keys (default S);
+    returns the measurement dict. With a softcap and a ``q_scale`` past 1,
+    the softcap is shown live (``softcap_live``) and SDPA without it timed
+    as a stand-in."""
+    T = S if T is None else T
     q = _randn(gen, (B, S, H, hd), dtype) * q_scale
-    k = _randn(gen, (B, S, K, hd), dtype)
-    v = _randn(gen, (B, S, K, hd), dtype)
+    k = _randn(gen, (B, T, K, hd), dtype)
+    v = _randn(gen, (B, T, K, hd), dtype)
     lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32,
                                                     device=DEV)
     got = flash_attn(q, k, v, lens_t, **kw)
@@ -597,14 +629,14 @@ def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, q_scale=1.0,
             cap, want, dtype)
     # the work these inputs need: the (query, key) pairs the mask keeps
     causal, window = kw.get("causal", True), kw.get("window", 0)
-    pos = torch.arange(S, device=DEV)
-    mask = torch.ones(S, S, dtype=torch.bool, device=DEV)
+    pos, kpos = torch.arange(S, device=DEV), torch.arange(T, device=DEV)
+    mask = torch.ones(S, T, dtype=torch.bool, device=DEV)
     if causal:
-        mask &= pos[:, None] >= pos[None, :]
+        mask &= pos[:, None] >= kpos[None, :]
     if window:
-        mask &= pos[:, None] - pos[None, :] < window
-    n_valid = torch.tensor(lens if lens is not None else [S] * B, device=DEV)
-    mask = mask[None] & (pos[None, None, :] < n_valid[:, None, None])
+        mask &= pos[:, None] - kpos[None, :] < window
+    n_valid = torch.tensor(lens if lens is not None else [T] * B, device=DEV)
+    mask = mask[None] & (kpos[None, None, :] < n_valid[:, None, None])
     pairs = mask.sum().item()
     elem = q.element_size()
     flops = 4.0 * pairs * H * hd
@@ -1424,6 +1456,45 @@ def xlmr_flash_cases(gen, device_fns: dict) -> None:
                              f"and must give 0")
 
 
+# whisper-medium's attention calls, B 8 rows of 1500 frames, 16 heads of 64
+# over 16 kv heads (G 1), bf16 (rows 1w, 1x, 2w, 2x of PERF.md): the
+# encoder's non-causal flash (S = T = 1500 = 11 x 128 + 92), the cross
+# prefill's (the 16-token prompt bucket over 1500 frames), decode's cross
+# read (every frame, pos 1499) and its self read at the served steps' last
+# positions in a 448-row cache
+WHISPER_SELF_POS = [p + 62 for p in (16, 4, 9, 4, 12, 4, 7, 4)]
+WHISPER_DECODE = {
+    "whisper_2w_cross_B8_H16_K16_hd64_S1500": (8, 16, 16, 64, 1500,
+                                               [1499] * 8, torch.bfloat16,
+                                               0.0),
+    "whisper_2x_self_B8_H16_K16_hd64_S448": (8, 16, 16, 64, 448,
+                                             WHISPER_SELF_POS,
+                                             torch.bfloat16, 0.0)}
+
+
+def whisper_kernel_cases(device_fns: dict) -> None:
+    """Flash at whisper-medium's encoder (1w) and cross prefill (1x), each
+    held against the plain version and timed beside SDPA (a boolean mask
+    of the same keys) and its bound, the profile naming
+    ``flash_fwd_kernel_tma<64, ...>``; then decode at its cross (2w) and
+    self (2x) reads, timed beside SDPA. Their inputs come from a generator
+    of their own, so that every other case keeps its inputs."""
+    gen = torch.Generator(device=DEV).manual_seed(30)
+    for row, (S, T) in {"1w": (1500, 1500), "1x": (16, 1500)}.items():
+        name = f"whisper_{row}_B8_S{S}_T{T}_H16_K16_hd64_noncausal"
+        r = flash_case(name, gen, 8, S, 16, 16, 64, torch.bfloat16, T=T,
+                       causal=False)
+        _show("flash_attn", name, r)
+        require_flash_kernel(name, r["call"], tma=True, hd=64)
+        device_fns["flash_attn " + name] = r["call"]
+        device_fns["SDPA (boolean mask) " + name] = r["library_call"]
+    for name, (B, H, K, hd, S, pos, dt, cap) in WHISPER_DECODE.items():
+        r = decode_case(name, gen, B, H, K, hd, S, pos, dt, cap)
+        _show("decode_attn", name, r)
+        device_fns["decode_attn " + name] = r["call"]
+        device_fns["SDPA " + name] = r["library_call"]
+
+
 def phase_kernels() -> dict:
     """Every case of both kernels; returns the main-path measurements."""
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1535,6 +1606,7 @@ def phase_kernels() -> dict:
     gemma_2b_flash_cases(gen, device_fns)
     recurrentgemma_kernel_cases(gen, device_fns)
     xlmr_flash_cases(gen, device_fns)
+    whisper_kernel_cases(device_fns)
     # the JAX package's cases (repro/kernels/decode_attn/ops.py), scalar
     # pos broadcast to every row, then deepseek-7b decode at per-row pos
     decode_cases = {
@@ -3770,6 +3842,481 @@ def phase_xlmr() -> dict:
     return {"flash_attn": launches["flash_attn"]}
 
 
+# ---- whisper-medium ---------------------------------------------------------
+
+WHISPER_BATCH = 8               # rows of 30-second windows a batch
+WHISPER_NEW_TOKENS = 64
+# check-whisper-layers' bound: bf16 vs f32 read 0.0083-0.0089 on every
+# probe at full width, the faults 0.034 (half the frames) and up
+WHISPER_LAYERS_TOL = 0.02
+WHISPER_LAYERS_LENS = (16, 4, 9, 4)     # check-whisper-layers' prompts
+
+
+def reduce_whisper(dtype: str):
+    """whisper-medium cut for the card-vs-host checks: ``reduce_for_smoke``
+    (2 encoder + 2 decoder layers, d_model 64, 4 heads of head_dim 16) in
+    f32, and in bf16 at the kernels' head_dim 64 (d_model 256, 4 heads of
+    64, d_ff 512)."""
+    cfg = reduce_for_smoke(get_config("whisper-medium"))
+    if dtype == "float32":
+        return cfg
+    return dataclasses.replace(cfg, d_model=256, num_heads=4,
+                               num_kv_heads=4, head_dim=64, d_ff=512,
+                               param_dtype=dtype, activation_dtype=dtype)
+
+
+def _prompt_batch(prompts, device):
+    """Right-padded prompts: tokens (B, P) int32, mask (B, P), lengths
+    (B,) int32, on ``device``."""
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    P = int(lens.max())
+    toks = torch.zeros(len(prompts), P, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.from_numpy(p)
+    valid = torch.arange(P)[None, :] < lens[:, None]
+    return toks.to(device), valid.to(device), lens.to(device)
+
+
+def _whisper_steps(params, cfg, enc, prompts, nxt):
+    """Through the model layer: the encoder's output (B, T, d) and the
+    hidden states after each row's prompt and after each decode step
+    feeding ``nxt`` (B, n) at the row's own positions, (n + 1, B, d); both
+    f32 on the host."""
+    dev = model_mod.model_device(params)
+    toks, valid, lens = _prompt_batch(prompts, dev)
+    B, enc_t = len(prompts), torch.from_numpy(enc).to(dev)
+    with torch.inference_mode():
+        enc_out = model_mod.encode(params, cfg, enc_t)
+        caches = model_mod.init_caches(cfg, B, cfg.encdec.max_target_len,
+                                       dev, enc_len=enc.shape[1])
+        x, caches = model_mod.forward(
+            params, cfg, {"tokens": toks, "enc_embeds": enc_t},
+            mode="prefill", caches=caches, kv_valid=valid)
+        hs = [x[torch.arange(B, device=dev), lens.long() - 1]]
+        for i in range(nxt.shape[1]):
+            h, caches = model_mod.decode_step(
+                params, cfg, torch.from_numpy(nxt[:, i:i + 1]).to(dev),
+                caches, lens + i)
+            hs.append(h)
+    return enc_out.float().cpu(), torch.stack(hs).float().cpu()
+
+
+def _hold_hidden(name: str, got: torch.Tensor, want: torch.Tensor,
+                 dtype) -> str:
+    """Card hidden states against the host's: elementwise within 2e-3 in
+    f32 (``compare``); in bf16 ||got - want|| / ||want|| within 2e-2, as
+    the CPU tests hold the port to the reference: bf16 products summed in
+    another order on the card leave a few of a bf16 layer's outputs some
+    ulps apart (0.0625 at most of 2 layers' encoder outputs), an
+    elementwise bound with no room for them. Returns what it measured."""
+    if dtype == torch.float32:
+        return f"max abs err {compare(name, got, want, dtype):.3e}"
+    err = (got.float() - want.float()).abs().max().item()
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    if not (torch.isfinite(got).all() and rel <= TOL[dtype]):
+        raise AssertionError(f"{name}: card vs host relative error {rel} "
+                             f"(max abs err {err:.3e}), tol {TOL[dtype]}")
+    return f"relative error {rel:.3e} (max abs err {err:.3e})"
+
+
+def phase_check_whisper() -> None:
+    """check-whisper: ``reduce_whisper`` in f32 and bf16, every bias and
+    norm parameter drawn nonzero, 4 rows of 1500 frames: the encoder's
+    output and the hidden states of a prefill and 8 decode steps on the
+    card against the host's plain versions (``_hold_hidden``); then two
+    batches through one graphed server (its stages captured on the
+    first), the second's tokens and caches bit for bit an eager server's;
+    card vs host tokens printed."""
+    B = 4
+    for dtype in ("float32", "bfloat16"):
+        cfg = reduce_whisper(dtype)
+        dt = dtype_of(dtype)
+        params = model_mod.init_params(cfg, seed=1, device=DEV)
+        draw_biases(params, seed=2)
+        host = copy.deepcopy(params).to("cpu")
+        enc, prompts = stub_batch(cfg, B, seed=3)
+        nxt = np.random.default_rng(4).integers(
+            0, cfg.vocab_size, (B, 8)).astype(np.int32)
+        label = f"check-whisper[{dtype} hd {cfg.head_dim}]"
+        got = _whisper_steps(params, cfg, enc, prompts, nxt)
+        want = _whisper_steps(host, cfg, enc, prompts, nxt)
+        e_enc, e_dec = (_hold_hidden(f"{label} {what}", g, w, dt)
+                        for what, g, w in zip(("encoder", "decoder"), got,
+                                              want))
+        kw = dict(batch_size=B, max_len=cfg.encdec.max_target_len)
+        graphed = EncDecServer(cfg, params, **kw)
+        graphed.transcribe(*stub_batch(cfg, B, seed=5), 16)
+        run = graphed.transcribe(*stub_batch(cfg, B, seed=6), 16)
+        eager = EncDecServer(cfg, params, cuda_graphs=False, **kw)
+        erun = eager.transcribe(*stub_batch(cfg, B, seed=6), 16)
+        hrun = EncDecServer(cfg, host, **kw).transcribe(
+            *stub_batch(cfg, B, seed=6), 16)
+        gap = _cache_diff(graphed, eager)
+        ex = graphed.executor
+        agree = token_agreement(list(zip(run.tokens.tolist(),
+                                         hrun.tokens.tolist())))
+        print(f"{label}: {B} rows x {enc.shape[1]} frames: card vs host, "
+              f"encoder {e_enc}, prefill + 8 decode steps {e_dec} (tol "
+              f"{TOL[dt]}); graphed (captures "
+              f"{dict(ex.captures)}, replays {dict(ex.replays)}) vs eager "
+              f"on the second batch: tokens identical "
+              f"{np.array_equal(run.tokens, erun.tokens)}, caches max abs "
+              f"difference {gap:.3e}; card vs host greedy agreement "
+              f"{agree:.4f} (printed, not held)", flush=True)
+        if not np.array_equal(run.tokens, erun.tokens) or gap != 0:
+            raise AssertionError(f"{label}: graphed and eager differ "
+                                 f"(caches {gap})")
+        if dict(ex.captures) != {"encdec_prefill": 1, "encdec_decode": 1}:
+            raise AssertionError(f"{label}: captures {dict(ex.captures)}")
+        del params, host, graphed, eager
+        _free_card()
+
+
+def _whisper_launches() -> dict:
+    return {"flash_attn": flash_attn.launches,
+            "flash_attn non-causal": flash_attn.noncausal_launches,
+            **{k: fn.launches for k, fn in LAUNCHERS.items()
+               if k != "flash_attn"}}
+
+
+def _serve_whisper(label: str, srv, batch):
+    """One batch of ``WHISPER_NEW_TOKENS`` tokens a row with every launch
+    counter zeroed just before and read just after. Returns (the
+    ``TranscribeRun``, launches)."""
+    _zero_launches()
+    torch.cuda.synchronize()
+    run = srv.transcribe(*batch, WHISPER_NEW_TOKENS)
+    launches = _whisper_launches()
+    if run.tokens.shape != (WHISPER_BATCH, WHISPER_NEW_TOKENS) or not (
+            (run.tokens >= 0) & (run.tokens < srv.cfg.vocab_size)).all():
+        raise AssertionError(f"{label}: tokens {run.tokens.shape} outside "
+                             f"the vocabulary or short")
+    return run, launches
+
+
+def phase_serve_whisper(cfg, params) -> dict:
+    """serve-whisper: batches of 8 rows x 1500 frames and 4-16 token
+    prompts, 64 greedy tokens a row, through ``EncDecServer``'s graphed
+    stages: a warm-up batch (seed 0) captures both, then a timed batch
+    (seed 1), one prefill replay and 63 decode replays; every launch
+    counted (flash: 24 encoder, 24 self and 24 cross layers a prefill, the
+    encoder's and the cross ones non-causal; decode: 48 a step, self and
+    cross); then ``profile_whisper``. serve-eager-whisper: the timed
+    batch through a ``cuda_graphs=False`` server, launches equal and
+    tokens identical. Returns the graphed batch's launches."""
+    L, n = cfg.num_layers, WHISPER_NEW_TOKENS
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    srv = EncDecServer(cfg, params, batch_size=WHISPER_BATCH)
+    t0 = time.perf_counter()
+    srv.transcribe(*stub_batch(cfg, WHISPER_BATCH, seed=0), n)
+    warm_s = time.perf_counter() - t0
+    ex = srv.executor
+    replays = dict(ex.replays)
+    batch = stub_batch(cfg, WHISPER_BATCH, seed=1)
+    run, launches = _serve_whisper("serve-whisper", srv, batch)
+    replays = {k: ex.replays[k] - replays.get(k, 0) for k in ex.replays}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve-whisper: whisper-medium full width bf16 "
+          f"({cfg.encdec.encoder_layers} + {L} layers, d_model "
+          f"{cfg.d_model}), {WHISPER_BATCH} rows x {srv.enc_frames} frames, "
+          f"prompts of {sorted(len(p) for p in batch[1])} tokens, {n} new "
+          f"tokens a row, on {card_line()}: " + run.report(), flush=True)
+    print(f"serve-whisper: graphs captured {dict(ex.captures)} (capture "
+          f"seconds {sum(ex.capture_s.values()):.3f}; warm-up batch "
+          f"{warm_s:.3f} s), replays in the timed batch {replays}; peak "
+          f"memory {peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.3f} GiB "
+          f"above the weights; kernel launches {launches}", flush=True)
+    want = {"flash_attn": 3 * L, "flash_attn non-causal": 2 * L,
+            "decode_attn": 2 * L * (n - 1)}
+    if {k: launches[k] for k in want} != want \
+            or any(launches[k] for k in ("w8a8_matmul", "decode_attn_int8")):
+        raise AssertionError(f"serve-whisper: launches {launches}, expected "
+                             f"{want} and no w8a8 or int8 decode")
+    if replays != {"encdec_prefill": 1, "encdec_decode": n - 1} \
+            or dict(ex.captures) != {"encdec_prefill": 1,
+                                     "encdec_decode": 1}:
+        raise AssertionError(f"serve-whisper: captures {dict(ex.captures)}, "
+                             f"replays {replays}")
+    profile_whisper(srv, batch)
+    eager = EncDecServer(cfg, params, batch_size=WHISPER_BATCH,
+                         cuda_graphs=False)
+    erun, elaunches = _serve_whisper("serve-eager-whisper", eager, batch)
+    print(f"serve-eager-whisper: {erun.report()}; launches {elaunches}; "
+          f"tokens identical to the graphed batch's "
+          f"{np.array_equal(erun.tokens, run.tokens)}", flush=True)
+    if elaunches != launches:
+        raise AssertionError("serve-eager-whisper: launches differ from the "
+                             "graphed batch's")
+    if not np.array_equal(erun.tokens, run.tokens):
+        first = _first_divergence(erun.tokens.tolist(), run.tokens.tolist())
+        raise AssertionError(f"serve-eager-whisper: tokens differ from the "
+                             f"graphed batch's ({first})")
+    del srv, eager
+    _free_card()
+    return launches
+
+
+def profile_whisper(srv, batch) -> None:
+    """profile-whisper: one encoder + prefill stage call and 8 decode stage
+    calls (one graph replay each) of the graphed server on ``batch``, the
+    decode rows 48 positions past their prompts: wall time, device busy
+    share, the kernel groups' shares, the top kernels."""
+    ex, B, P = srv.executor, srv.batch_size, srv.prompt_len
+    enc, prompts = batch
+    lens = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros((B, P), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    prefill = ex.get("encdec_prefill", B, srv.prefill_stage)
+    decode = ex.get("encdec_decode", B, srv.decode_stage)
+    inputs = {"enc_embeds": torch.from_numpy(enc).to(torch.bfloat16),
+              "tokens": toks, "kv_valid": np.arange(P)[None] < lens[:, None]}
+    profile_window(f"profile-whisper: encoder + prefill stage call, {B} rows "
+                   f"x {srv.enc_frames} frames", lambda: prefill(inputs), 1)
+
+    def steps():
+        t = np.zeros((B, 1), np.int32)
+        for i in range(8):
+            t = decode({"tokens": t, "pos": lens + 48 + i})[:, None]
+
+    profile_window(f"profile-whisper: decode stage call, {B} rows at pos "
+                   f"{(lens + 48).tolist()}+", steps, 8)
+
+
+class _WhisperFault:
+    """A planted fault of the enc-dec path, while the ``with`` block runs:
+    "cross query rotated" (RoPE on the cross query at the positions the
+    layer's self-attention uses: 0..S-1 at prefill, ``pos`` at decode),
+    "causal encoder", "cross-attention dropped", "decode cross cut to
+    half the frames"."""
+
+    def __init__(self, name: str):
+        self.name, self.saved = name, []
+
+    def _set(self, mod, attr, fn):
+        self.saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, fn)
+
+    def __enter__(self):
+        apply, project = blk_mod.apply_block, attn_mod._project_q
+        cross = attn_mod.cross_attention
+        if self.name == "cross query rotated":
+            where = {}
+
+            def recording(*a, **kw):
+                pos = kw.get("pos")
+                where["p"] = kw["positions"] if kw.get("positions") \
+                    is not None else (None if pos is None else pos[:, None])
+                return apply(*a, **kw)
+
+            def rotated(p, x, cfg, positions):
+                return project(p, x, cfg, where["p"] if positions is None
+                               else positions)
+
+            self._set(blk_mod, "apply_block", recording)
+            self._set(attn_mod, "_project_q", rotated)
+        elif self.name == "causal encoder":
+            self._set(blk_mod, "apply_block",
+                      lambda *a, **kw: apply(*a, **{**kw, "causal": True}))
+        elif self.name == "cross-attention dropped":
+            self._set(attn_mod, "cross_attention",
+                      lambda p, x, *a, **kw: torch.zeros_like(x))
+        elif self.name == "decode cross cut to half the frames":
+            def cut(p, x, ck, cv, cfg, *, mode, kv_valid=None):
+                if mode == "decode":
+                    n = ck.shape[1] // 2
+                    ck, cv = ck[:, :n].contiguous(), cv[:, :n].contiguous()
+                return cross(p, x, ck, cv, cfg, mode=mode, kv_valid=kv_valid)
+
+            self._set(attn_mod, "cross_attention", cut)
+        else:
+            raise ValueError(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+
+
+WHISPER_FAULTS = ("cross query rotated", "causal encoder",
+                  "cross-attention dropped",
+                  "decode cross cut to half the frames")
+
+
+def _whisper_layers_step(params, cfg, enc_t, toks, valid, lens, nxt):
+    """The encoder's output (B, T, d) and one decode step's final hidden
+    state (B, d) after a prefill of the prompts, both f32."""
+    with torch.inference_mode():
+        enc_out = model_mod.encode(params, cfg, enc_t).float()
+        caches = model_mod.init_caches(cfg, toks.shape[0],
+                                       cfg.encdec.max_target_len, DEV,
+                                       enc_len=enc_t.shape[1])
+        model_mod.forward(params, cfg, {"tokens": toks, "enc_embeds": enc_t},
+                          mode="prefill", caches=caches, kv_valid=valid)
+        h, _ = model_mod.decode_step(params, cfg, nxt, caches, lens)
+    return enc_out, h.float()
+
+
+class _FramesAsEncoder:
+    """While the ``with`` block runs, ``model.encode`` returns its frames
+    (in the activation dtype) as the encoder's output: the decoder then
+    reads cross K/V built from them."""
+
+    def __enter__(self):
+        self.saved = model_mod.encode
+        model_mod.encode = lambda params, cfg, x, valid=None: x.to(
+            dtype_of(cfg.activation_dtype))
+        return self
+
+    def __exit__(self, *exc):
+        model_mod.encode = self.saved
+
+
+def _cross_spread(params, cfg, x) -> str:
+    """How unevenly the last decoder layer's cross-attention reads the
+    frames ``x`` (B, T, d) as the encoder's output would be, for random
+    queries: the std of its logits over the frames and the frames it
+    effectively averages, 1 / sum p^2 (T: a uniform read)."""
+    lay = params.layers[-1]
+    gen = torch.Generator(device=DEV).manual_seed(10)
+    with torch.inference_mode():
+        k, _ = attn_mod.cross_kv(lay.xattn, model_mod.encode(params, cfg, x),
+                                 cfg)
+        h = torch.randn((x.shape[0], 1, cfg.d_model), generator=gen,
+                        device=DEV).to(k.dtype)
+        q = attn_mod._project_q(lay.xattn, lay.xattn_norm(h, cfg.norm_eps),
+                                cfg, None)
+        logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) \
+            * cfg.head_dim ** -0.5
+        p = torch.softmax(logits, -1)
+        return (f"logits' std over the frames "
+                f"{logits.std(-1).mean().item():.4f}, effective frames "
+                f"{(1 / p.square().sum(-1)).mean().item():.1f} of "
+                f"{x.shape[1]}")
+
+
+def check_whisper_layers(label: str, cfg, params,
+                         lens=WHISPER_LAYERS_LENS) -> None:
+    """The full-width bf16 model against an f32 copy of its weights, both
+    on the card, 4 rows of 1500 frames and prompts of 16, 4, 9, 4 tokens,
+    in two probes. "model": the stub frames through the encoder; its
+    output's error ||bf16 - f32|| / ||f32||, and one decode step's final
+    hidden state's error over what the decoder adds to it, ||h_bf16 -
+    h_f32|| / ||h_f32 - h_embed|| (``h_embed`` the final norm of the
+    embedded token alone). "frames": the same decode step with N(0, 1)
+    frames standing for the encoder's output (``_FramesAsEncoder``).
+    Random weights collapse the encoder's 1500 outputs to nearly one
+    vector (the last layer's cross logits' std over the frames ~0.03: every
+    frame read alike), under which a fault in which frames a query reads
+    cannot show; N(0, 1) frames spread them (std ~1.3, ~290 frames read in
+    effect; ``_cross_spread`` prints both).
+    Every error within ``WHISPER_LAYERS_TOL``; each planted fault
+    (``_WhisperFault``) must take a decode step's error past it in one
+    probe at least (the encoder's in "model" for the causal encoder).
+    Greedy tokens of random weights can agree over broken layers."""
+    enc = stub_batch(cfg, len(lens), seed=7)[0]
+    rng = np.random.default_rng(9)
+    toks, valid, lens = _prompt_batch(
+        [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens],
+        DEV)
+    nxt = torch.randint(0, cfg.vocab_size, (len(lens), 1), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(8)).to(DEV)
+    frames = {"model": torch.from_numpy(enc).to(DEV),
+              "frames": torch.from_numpy(enc * np.float32(10.0)).to(DEV)}
+    probe = {"model": contextlib.nullcontext, "frames": _FramesAsEncoder}
+    f32cfg = dataclasses.replace(cfg, param_dtype="float32",
+                                 activation_dtype="float32")
+    f32 = copy.deepcopy(params).float()
+    want = {}
+    for k, x in frames.items():
+        with probe[k]():
+            want[k] = _whisper_layers_step(f32, f32cfg, x, toks, valid,
+                                           lens, nxt)
+    with torch.inference_mode():
+        h_embed = f32.final_norm(vocab_mod.embed_lookup(
+            f32.embed, nxt, f32cfg), cfg.norm_eps)[:, 0].float()
+    del f32
+    _free_card()
+    dt = dtype_of(cfg.activation_dtype)
+
+    def errs():
+        """(the encoder's error, the decode step's in "model", the decode
+        step's in "frames")."""
+        out = []
+        for k, x in frames.items():
+            with probe[k]():
+                got_enc, got = _whisper_layers_step(params, cfg, x.to(dt),
+                                                    toks, valid, lens, nxt)
+            if not (torch.isfinite(got_enc).all()
+                    and torch.isfinite(got).all()):
+                return (float("inf"),) * 3
+            w_enc, w = want[k]
+            if k == "model":
+                out.append(((got_enc - w_enc).norm() / w_enc.norm()).item())
+            out.append(((got - w).norm() / (w - h_embed).norm()).item())
+        return tuple(out)
+
+    err = errs()
+    faults = {}
+    for name in WHISPER_FAULTS:
+        with _WhisperFault(name):
+            faults[name] = errs()
+    if errs() != err:
+        raise AssertionError(f"{label}: the output changed after the "
+                             f"planted faults were undone")
+    for k, x in frames.items():
+        with probe[k]():
+            print(f"{label}: {k}: the last layer's cross-attention, "
+                  f"{_cross_spread(params, cfg, x.to(dt))}", flush=True)
+    moved = {k: ((w - h_embed).norm() / w.norm()).item()
+             for k, (_, w) in want.items()}
+    print(f"{label}: {len(lens)} rows x {enc.shape[1]} frames, prompts "
+          f"{lens.tolist()}; the decoder moves the f32 decode step's hidden "
+          f"state by {moved['model']:.4f} (model) and {moved['frames']:.4f} "
+          f"(frames) of its norm; errors (encoder, decode step in model, "
+          f"decode step in frames), bf16 vs f32 on {DEV}: "
+          + ", ".join(f"{e:.4f}" for e in err)
+          + f" (tol {WHISPER_LAYERS_TOL}); planted faults: " + "; ".join(
+              f"{k} " + ", ".join(f"{e:.4f}" for e in v)
+              for k, v in faults.items()), flush=True)
+    if not max(err) <= WHISPER_LAYERS_TOL:
+        raise AssertionError(f"{label}: error {err} > {WHISPER_LAYERS_TOL}")
+    for name, e in faults.items():
+        if not max(e) > WHISPER_LAYERS_TOL:
+            raise AssertionError(f"{label}: the planted fault '{name}' stays "
+                                 f"within the tolerance ({e} <= "
+                                 f"{WHISPER_LAYERS_TOL}): the check cannot "
+                                 f"see it")
+
+
+def phase_whisper() -> dict:
+    """check-whisper, then full-width whisper-medium (24 encoder and 24
+    decoder layers, d_model 1024, 16 heads of 64, GELU d_ff 4096 with
+    biases, LayerNorm, tied vocab 51865 padded to 51968; 758.6 M random
+    bf16 parameters from seed 0, every bias and norm parameter drawn
+    nonzero): serve-whisper and serve-eager-whisper, then
+    check-whisper-layers. Frees the weights; returns the graphed serve's
+    flash and decode launches."""
+    phase_check_whisper()
+    cfg = get_config("whisper-medium")
+    t0 = time.perf_counter()
+    params = model_mod.init_params(cfg, seed=0, device=DEV)
+    draw_biases(params, seed=1)
+    torch.cuda.synchronize()
+    print(f"init: whisper-medium full width, "
+          f"{sum(p.numel() for p in params.parameters()) / 1e6:.3f} M "
+          f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = phase_serve_whisper(cfg, params)
+    check_whisper_layers("check-whisper-layers", cfg, params)
+    del params
+    _free_card()
+    print(f"freed whisper-medium: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB still allocated", flush=True)
+    return {k: launches[k] for k in ("flash_attn", "decode_attn")}
+
+
 # ---- DLRM -------------------------------------------------------------------
 
 DLRM_REQUESTS, DLRM_BATCH = 64, 64
@@ -4562,6 +5109,8 @@ def main():
     print(f"freed gemma-2b: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB still allocated", flush=True)
     launches["flash_attn"] += phase_xlmr()["flash_attn"]
+    for k, n in phase_whisper().items():
+        launches[k] += n
     for k, n in phase_recurrentgemma().items():
         launches[k] += n
     phase_check_gemma2()

@@ -5,14 +5,16 @@ global; gemma2-27b, local and global layers in turn; gemma-2b, MQA at
 head_dim 256 with padded heads; recurrentgemma-9b, RG-LRU recurrent
 blocks between local layers; xlmr-paper, the paper's bidirectional
 encoder with LayerNorm, q/k/v biases and a plain biased GELU MLP, served
-in length buckets); the others join with the slices that port their block
-kinds."""
+in length buckets; whisper-medium, an encoder over stub frame embeddings
+and a decoder whose layers add cross-attention to the encoder's output);
+the others join with the slices that port their block kinds."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (deepseek_7b, gemma2_27b, gemma_2b,
-                                 recurrentgemma_9b, xlmr_paper)
+                                 recurrentgemma_9b, whisper_medium,
+                                 xlmr_paper)
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
                                       ModelConfig, QuantConfig,
                                       reduce_for_smoke)
@@ -20,7 +22,7 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (deepseek_7b.CONFIG, gemma2_27b.CONFIG,
                         gemma_2b.CONFIG, recurrentgemma_9b.CONFIG,
-                        xlmr_paper.CONFIG)}
+                        xlmr_paper.CONFIG, whisper_medium.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -11,6 +11,11 @@ port's ``QuantDense`` module with buffers ``q8`` and ``scale`` (``q8``
 keeps its logical (K,N) shape; the port stores it column-major). The
 int8 KV cache's ``k_scale``/``v_scale`` carry across like ``k``/``v``.
 DLRM parameters are a plain dict on both sides (``dlrm_params_from_jax``).
+An enc-dec model's encoder is the JAX ``enc_scan`` (one stacked unit of
+``encoder_layers`` global blocks) and ``enc_final_norm``, the port's
+``enc_layers`` and ``enc_final_norm``; its cross K/V cache, the JAX
+``caches["cross"]`` (stacked as the layers' caches), is each decoder
+layer's ``cross_k``/``cross_v``.
 
 Takes and gives numpy arrays only (``jax.tree.map(np.asarray, tree)`` on
 the caller's side): this module imports nothing of the JAX package.
@@ -36,10 +41,12 @@ def _to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def _per_layer(tree: Dict[str, Any], cfg: ModelConfig) -> List[Any]:
+def _per_layer(tree: Dict[str, Any], cfg: ModelConfig,
+               plan=None) -> List[Any]:
     """{"scan": (stacked unit dicts...), "tail": (dicts...)} -> one tree
-    per layer, in layer order."""
-    unit, repeats, _ = cfg.scan_plan()
+    per layer, in layer order (``plan``: (unit, repeats, tail), default
+    ``cfg.scan_plan()``)."""
+    unit, repeats, _ = plan or cfg.scan_plan()
 
     def index(t, r):
         if isinstance(t, dict):
@@ -57,11 +64,17 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _stack_layers(per_layer: List[Dict[str, Any]], cfg: ModelConfig
-                  ) -> Dict[str, Any]:
+def _enc_plan(cfg: ModelConfig):
+    """The JAX ``enc_scan``'s plan: one global unit, scanned over the
+    encoder's layers."""
+    return ("global",), cfg.encdec.encoder_layers, ()
+
+
+def _stack_layers(per_layer: List[Dict[str, Any]], cfg: ModelConfig,
+                  plan=None) -> Dict[str, Any]:
     """One tree per layer -> {"scan": stacked unit dicts, "tail": ...}
     (the inverse of ``_per_layer``)."""
-    unit, repeats, tail = cfg.scan_plan()
+    unit, repeats, tail = plan or cfg.scan_plan()
 
     def stack(trees):
         if isinstance(trees[0], dict):
@@ -110,6 +123,11 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
     _flatten(np_tree["final_norm"], "final_norm.", flat)
     for l, layer in enumerate(_per_layer(np_tree, cfg)):
         _flatten(layer, f"layers.{l}.", flat)
+    if cfg.encdec is not None:
+        _flatten(np_tree["enc_final_norm"], "enc_final_norm.", flat)
+        enc = {"scan": np_tree["enc_scan"], "tail": ()}
+        for l, layer in enumerate(_per_layer(enc, cfg, _enc_plan(cfg))):
+            _flatten(layer, f"enc_layers.{l}.", flat)
     model = model_mod.Model(cfg, torch.Generator(device=device), device)
     for key, val in flat.items():
         if key.endswith(".q8"):                   # a quantized site
@@ -131,22 +149,42 @@ def params_to_jax(model: model_mod.Model, cfg: ModelConfig
     for key in ("embed", "lm_head"):
         if key in flat:
             tree[key] = flat[key]
+    if cfg.encdec is not None:
+        tree["enc_scan"] = _stack_layers(
+            [_nest(flat, f"enc_layers.{l}.")
+             for l in range(cfg.encdec.encoder_layers)], cfg,
+            _enc_plan(cfg))["scan"]
+        tree["enc_final_norm"] = _nest(flat, "enc_final_norm.")
     return tree
+
+
+CROSS = {"cross_k": "k", "cross_v": "v"}     # port cache key -> JAX's
 
 
 def caches_from_jax(np_caches: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """The JAX package's cache tree (as numpy) -> one K/V dict per layer."""
-    return [{k: _to_torch(v).to(device) for k, v in layer.items()}
-            for layer in _per_layer(np_caches, cfg)]
+    """The JAX package's cache tree (as numpy) -> one K/V dict per layer
+    (with its cross K/V where the tree has ``cross``)."""
+    out = [{k: _to_torch(v).to(device) for k, v in layer.items()}
+           for layer in _per_layer(np_caches, cfg)]
+    if "cross" in np_caches:
+        for c, x in zip(out, _per_layer(np_caches["cross"], cfg)):
+            c.update({ours: _to_torch(x[theirs]).to(device)
+                      for ours, theirs in CROSS.items()})
+    return out
 
 
 def caches_to_jax(caches: List[Dict[str, torch.Tensor]],
                   cfg: ModelConfig) -> Dict[str, Any]:
     """One K/V dict per layer -> the JAX package's cache tree (numpy, f32
-    for bf16 caches)."""
-    return _stack_layers([{name: _host(t) for name, t in c.items()}
-                          for c in caches], cfg)
+    for bf16 caches; ``cross`` where the layers hold cross K/V)."""
+    tree = _stack_layers([{name: _host(t) for name, t in c.items()
+                           if name not in CROSS} for c in caches], cfg)
+    if caches and "cross_k" in caches[0]:
+        tree["cross"] = _stack_layers(
+            [{theirs: _host(c[ours]) for ours, theirs in CROSS.items()}
+             for c in caches], cfg)
+    return tree
 
 
 def dlrm_params_from_jax(np_tree: Dict[str, Any],

@@ -18,6 +18,13 @@ batches of ``--slots`` rows, each batch padded to its length bucket (32 ..
 card) into mean-pooled embeddings; it prints the naive and the sorted
 batching's padding waste, sentences/s, real tokens/s, the latency by
 bucket, the graphs captured and the peak memory.
+``--arch whisper-medium`` transcribes (``serve_encdec``): batches of
+``--slots`` rows, each 1500 stub frame embeddings and a 4-16 token prompt,
+``--new-tokens`` greedy tokens a row through the encoder + prefill stage
+and the decode stage (``serving/encdec.py``, one CUDA graph each on the
+card): a warm-up batch, then a timed one; it prints the encoder + prefill
+call, decode step p50/p99, new tokens/s, the graphs captured and the peak
+memory.
 ``--precision w8a8`` serves the calibrated int8 path (the §V build step,
 then the w8a8 kernel for every int8 site); ``--verify-quant`` replays the
 trace on an unquantized engine and exits non-zero when the greedy-token
@@ -69,6 +76,7 @@ from repro_torch.models import model as model_mod
 from repro_torch.models.quantize import build_quantized_params
 from repro_torch.serving.dlrm_engine import DLRMEngine
 from repro_torch.serving.dlrm_engine import make_replicas as dlrm_replicas
+from repro_torch.serving.encdec import EncDecServer, stub_batch
 from repro_torch.serving.encoder import (EncoderServer, arrival_batches,
                                          padding_waste)
 from repro_torch.serving.engine import InferenceEngine, Request, make_replicas
@@ -578,6 +586,44 @@ def serve_encoder(args):
     return srv, run
 
 
+def serve_encdec(args):
+    """The reference's enc-dec prefill and decode cells served for real:
+    ``--slots`` rows of ``stub_batch`` (1500 frames, prompts of 4-16
+    tokens), ``--new-tokens`` greedy tokens a row, through the two stages
+    of ``EncDecServer``; a warm-up batch (seed 0: each stage's first call
+    and, on the card, its capture), then a timed one (seed 1). Returns
+    (the server, the timed ``TranscribeRun``)."""
+    cfg = reduce_for_smoke(get_config(args.arch)) if args.smoke \
+        else get_config(args.arch)
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        t0 = time.perf_counter()
+        _build.build_all()
+        print(f"CUDA kernels built in {time.perf_counter() - t0:.1f}s")
+    params = model_mod.init_params(cfg, seed=0, device=args.device)
+    srv = EncDecServer(cfg, params, batch_size=args.slots)
+    warm = srv.transcribe(*stub_batch(cfg, args.slots, seed=0),
+                          args.new_tokens)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    run = srv.transcribe(*stub_batch(cfg, args.slots, seed=1),
+                         args.new_tokens)
+    if not ((run.tokens >= 0) & (run.tokens < cfg.vocab_size)).all():
+        raise SystemExit("serve_encdec: a token outside the vocabulary")
+    ex = srv.executor
+    where = (f"{torch.cuda.get_device_name(0)}" if cuda else args.device)
+    print(f"served {cfg.name} ({cfg.encdec.encoder_layers} + "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}) on {where}: "
+          f"{args.slots} rows x {srv.enc_frames} frames; warm-up batch "
+          f"{warm.wall_s:.3f} s; graphs captured {sum(ex.captures.values())}"
+          f", replays {sum(ex.replays.values())}")
+    print(run.report())
+    if cuda:
+        print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB")
+    return srv, run
+
+
 def _service_est(v: str):
     return v if v == "auto" else float(v)
 
@@ -592,7 +638,8 @@ def main(argv=None):
                     help="deepseek-7b, gemma2-27b, gemma-2b or "
                          "recurrentgemma-9b, xlmr-paper for the bucketed "
                          "encoder (--requests sentences, --slots a batch), "
-                         "or dlrm for "
+                         "whisper-medium to transcribe (--slots rows, "
+                         "--new-tokens a row), or dlrm for "
                          "the recommendation pipeline (--smoke reduces an LM "
                          "with reduce_for_smoke, which drops gemma-2b's "
                          "head padding and head_dim 256)")
@@ -681,6 +728,8 @@ def main(argv=None):
         return serve_dlrm(args)
     if get_config(args.arch).family == "encoder":
         return serve_encoder(args)
+    if get_config(args.arch).encdec is not None:
+        return serve_encdec(args)
     return serve_lm(args)
 
 

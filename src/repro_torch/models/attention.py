@@ -3,11 +3,13 @@ deepseek-7b serving run in ``repro/models/attention.py``: ``global``
 (causal over every position) and ``local`` (a sliding window of
 ``cfg.window_size`` keys, its cache a ring of ``min(window_size, max_len)``
 slots per row), both with the optional logit softcap, and optional q/k/v
-and output biases (XLM-R's). Prefill and prefill chunks go through the
-flash kernel, and so does an encoder's non-causal attention; decode goes
-through the flash-decode kernel (or its int8-cache twin). A projection
-whose weight the build step quantized (``QuantDense``) goes through the
-w8a8 kernel.
+and output biases (XLM-R's); and whisper's cross-attention, a decoder
+query (its bias, no RoPE) over the encoder's frames. Prefill and prefill
+chunks go through the flash kernel, and so do an encoder's non-causal
+attention and a cross-attention's prefill; decode goes through the
+flash-decode kernel (or its int8-cache twin), cross-attention's decode
+too. A projection whose weight the build step quantized (``QuantDense``)
+goes through the w8a8 kernel.
 
 The KV cache is a dict of preallocated ``k``/``v`` tensors (B, slots, K, hd)
 that prefill and decode update in place. (The JAX package instead returns a
@@ -132,16 +134,28 @@ def _head_proj(x: torch.Tensor, w, cfg: ModelConfig) -> torch.Tensor:
     return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
 
 
+def _project_q(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+               positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """The query projection and its bias, then RoPE at ``positions``; a
+    cross-attention query passes None and takes no RoPE (the reference's
+    ``rope=False``)."""
+    q = _head_proj(x, p.wq, cfg)
+    if hasattr(p, "bq"):
+        q = q + p.bq
+    if positions is None:
+        return q
+    return apply_rope(q, positions, cfg.rope_theta)
+
+
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
     """The projections, their biases (after the product, before RoPE, as
     the reference adds them), then RoPE on q and k."""
-    q = _head_proj(x, p.wq, cfg)
+    q = _project_q(p, x, cfg, positions)
     k = _head_proj(x, p.wk, cfg)
     v = _head_proj(x, p.wv, cfg)
-    if hasattr(p, "bq"):
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = apply_rope(q, positions, cfg.rope_theta)
+    if hasattr(p, "bk"):
+        k, v = k + p.bk, v + p.bv
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -175,6 +189,38 @@ def full_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                    window=cfg.window_size if kind == ATTN_LOCAL else 0,
                    softcap=_softcap(cfg))
     return _out_proj(p, o), (k, v)
+
+
+def cross_kv(p: Attention, enc_hidden: torch.Tensor, cfg: ModelConfig):
+    """A decoder layer's cross-attention keys and values from the encoder's
+    output (B,T,d): (k, v), each (B,T,K,hd), biases added, no RoPE (the
+    reference's ``build_cross_kv``)."""
+    k = _head_proj(enc_hidden, p.wk, cfg)
+    v = _head_proj(enc_hidden, p.wv, cfg)
+    if hasattr(p, "bk"):
+        k, v = k + p.bk, v + p.bv
+    return k, v
+
+
+def cross_attention(p: Attention, x: torch.Tensor, cross_k: torch.Tensor,
+                    cross_v: torch.Tensor, cfg: ModelConfig, *, mode: str,
+                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every query of x (B,S,d) attends the encoder's frames ``cross_k`` /
+    ``cross_v`` (B,T,K,hd), non-causally; the query takes its bias and no
+    RoPE. Mode 'full' and 'prefill': the flash kernel, S queries over T
+    keys, frames past ``kv_valid`` (B,T) masked. Mode 'decode' (S 1): the
+    decode kernel over all T frames (``pos`` T-1), as the reference's
+    decode attends them: its ``decode_step`` passes no ``enc_valid``.
+    Nothing is written. Returns y (B,S,d)."""
+    q = _project_q(p, x, cfg, None)
+    if mode == "decode":
+        o = decode_attn(q[:, 0], cross_k, cross_v, cross_k.shape[1] - 1,
+                        softcap=_softcap(cfg))
+        return _out_proj(p, o.to(x.dtype)[:, None])
+    lens = None if kv_valid is None else kv_valid.sum(-1).to(torch.int32)
+    o = flash_attn(q, cross_k, cross_v, lens, causal=False,
+                   softcap=_softcap(cfg))
+    return _out_proj(p, o)
 
 
 def _cache_entries(cache: Cache, k: torch.Tensor, v: torch.Tensor):

@@ -1,18 +1,24 @@
-"""Residual blocks of the global, local and recurrent kinds: a pre-norm
-mixer (attention, or the RG-LRU for ``recurrent``) then a pre-norm MLP,
-each output normed again before its residual add when
-``cfg.post_attn_norm`` is set (gemma2's sandwich norms); every norm is the
-one ``cfg.norm_type`` names (RMSNorm, or XLM-R's LayerNorm) — the
-attention and recurrent paths of ``repro/models/blocks.py``."""
+"""Residual blocks of the global, local, recurrent and decoder kinds: a
+pre-norm mixer (attention, or the RG-LRU for ``recurrent``) then a pre-norm
+MLP, each output normed again before its residual add when
+``cfg.post_attn_norm`` is set (gemma2's sandwich norms); a ``decoder``
+block (whisper's) puts a pre-norm cross-attention to the encoder's output
+between its causal self-attention and its MLP. Every norm is the one
+``cfg.norm_type`` names (RMSNorm, or LayerNorm) — the attention, recurrent
+and decoder paths of ``repro/models/blocks.py``."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, \
     ModelConfig
+
+# an enc-dec model's decoder layer: global self-attention, cross-attention
+# to the encoder's output, MLP (the reference's kind of the same name)
+DECODER = "decoder"
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.common import dtype_of, make_norm
@@ -28,11 +34,15 @@ class Block(nn.Module):
         self.pre_norm = make_norm(cfg, dt, device)
         if kind == RECURRENT:
             self.rec = rglru_mod.RGLRU(cfg, gen, device)
-        elif kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        elif kind in (ATTN_GLOBAL, ATTN_LOCAL, DECODER):
             self.attn = attn.Attention(cfg, gen, device)
         else:
             raise ValueError(f"block kind must be {ATTN_GLOBAL!r}, "
-                             f"{ATTN_LOCAL!r} or {RECURRENT!r}, got {kind!r}")
+                             f"{ATTN_LOCAL!r}, {RECURRENT!r} or {DECODER!r}, "
+                             f"got {kind!r}")
+        if kind == DECODER:
+            self.xattn_norm = make_norm(cfg, dt, device)
+            self.xattn = attn.Attention(cfg, gen, device)
         if cfg.post_attn_norm:
             self.post_norm = make_norm(cfg, dt, device)
         self.pre_mlp_norm = make_norm(cfg, dt, device)
@@ -61,36 +71,50 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 rows: Optional[torch.Tensor] = None,
                 chunk: Optional[attn.ChunkCoords] = None,
                 active: Optional[torch.Tensor] = None,
-                causal: bool = True) -> torch.Tensor:
+                causal: bool = True,
+                cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                cross_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """mode 'full': attention (causal, or not for an encoder's
     ``causal=False``; or the recurrence) over x, no cache;
     mode 'prefill': the same, the layer's state written into cache rows
     ``rows``; mode 'chunk': one prompt chunk per row against the live
     cache at the coordinates ``chunk``; mode 'decode': one token per row
     at ``pos``, the rows ``active`` leaves out keeping their cache. The
-    cache is updated in place."""
+    cache is updated in place. A ``decoder`` layer's self-attention is a
+    global layer's; its cross-attention reads the encoder's keys and
+    values ``cross`` (k, v), masked to ``cross_valid`` in modes 'full' and
+    'prefill' (``attention.cross_attention``); it has no chunk mode."""
     if mode not in ("full", "prefill", "chunk", "decode"):
         raise ValueError(f"mode must be 'full', 'prefill', 'chunk' or "
                          f"'decode', got {mode!r}")
     kind = p.kind
+    if kind == DECODER and mode == "chunk":
+        raise ValueError("chunked prefill cannot cross block kind "
+                         "'decoder': cross-attention decoder state has no "
+                         "per-slot chunk contract")
+    akind = ATTN_GLOBAL if kind == DECODER else kind
     h = p.pre_norm(x, cfg.norm_eps)
     if kind == RECURRENT:
         y = _recurrent(p, h, mode, cache, kv_valid, rows, chunk, active)
     elif mode == "decode":
         y, _ = attn.decode_attention(p.attn, h, cache, pos, cfg,
-                                     active=active, kind=kind)
+                                     active=active, kind=akind)
     elif mode == "chunk":
         y = attn.chunk_prefill_attention(p.attn, h, cache, chunk, cfg, kind)
     else:
         y, (k, v) = attn.full_attention(p.attn, h, cfg, positions, kv_valid,
-                                        kind=kind, causal=causal)
+                                        kind=akind, causal=causal)
         if mode == "prefill":
             attn.fill_cache_from_prefill(
-                cache, k, v, rows, kind,
+                cache, k, v, rows, akind,
                 None if kv_valid is None else kv_valid.sum(-1))
     if cfg.post_attn_norm:
         y = p.post_norm(y, cfg.norm_eps)
     x = x + y
+    if kind == DECODER:
+        x = x + attn.cross_attention(p.xattn, p.xattn_norm(x, cfg.norm_eps),
+                                     cross[0], cross[1], cfg, mode=mode,
+                                     kv_valid=cross_valid)
     y = apply_mlp(p.mlp, p.pre_mlp_norm(x, cfg.norm_eps), cfg)
     if cfg.post_attn_norm:
         y = p.post_mlp_norm(y, cfg.norm_eps)

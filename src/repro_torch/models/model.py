@@ -1,13 +1,17 @@
 """Model assembly for the port: an LM (embedding, a stack of global, local
 and recurrent blocks in the order of ``cfg.layer_kinds()``, final norm,
 greedy head) — the path deepseek-7b, gemma2-27b, gemma-2b and
-recurrentgemma-9b serving run in ``repro/models/model.py`` — and the
-XLM-R encoder (``cfg.family == "encoder"``: the same stack, non-causal,
-with LayerNorm, q/k/v biases and a plain biased MLP), whose hidden states
-mode 'full' gives. The JAX
-package scans stacked layer parameters with ``jax.lax.scan``; here the
-layers are an ``nn.ModuleList`` walked by a Python loop, and the caches a
-list with one dict per layer.
+recurrentgemma-9b serving run in ``repro/models/model.py`` — the XLM-R
+encoder (``cfg.family == "encoder"``: the same stack, non-causal, with
+LayerNorm, q/k/v biases and a plain biased MLP), whose hidden states mode
+'full' gives, and whisper's encoder-decoder (``cfg.encdec``): a
+non-causal encoder over stub frame embeddings (``encode``), then a decoder
+of ``decoder`` blocks whose cross-attention reads each layer's keys and
+values of the encoder's output (``build_cross_kv``). The JAX package
+scans stacked layer parameters with ``jax.lax.scan``; here the layers are
+an ``nn.ModuleList`` walked by a Python loop, and the caches a list with
+one dict per layer (an enc-dec decoder layer's also holds its cross K/V,
+``cross_k`` and ``cross_v``, where the reference keeps ``caches["cross"]``).
 """
 from __future__ import annotations
 
@@ -33,9 +37,12 @@ def check_supported(cfg: ModelConfig) -> None:
                                            RECURRENT},
         "mixture of experts": cfg.moe is not None,
         "SSM blocks": cfg.ssm is not None,
-        "encoder-decoder": cfg.encdec is not None,
         "M-RoPE": cfg.rope_mode != "standard",
-        "embedding inputs": cfg.input_kind != "tokens",
+        # an enc-dec model's encoder takes frame embeddings and its decoder
+        # tokens; a model whose tokens are embeddings (qwen2-vl's) is not
+        # ported yet
+        "embedding inputs": cfg.input_kind != "tokens" and not (
+            cfg.encdec is not None and cfg.input_kind == "embeddings"),
     }
     missing = [name for name, used in unsupported.items() if used]
     if missing:
@@ -51,10 +58,23 @@ class Model(nn.Module):
         Vp = vocab_mod.padded_vocab(cfg)
         self.embed = mk_param((Vp, cfg.d_model), dt, device, gen)
         self.layers = nn.ModuleList(blk.Block(cfg, gen, device, kind)
-                                    for kind in cfg.layer_kinds())
+                                    for kind in layer_kinds(cfg))
         self.final_norm = make_norm(cfg, dt, device)
         if not cfg.tie_embeddings:
             self.lm_head = mk_param((Vp, cfg.d_model), dt, device, gen)
+        if cfg.encdec is not None:
+            self.enc_layers = nn.ModuleList(
+                blk.Block(cfg, gen, device, ATTN_GLOBAL)
+                for _ in range(cfg.encdec.encoder_layers))
+            self.enc_final_norm = make_norm(cfg, dt, device)
+
+
+def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The block kind of each (decoder) layer: ``cfg.layer_kinds()``, each
+    one ``decoder`` for an enc-dec config, as the reference builds it."""
+    if cfg.encdec is not None:
+        return (blk.DECODER,) * cfg.num_layers
+    return cfg.layer_kinds()
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
@@ -80,16 +100,31 @@ def off_device(params: nn.Module, device) -> List[Tuple[str, torch.device]]:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device="cuda") -> List[attn_mod.Cache]:
+                device="cuda", enc_len: Optional[int] = None
+                ) -> List[attn_mod.Cache]:
     """One preallocated cache dict per layer: K/V for an attention layer, a
     ring of ``min(window_size, max_len)`` slots for a local one (int8
     values and fp16 scales when ``cfg.quant.kv_cache_dtype == "int8"``);
     ``h`` and ``conv`` for a recurrent layer (``rglru.init_rglru_cache``,
-    whatever the KV cache's format)."""
-    return [rglru_mod.init_rglru_cache(cfg, batch, device)
-            if kind == RECURRENT
-            else attn_mod.init_kv_cache(cfg, batch, max_len, device, kind)
-            for kind in cfg.layer_kinds()]
+    whatever the KV cache's format). An enc-dec config's decoder layer
+    holds a global layer's K/V and, for the ``enc_len`` frames of the
+    encoder's output, ``cross_k`` and ``cross_v`` (B, enc_len, K, hd) in
+    the activation dtype, which prefill fills in place (a captured decode
+    reads them where they are)."""
+    caches = [rglru_mod.init_rglru_cache(cfg, batch, device)
+              if kind == RECURRENT
+              else attn_mod.init_kv_cache(cfg, batch, max_len, device, kind)
+              for kind in cfg.layer_kinds()]
+    if cfg.encdec is not None:
+        if enc_len is None:
+            raise ValueError(f"{cfg.name}: an enc-dec model's caches need "
+                             f"enc_len, the encoder frames")
+        shape = (batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+        dt = dtype_of(cfg.activation_dtype)
+        for c in caches:
+            c["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+            c["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
+    return caches
 
 
 def cache_extents(cfg: ModelConfig, caches
@@ -103,6 +138,46 @@ def cache_extents(cfg: ModelConfig, caches
               for c, kind in zip(caches, cfg.layer_kinds())
               if kind != RECURRENT}
     return extent.get(ATTN_GLOBAL), extent.get(ATTN_LOCAL)
+
+
+def encode(params: Model, cfg: ModelConfig, enc_embeds: torch.Tensor,
+           enc_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The encoder of an enc-dec model: stub frame embeddings (B,T,d) in
+    the activation dtype through its non-causal stack (RoPE at positions
+    0..T-1), frames past ``enc_valid`` (B,T), the real frames of
+    right-padded rows, masked as keys; then its final norm. -> (B,T,d)."""
+    device = model_device(params)
+    x = enc_embeds.to(device=device, dtype=dtype_of(cfg.activation_dtype))
+    B, T = x.shape[:2]
+    positions = torch.arange(T, device=device).expand(B, T)
+    if enc_valid is not None:
+        enc_valid = enc_valid.to(device)
+    for layer in params.enc_layers:
+        x = blk.apply_block(layer, x, cfg, mode="full", cache=None,
+                            positions=positions, kv_valid=enc_valid,
+                            causal=False)
+    return params.enc_final_norm(x, cfg.norm_eps)
+
+
+def build_cross_kv(params: Model, cfg: ModelConfig, enc_hidden: torch.Tensor
+                   ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Each decoder layer's cross-attention (k, v), each (B,T,K,hd), from
+    the encoder's output (B,T,d)."""
+    return [attn_mod.cross_kv(layer.xattn, enc_hidden, cfg)
+            for layer in params.layers]
+
+
+def _write_cross(caches, cross, rows: torch.Tensor) -> None:
+    """Prefill's cross K/V into the caches' ``cross_k``/``cross_v`` in
+    place, batch row j into cache row ``rows[j]`` (a negative entry: a
+    padded group row, as ``attention.fill_cache_from_prefill`` writes)."""
+    for c, (k, v) in zip(caches, cross):
+        if c["cross_k"].shape[1] != k.shape[1]:
+            raise ValueError(f"the caches hold {c['cross_k'].shape[1]} "
+                             f"encoder frames, the batch {k.shape[1]}")
+        attn_mod.fill_cache_from_prefill(
+            {"k": c["cross_k"], "v": c["cross_v"]}, k, v, rows, ATTN_GLOBAL)
+
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, mode: str, caches: Optional[List[attn_mod.Cache]],
@@ -131,6 +206,14 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     mode 'decode': batch {'tokens' (B,1)} at per-row positions ``pos``
     (B,); ``active`` (B,) bool (host array or tensor) marks the rows really
     decoding — the others leave their cache as it was.
+
+    An enc-dec config's batch also holds ``enc_embeds`` (B,T,d) in modes
+    'full' and 'prefill', and may hold ``enc_valid`` (B,T): the encoder
+    runs, each decoder layer's cross K/V is built from its output (and in
+    'prefill' written into the caches' cross buffers, which the layers
+    then read), and cross-attention masks the frames past ``enc_valid``.
+    Mode 'decode' reads the cross K/V from the caches and attends every
+    frame: the reference's ``decode_step`` passes no ``enc_valid``.
     """
     device = model_device(params)
     tokens = batch["tokens"].to(device)
@@ -153,13 +236,39 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             pos = pos.expand(B).contiguous()
         if active is not None:
             active = torch.as_tensor(active, dtype=torch.bool).to(device)
-    for layer, cache in zip(params.layers, caches):
+    cross, cross_valid = [None] * cfg.num_layers, None
+    if cfg.encdec is not None and mode != "chunk":   # the blocks refuse it
+        cross, cross_valid = _cross_inputs(params, cfg, batch, mode, caches,
+                                           rows)
+    for layer, cache, ckv in zip(params.layers, caches, cross):
         x = blk.apply_block(layer, x, cfg, mode=mode, cache=cache,
                             positions=positions, pos=pos, kv_valid=kv_valid,
                             rows=rows, chunk=chunk, active=active,
-                            causal=causal)
+                            causal=causal, cross=ckv,
+                            cross_valid=cross_valid)
     return params.final_norm(x, cfg.norm_eps), \
         (None if mode == "full" else caches)
+
+
+def _cross_inputs(params: Model, cfg: ModelConfig, batch, mode: str, caches,
+                  rows):
+    """(each decoder layer's cross (k, v), the frame mask) of an enc-dec
+    forward: built from ``batch["enc_embeds"]`` in modes 'full' and
+    'prefill' (and in 'prefill' written into the caches, then read from
+    there), read from the caches in 'decode'."""
+    if mode == "decode":
+        return [(c["cross_k"], c["cross_v"]) for c in caches], None
+    if "enc_embeds" not in batch:
+        raise ValueError(f"{cfg.name}: mode {mode!r} needs enc_embeds")
+    valid = batch.get("enc_valid")
+    if valid is not None:
+        valid = valid.to(model_device(params))
+    cross = build_cross_kv(params, cfg,
+                           encode(params, cfg, batch["enc_embeds"], valid))
+    if mode == "prefill":
+        _write_cross(caches, cross, rows)
+        cross = [(c["cross_k"], c["cross_v"]) for c in caches]
+    return cross, valid
 
 
 def head_table(params: Model, cfg: ModelConfig) -> torch.Tensor:
@@ -169,9 +278,12 @@ def head_table(params: Model, cfg: ModelConfig) -> torch.Tensor:
 def prefill(params: Model, cfg: ModelConfig, batch, max_len: int,
             kv_valid=None):
     """Run the prompt into fresh caches; returns (last hidden (B,d),
-    caches)."""
+    caches). An enc-dec batch's ``enc_embeds`` sets the caches' encoder
+    frames, and its cross K/V comes back in them."""
     B = batch["tokens"].shape[0]
-    caches = init_caches(cfg, B, max_len, model_device(params))
+    enc = batch.get("enc_embeds")
+    caches = init_caches(cfg, B, max_len, model_device(params),
+                         enc_len=None if enc is None else enc.shape[1])
     x, caches = forward(params, cfg, batch, mode="prefill", caches=caches,
                         kv_valid=kv_valid)
     return x[:, -1], caches

@@ -121,6 +121,17 @@ class InferenceEngine:
                  migrate_min_tokens: Optional[int] = None,
                  cuda_graphs: bool = True,
                  device="cuda"):
+        if cfg.encdec is not None:
+            # the reference's engine refuses a chunk here and would fail at
+            # its first prefill without one (it passes no encoder frames);
+            # enc-dec configs serve through ``serving/encdec.py``
+            if prefill_chunk is not None:
+                require_chunkable(cfg)
+            raise ValueError(
+                f"{cfg.name}: the engine does not serve an encoder-decoder "
+                f"config (layer kind 'decoder', a cross-attention decoder: "
+                f"its prefill needs the encoder's frames); use "
+                f"serving.encdec.EncDecServer")
         if page_victim not in ("lru", "remaining"):
             raise ValueError(f"page_victim must be 'lru' or 'remaining', "
                              f"got {page_victim!r}")

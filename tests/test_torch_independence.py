@@ -79,6 +79,12 @@ def test_module_list_covers_the_encoder_path():
             "repro_torch.launch.serve"} <= set(_modules())
 
 
+def test_module_list_covers_the_encdec_path():
+    """The blocked-import check walks whisper's enc-dec modules too."""
+    assert {"repro_torch.configs.whisper_medium",
+            "repro_torch.serving.encdec"} <= set(_modules())
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_neither_jax_nor_repro(path):

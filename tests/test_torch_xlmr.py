@@ -272,18 +272,30 @@ def test_full_config_builds_at_full_width():
 
 @pytest.mark.parametrize("feature,kw", [
     ("mixture of experts", "moe"), ("SSM blocks", "ssm"),
-    ("encoder-decoder", "encdec"), ("M-RoPE", {"rope_mode": "mrope"}),
+    ("embedding inputs", {"input_kind": "embeddings"}),
+    ("M-RoPE", {"rope_mode": "mrope"}),
     ("embedding inputs", {"input_kind": "embeds"})])
 def test_other_features_still_refused(feature, kw):
+    """Embedding inputs pass only with an encoder-decoder (whisper's
+    encoder takes frame embeddings): a decoder whose tokens are embeddings
+    (qwen2-vl's) is refused."""
     if isinstance(kw, str):          # a config that has the feature
-        arch = {"moe": "dbrx-132b", "ssm": "mamba2-130m",
-                "encdec": "whisper-medium"}[kw]
+        arch = {"moe": "dbrx-132b", "ssm": "mamba2-130m"}[kw]
         cfg = dataclasses.replace(reduce_for_smoke(get_config("xlmr-paper")),
                                   **{kw: getattr(jax_get_config(arch), kw)})
     else:
         cfg = dataclasses.replace(reduce_for_smoke(get_config("xlmr-paper")),
                                   **kw)
     with pytest.raises(NotImplementedError, match=feature):
+        model_mod.check_supported(cfg)
+
+
+def test_whisper_medium_passes_check_supported():
+    """The enc-dec config, at full width and in smoke: its decoder takes
+    tokens and its encoder frame embeddings."""
+    for cfg in (get_config("whisper-medium"),
+                reduce_for_smoke(get_config("whisper-medium"))):
+        assert cfg.encdec is not None and cfg.input_kind == "embeddings"
         model_mod.check_supported(cfg)
 
 
