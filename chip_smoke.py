@@ -185,6 +185,40 @@ result line):
              layers add (the hidden state less the embedded token's own)
              within 0.10, and two planted faults (every layer's ``wo``
              scale zeroed; the int8 cache's value scales negated) past it.
+6c+. check-qwen2vl, serve-qwen2vl, serve-eager-qwen2vl,
+             serve-qwen2vl-chunked, serve-qwen2vl-w8a8,
+             check-qwen2vl-layers, check-qwen2vl-rope — after gemma-2b,
+             before XLM-R (the kernel phase runs flash, both decode
+             kernels and w8a8 at qwen2-vl-7b's served shapes: 28 query
+             heads padded to 32 over 4 kv heads, G 8, hd 128; flash's
+             prefill of a 4096 bucket and its 4 x 512 chunk call over a 4
+             x 4608 cache, decode at B 4, S 4608, w8a8 at its five
+             projections at M 4 and 2048; each held against its plain
+             version and timed beside SDPA or ``torch._int_mm`` and its
+             bound in a device window of their own, which must name
+             ``flash_fwd_kernel_tma<128, ...>`` and the split-K / TMA
+             w8a8 kernels; their inputs from a generator of their own).
+             check-qwen2vl cuts the arch to 6 query heads padded to 8 over
+             2 kv heads (f32 hd 16; bf16 hd 128 at d_model 256), every bias
+             and norm drawn: modes full and prefill over patch embeddings
+             at distinct (t, h, w) positions, then decode steps on tokens
+             and on embeds, card vs host within 2e-3 (f32) and a relative
+             2e-2 (bf16). Then full width (28 layers, d_model 3584, SwiGLU
+             d_ff 18944, untied vocab 152064, M-RoPE sections (16, 24, 24)
+             at theta 1e6; 7.7 B random bf16 parameters from seed 0), 4
+             slots, max_len 4608, graphed and warmed on the same requests:
+             4 token prompts of 4096, 3900, 2100 and 300 tokens x 32 new
+             tokens at default positions (flash and bf16 decode launched;
+             the decode stage's p50 and profile); its eager twin, tokens
+             identical; through ``prefill_chunk=512`` (flash at a query
+             offset; agreement printed); in w8a8 with an int8 KV cache
+             (greedy agreement with bf16 >= 0.90, bf16 decode not
+             launched), then check-qwen2vl-layers as 6c's; and
+             check-qwen2vl-rope: layer 0's attention in bf16 against f32
+             on the same weights, biases drawn, at distinct (t, h, w)
+             positions, within 0.02, and M-RoPE replaced by RoPE, two
+             sections swapped, the biases dropped and a padded head's
+             ``wo`` row drawn each past it.
 6c". check-xlmr, serve-xlmr, serve-eager-xlmr, check-xlmr-encoder,
              serve-xlmr-launcher — after gemma-2b, before recurrentgemma:
              the paper's XLM-R encoder. check-xlmr cuts it to
@@ -347,12 +381,14 @@ L2 flush; the device window's times leave out the host's enqueue gap.
 
 The line before the last is a JSON object with one entry per kernel (its
 ``launches`` are those of the phases whose path runs it, summed: serve,
-serve-chunked, the three gemma-2b serves, serve-xlmr's timed pass,
+serve-chunked, the three gemma-2b serves, the three graphed qwen2-vl
+serves, serve-xlmr's timed pass, serve-whisper's timed batch, the two
+graphed recurrentgemma serves and the four gemma2-27b serves for flash,
+serve, the bf16 gemma-2b serves, the bf16 qwen2-vl serves,
 serve-whisper's timed batch, the two graphed recurrentgemma serves and the
-four gemma2-27b serves for flash, serve, the bf16 gemma-2b serves,
-serve-whisper's timed batch, the two graphed recurrentgemma serves and the
-two bf16 gemma2 serves for bf16 decode, serve-w8a8, serve-gemma2b-w8a8
-and the two w8a8 gemma2 serves for the int8 kernels, serve-dlrm, or
+two bf16 gemma2 serves for bf16 decode, serve-w8a8, serve-gemma2b-w8a8,
+serve-qwen2vl-w8a8 and the two w8a8 gemma2 serves for the int8 kernels,
+serve-dlrm, or
 check-dlrm for the fp32 and int4 SLS kernels, and every fleet phase; each
 phase zeroes the counters just before it and reads them just after); the
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
@@ -1607,6 +1643,7 @@ def phase_kernels() -> dict:
     recurrentgemma_kernel_cases(gen, device_fns)
     xlmr_flash_cases(gen, device_fns)
     whisper_kernel_cases(device_fns)
+    qwen2vl_kernel_cases()
     # the JAX package's cases (repro/kernels/decode_attn/ops.py), scalar
     # pos broadcast to every row, then deepseek-7b decode at per-row pos
     decode_cases = {
@@ -2126,7 +2163,8 @@ def _first_divergence(got, want):
 
 def phase_serve_eager(label: str, graphed, launches, outputs, cfg, params,
                       engine_kw=SERVE_KW, trace=None,
-                      decode_pos=(512, 300, 77, 1), **kw) -> None:
+                      decode_pos=(512, 300, 77, 1), identical=False,
+                      **kw) -> None:
     """The serve phase's requests through an engine that runs the same
     stages eagerly (``cuda_graphs=False``), in the same run as the graphed
     ``graphed``: each kernel's launches must equal the graphed run's and
@@ -2134,7 +2172,8 @@ def phase_serve_eager(label: str, graphed, launches, outputs, cfg, params,
     runs the kernels the eager stage runs). Then the decode stage of each
     engine is profiled at 4 rows from ``decode_pos``. ``engine_kw`` and
     ``trace``: the graphed engine's settings and requests (by default the
-    deepseek-7b serve phase's)."""
+    deepseek-7b serve phase's). With ``identical``, the tokens must be
+    identical, not only agree."""
     base = torch.cuda.memory_allocated()
     eng = InferenceEngine(cfg, params, cuda_graphs=False, **engine_kw, **kw)
     got_launches, got = _serve(eng, cfg, label, base, trace=trace,
@@ -2149,9 +2188,10 @@ def phase_serve_eager(label: str, graphed, launches, outputs, cfg, params,
              f"{div[2]} vs graphed {div[3]}")
     print(f"{label}: greedy-token agreement with the graphed engine "
           f"{agree:.4f} ({where}); kernel launches equal", flush=True)
-    if agree < 0.95:
-        raise AssertionError(f"{label}: eager vs graphed agreement {agree} "
-                             f"< 0.95")
+    if agree < 0.95 or (identical and div is not None):
+        need = "identical tokens" if identical else "0.95"
+        raise AssertionError(f"{label}: eager vs graphed agreement {agree}"
+                             f", {need} required")
     for e, tag in ((graphed, "graphed"), (eng, "eager")):
         profile_decode_stage(e, f"{label}: {tag} ", pos=decode_pos)
 
@@ -3051,32 +3091,46 @@ def gemma_2b_requests(vocab: int):
 
 def phase_serve_gemma_2b(cfg, params, label: str = "serve-gemma2b",
                          mono_outputs=None, **kw):
-    """Full-width gemma-2b serving (bf16; or, with ``precision="w8a8"`` in
-    ``kw``, w8a8 with an int8 KV cache), graphed and warmed on the same
-    requests, so every stage key is captured before the measured run; with
-    ``prefill_chunk`` in ``kw``, chunked. The kernels of its path must have
-    run: flash (at a query offset when chunked), and bf16 decode, or the
-    w8a8 GEMM and int8 decode with bf16 decode not at all. A w8a8 serve's
-    greedy agreement with the bf16 serve's ``mono_outputs`` must reach
-    0.90 (the reference's w8a8 guardrail); a chunked one's is printed. The
-    monolithic serves' graphed decode stage is then profiled. Returns
-    (launches, outputs)."""
+    """Full-width gemma-2b serving (``phase_serve_padded`` on
+    ``gemma_2b_requests``); returns (launches, outputs)."""
+    launches, outputs, _ = phase_serve_padded(
+        cfg, params, label, GEMMA_2B_KW,
+        lambda: gemma_2b_requests(cfg.vocab_size), "serve-gemma2b",
+        "check-gemma2b-layers", (4000, 3500, 300, 100), mono_outputs, **kw)
+    return launches, outputs
+
+
+def phase_serve_padded(cfg, params, label: str, engine_kw: dict, trace,
+                       ref_label: str, layers_label: str, profile_pos,
+                       mono_outputs=None, keep_engine: bool = False, **kw):
+    """Full-width serving of an arch with padded heads (bf16; or, with
+    ``precision="w8a8"`` in ``kw``, w8a8 with an int8 KV cache), graphed
+    and warmed on the same requests ``trace()``, so every stage key is
+    captured before the measured run; with ``prefill_chunk`` in ``kw``,
+    chunked. The kernels of its path must have run: flash (at a query
+    offset when chunked), and bf16 decode, or the w8a8 GEMM and int8
+    decode with bf16 decode not at all. A w8a8 serve's greedy agreement
+    with the bf16 serve's (``ref_label``) ``mono_outputs`` must reach 0.90
+    (the reference's w8a8 guardrail), and its layers check
+    (``layers_label``) follow; a chunked one's agreement is printed. The
+    monolithic serves' graphed decode stage is then profiled at rows from
+    ``profile_pos``. Returns (launches, outputs, the engine if
+    ``keep_engine`` else None)."""
     quant = kw.get("precision") == "w8a8"
     base_cfg = cfg
     if quant:
         cfg = _int8_kv(cfg)
-    trace = lambda: gemma_2b_requests(cfg.vocab_size)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    eng = InferenceEngine(cfg, params, **GEMMA_2B_KW, **kw)
+    eng = InferenceEngine(cfg, params, **engine_kw, **kw)
     if quant:
         torch.cuda.synchronize()
         q = eng.quant
         print(f"{label}: build step {time.perf_counter() - t0:.1f} s: "
               f"{q.quantized_sites} sites int8, {q.fallback_sites} fall back "
               f"to bf16 (calibration disagreement "
-              f"{q.result.metric_delta:.4f})", flush=True)
+              f"{q.result.metric_delta:.4f}); {q.schemes}", flush=True)
     launches, outputs = _serve(eng, cfg, label, base, trace=trace,
                                warm=trace, model=cfg.name)
     need = ["flash_attn"]
@@ -3092,20 +3146,19 @@ def phase_serve_gemma_2b(cfg, params, label: str = "serve-gemma2b",
     if mono_outputs is not None:
         agree = token_agreement(zip(outputs, mono_outputs))
         div = _first_divergence(outputs, mono_outputs)
-        print(f"{label}: greedy-token agreement with serve-gemma2b "
+        print(f"{label}: greedy-token agreement with {ref_label} "
               f"{agree:.4f} ({'tokens identical' if div is None else div})"
               + ("" if quant else " (printed, not held)"), flush=True)
         if quant and agree < 0.90:
             raise AssertionError(f"{label}: agreement with the bf16 serve "
                                  f"{agree} < 0.90")
     if quant:
-        check_w8a8_layers("check-gemma2b-layers", layers_reference(
+        check_w8a8_layers(layers_label, layers_reference(
             base_cfg, params, (512, 300, 77, 1), 1024), cfg,
             eng.quant.params)
     if not kw.get("prefill_chunk"):
-        profile_decode_stage(eng, f"{label}: graphed ",
-                             pos=(4000, 3500, 300, 100))
-    return launches, outputs
+        profile_decode_stage(eng, f"{label}: graphed ", pos=profile_pos)
+    return launches, outputs, (eng if keep_engine else None)
 
 
 # the full-width w8a8 + int8-KV decode step's error over the layers' share
@@ -3209,6 +3262,338 @@ def check_w8a8_layers(label: str, ref: dict, qcfg, qparams) -> None:
                                  f"stays within the tolerance ({e} <= "
                                  f"{W8A8_LAYERS_TOL}): the check cannot see "
                                  f"it")
+
+
+# ---- qwen2-vl-7b ------------------------------------------------------------
+
+# 4 slots of 4608 positions (the 28 layers' K/V, 0.47 GB); the bucket
+# ladder reaches the longest prompt
+QWEN2VL_KW = dict(batch_slots=4, max_len=4608,
+                  prefill_buckets=(128, 256, 512, 1024, 2048, 4096),
+                  device=DEV)
+# the serve phases' prompts (32 new tokens each) and the decode positions
+# of the kernel cases and the decode stage profiles
+QWEN2VL_PROMPTS = (4096, 3900, 2100, 300)
+QWEN2VL_DECODE_POS = (4095, 3000, 1200, 31)
+# qwen2-vl-7b's dense projections (K, N): wq (3584 -> 32 padded heads x
+# 128), wk and wv (-> 4 x 128), gate and up (-> 18944), wo (4096 -> 3584),
+# down (18944 -> 3584)
+QWEN2VL_PROJECTIONS = ((3584, 4096), (3584, 512), (3584, 18944),
+                       (4096, 3584), (18944, 3584))
+# check-qwen2vl-rope: one full-width layer's attention in bf16 against f32,
+# ||y_bf16 - y_f32|| / ||y_f32||
+QWEN2VL_ROPE_TOL = 0.02
+
+
+def qwen2vl_requests(vocab: int):
+    """The qwen2-vl serve phases' traffic: 4 token prompts of
+    ``QWEN2VL_PROMPTS`` tokens x 32 new tokens (the reference's engine
+    serves token prompts at default positions)."""
+    rng = np.random.default_rng(0)
+    return [Request(i, rng.integers(0, vocab, L).astype(np.int32),
+                    max_new_tokens=32)
+            for i, L in enumerate(QWEN2VL_PROMPTS)]
+
+
+def mrope_positions(B: int, S: int, device) -> torch.Tensor:
+    """(3,B,S) int32 (t, h, w) position ids that differ stream from stream
+    and row from row: t = 0..S-1, h and w thousands apart. At theta 1e6
+    the frequencies of the h and w sections turn by 1e-3 to 6e-6 rad a
+    position, so with these ids every section rotates visibly, and M-RoPE
+    replaced by RoPE, or two sections swapped, changes the output."""
+    i = torch.arange(S, device=device)
+    pos = torch.stack([i, 3000 + 611 * i, 60000 + 4999 * i])[:, None, :]
+    row = torch.arange(B, device=device)[None, :, None] \
+        * torch.tensor([1, 97, 1013], device=device)[:, None, None]
+    return (pos + row).to(torch.int32)
+
+
+def qwen2vl_kernel_cases() -> None:
+    """The kernels at qwen2-vl-7b's served shapes (bf16, 28 query heads
+    padded to 32 over 4 kv heads: G 8, head_dim 128), each held against
+    its plain version and timed beside its library call and its bound:
+    flash's prefill of a 4096 bucket with lens ``QWEN2VL_PROMPTS`` (1v)
+    and its chunk call, 4 x 512 in place over a 4 x 4608 cache at offsets
+    3584, 2048, 512, 0 (1v'), beside SDPA with a boolean mask, on
+    ``flash_fwd_kernel_tma<128, ...>``; both decode kernels at B 4,
+    S 4608, pos ``QWEN2VL_DECODE_POS`` (2v bf16 beside SDPA, 3v int8);
+    w8a8 at the five projections at M 4 (4v, the split-K kernel) and 2048
+    (4v', the TMA kernel) beside ``torch._int_mm``. Then one profiler
+    window of their device times, which must name the kernel each flash
+    and w8a8 case ran. Their inputs come from a generator of their own,
+    so that every other case keeps its inputs. They run in the kernel
+    phase, before any model: in runs where they followed the serve
+    phases' profiles, a trace there came back without some of the card's
+    kernels (a one-kernel trace with none; 533 of 540 markers)."""
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    bf16 = torch.bfloat16
+    fns, routes = {}, {}
+    name = "qwen2vl_1v_B4_S4096_H32_K4_hd128"
+    r = flash_case(name, gen, 4, 4096, 32, 4, 128, bf16,
+                   list(QWEN2VL_PROMPTS))
+    _show("flash_attn", name, r)
+    fns["flash_attn " + name] = r["call"]
+    fns["SDPA (boolean mask) " + name] = r["library_call"]
+    name = "qwen2vl_1v'_chunk_P4_C512_T4608_H32_K4_hd128"
+    r = flash_chunk_case(name, gen, 4, 4608, 32, 4, 128, 512, bf16,
+                         slots=[0, 1, 2, 3], start=[3584, 2048, 512, 0],
+                         lengths=[512] * 4, measure=True)
+    _show("flash_attn", name, r)
+    fns["flash_attn " + name] = r["call"]
+    fns["SDPA (boolean mask) " + name] = r["library_call"]
+    # the device window must name the TMA kernel at hd 128 for both
+    for n in ("1v_B4_S4096", "1v'_chunk_P4_C512_T4608"):
+        routes[f"flash_attn qwen2vl_{n}_H32_K4_hd128"] = (
+            "flash_fwd_kernel_tma<128", "flash_fwd_kernel<")
+    case = (4, 32, 4, 128, 4608, list(QWEN2VL_DECODE_POS), bf16)
+    name = "qwen2vl_2v_B4_S4608_H32_K4_hd128"
+    r = decode_case(name, gen, *case)
+    _show("decode_attn", name, r)
+    fns["decode_attn " + name] = r["call"]
+    fns["SDPA " + name] = r["library_call"]
+    name = "qwen2vl_3v_B4_S4608_H32_K4_hd128"
+    r = decode_int8_case(name, gen, *case)
+    _show("decode_attn_int8", name, r)
+    fns["decode_attn_int8 " + name] = r["call"]
+    for M, row in ((4, "4v"), (2048, "4v'")):
+        for K, N in QWEN2VL_PROJECTIONS:
+            name = f"qwen2vl_{row}_M{M}_K{K}_N{N}"
+            r = w8a8_case(name, gen, M, K, N)
+            _show("w8a8_matmul", name, r)
+            fns["w8a8_matmul " + name] = r["call"]
+            fns["torch._int_mm + scales " + name] = r["library_call"]
+            routes["w8a8_matmul " + name] = (
+                "w8a8_splitk_kernel" if M <= 16 else "w8a8_kernel_tma",
+                "w8a8_kernel<")
+    device_window(fns, routes=routes)
+
+
+def reduce_qwen2vl(dtype: str):
+    """qwen2-vl-7b cut for the card-vs-host check, keeping what
+    ``reduce_for_smoke`` drops: 6 query heads padded to 8 over 2 kv heads
+    (G 4, the padding inside the last kv group, as at full width), q/k/v
+    biases, untied embeddings. f32: ``reduce_for_smoke``'s 2 layers of
+    d_model 64 at head_dim 16, M-RoPE sections (4, 2, 2); bf16: d_model
+    256 at head_dim 128 with the full width's sections (16, 24, 24), so
+    flash runs its tensor-core kernel."""
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen2-vl-7b")),
+                              num_heads=6, num_padded_heads=8,
+                              num_kv_heads=2, head_dim=16)
+    if dtype == "float32":
+        return cfg
+    return dataclasses.replace(cfg, d_model=256, head_dim=128, d_ff=512,
+                               mrope_sections=(16, 24, 24),
+                               param_dtype=dtype, activation_dtype=dtype)
+
+
+def _qwen2vl_hidden(params, cfg, x, pos3, valid, steps, max_len: int):
+    """Through the model layer: mode 'full' over the patch embeddings ``x``
+    (B,S,d) at (t, h, w) positions ``pos3`` (3,B,S), ``valid`` (B,S)
+    marking the real ones; a prefill of the same into fresh caches; then
+    one decode step for each of ``steps`` (tokens (B,1) or embeds
+    (B,1,d)) at each row's next position. Returns the real rows' hidden
+    states of both passes and the decode steps' (n,B,d), f32 on the
+    host."""
+    dev = model_mod.model_device(params)
+    valid = valid.to(dev)
+    batch = {"embeds": x.to(dev), "positions": pos3.to(dev)}
+    lens = valid.sum(-1).to(torch.int32)
+    with torch.inference_mode():
+        full, _ = model_mod.forward(params, cfg, batch, mode="full",
+                                    caches=None, kv_valid=valid)
+        caches = model_mod.init_caches(cfg, x.shape[0], max_len, dev)
+        pre, caches = model_mod.forward(params, cfg, batch, mode="prefill",
+                                        caches=caches, kv_valid=valid)
+        hs = []
+        for i, step in enumerate(steps):
+            h, caches = model_mod.decode_step(params, cfg, step.to(dev),
+                                              caches, lens + i)
+            hs.append(h)
+    return (full[valid].float().cpu(), pre[valid].float().cpu(),
+            torch.stack(hs).float().cpu())
+
+
+def phase_check_qwen2vl() -> None:
+    """check-qwen2vl: ``reduce_qwen2vl`` in f32 and bf16, every bias and
+    norm scale drawn nonzero: modes full and prefill over patch embeddings
+    at distinct (t, h, w) positions (3 rows of 40, 27 and 5 real ones),
+    then 4 decode steps, 2 on tokens and 2 on embeds, on the card against
+    the host's plain versions (``_hold_hidden``: 2e-3 elementwise in f32,
+    a relative 2e-2 in bf16)."""
+    B, S = 3, 40
+    for dtype in ("float32", "bfloat16"):
+        cfg = reduce_qwen2vl(dtype)
+        dt = dtype_of(dtype)
+        params = model_mod.init_params(cfg, seed=1, device=DEV)
+        draw_biases(params, seed=2)
+        host = copy.deepcopy(params).to("cpu")
+        gen = torch.Generator().manual_seed(3)
+        x = torch.randn(B, S, cfg.d_model, generator=gen)
+        valid = torch.arange(S)[None, :] < torch.tensor([40, 27, 5])[:, None]
+        toks = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                              dtype=torch.int32) for _ in range(2)]
+        embs = [torch.randn(B, 1, cfg.d_model, generator=gen)
+                for _ in range(2)]
+        args = (x, mrope_positions(B, S, "cpu"), valid, toks + embs, 64)
+        got = _qwen2vl_hidden(params, cfg, *args)
+        want = _qwen2vl_hidden(host, cfg, *args)
+        label = f"check-qwen2vl[{dtype} hd {cfg.head_dim}]"
+        held = [_hold_hidden(f"{label} {what}", g, w, dt)
+                for what, g, w in zip(("full", "prefill", "decode"), got,
+                                      want)]
+        print(f"{label}: {cfg.num_heads} heads padded to "
+              f"{cfg.padded_heads} over {cfg.num_kv_heads}, sections "
+              f"{cfg.mrope_sections}, biases and norms drawn; card vs host "
+              f"over embeddings at distinct (t, h, w) positions: full "
+              f"{held[0]}, prefill {held[1]}; 2 decode steps on tokens and "
+              f"2 on embeds {held[2]} (tol {TOL[dt]})", flush=True)
+        del params, host
+        _free_card()
+
+
+def decode_step_p50(label: str, eng, pos, steps: int = 32) -> None:
+    """Wall time to completion (its tokens on the host) of ``steps``
+    decode stage calls of ``eng`` at 4 rows from ``pos`` onward, one call
+    at a time: p50 and p99."""
+    run = eng.executor.get("decode", (eng.precision,), eng._build_decode)
+    B = eng.batch_slots
+    pos = np.array(pos[:B], np.int32)
+    toks = np.zeros((B, 1), np.int32)
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        toks = run({"tokens": toks, "pos": pos + i,
+                    "active": np.ones(B, bool)})[:, None]
+        times.append((time.perf_counter() - t0) * 1e3)
+    how = "graphed" if eng.executor.graphs else "eager"
+    print(f"{label}: decode stage call ({how}), {B} rows at pos "
+          f"{pos.tolist()}+: p50 "
+          f"{np.percentile(times, 50):.3f} ms, p99 "
+          f"{np.percentile(times, 99):.3f} ms over {steps} calls",
+          flush=True)
+
+
+def _layer_attention(attn, cfg, x, positions) -> torch.Tensor:
+    with torch.inference_mode():
+        y, _ = attn_mod.full_attention(attn, x, cfg, positions,
+                                       kind="global")
+    return y.float()
+
+
+def check_qwen2vl_rope(label: str, cfg, params, B: int = 2,
+                       S: int = 1024) -> None:
+    """Layer 0's attention at full width (28 query heads padded to 32 over
+    4 kv heads, hd 128, M-RoPE sections (16, 24, 24) at theta 1e6), with
+    its q/k/v biases drawn from N(0, 0.5^2) (the padded heads' ``bq``
+    too), over N(0, 1) inputs at distinct (t, h, w) positions
+    (``mrope_positions``): bf16 on the card against the same weights in
+    f32, ||y_bf16 - y_f32|| / ||y_f32|| within ``QWEN2VL_ROPE_TOL``. Four
+    planted faults in the bf16 layer must each land past it: M-RoPE
+    replaced by plain RoPE at the t stream, the t and h sections swapped,
+    the q/k/v biases dropped, and padded head 28's ``wo`` row drawn like
+    a real head's."""
+    H = cfg.num_heads
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    attn = copy.deepcopy(params.layers[0].attn)
+    with torch.no_grad():
+        for n in ("bq", "bk", "bv"):
+            b = getattr(attn, n)
+            b.copy_(0.5 * torch.randn(b.shape, generator=gen, device=DEV))
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=DEV)
+    pos3 = mrope_positions(B, S, DEV)
+    want = _layer_attention(copy.deepcopy(attn).float(), cfg32, x, pos3)
+    x16 = x.to(torch.bfloat16)
+
+    def err(a=attn, c=cfg, pos=pos3) -> float:
+        y = _layer_attention(a, c, x16, pos)
+        if not torch.isfinite(y).all():
+            return float("inf")
+        return ((y - want).norm() / want.norm()).item()
+
+    got = err()
+    no_bias = copy.deepcopy(attn)
+    live = copy.deepcopy(attn)
+    with torch.no_grad():
+        for n in ("bq", "bk", "bv"):
+            getattr(no_bias, n).zero_()
+        std = live.wo[:H].float().std()
+        live.wo[H] = (torch.randn(live.wo[H].shape, generator=gen,
+                                  device=DEV) * std).to(live.wo.dtype)
+    t, h, w = cfg.mrope_sections
+    faults = {
+        "M-RoPE replaced by RoPE": err(
+            c=dataclasses.replace(cfg, rope_mode="standard"), pos=pos3[0]),
+        "t and h sections swapped": err(
+            c=dataclasses.replace(cfg, mrope_sections=(h, t, w))),
+        "q/k/v biases dropped": err(a=no_bias),
+        f"padded head {H}'s wo row drawn": err(a=live)}
+    print(f"{label}: layer 0's attention, {B} rows x {S} at distinct "
+          f"(t, h, w) positions, biases drawn: bf16 vs f32 relative error "
+          f"{got:.4f} (tol {QWEN2VL_ROPE_TOL}); planted faults: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in faults.items()),
+          flush=True)
+    if not got <= QWEN2VL_ROPE_TOL:
+        raise AssertionError(f"{label}: bf16 vs f32 {got} > "
+                             f"{QWEN2VL_ROPE_TOL}")
+    for name, e in faults.items():
+        if not e > QWEN2VL_ROPE_TOL:
+            raise AssertionError(f"{label}: the planted fault '{name}' "
+                                 f"stays within the tolerance ({e} <= "
+                                 f"{QWEN2VL_ROPE_TOL}): the check cannot "
+                                 f"see it")
+
+
+def phase_qwen2vl() -> dict:
+    """check-qwen2vl, then full width (28 layers, d_model 3584, 28 query heads padded to 32 over 4 kv
+    heads of 128, q/k/v biases, SwiGLU d_ff 18944, untied vocab 152064;
+    random bf16 weights from seed 0): serve-qwen2vl (graphed, 4 token
+    prompts of ``QWEN2VL_PROMPTS`` x 32 tokens, warmed on the same
+    requests; its decode stage's p50 and profile), serve-eager-qwen2vl
+    (tokens identical), serve-qwen2vl-chunked (chunk 512),
+    serve-qwen2vl-w8a8 with an int8 KV cache (agreement with the bf16
+    serve >= 0.90) and check-qwen2vl-layers, then check-qwen2vl-rope.
+    Frees the weights; returns the launches of the graphed bf16, chunked
+    and w8a8 serves."""
+    phase_check_qwen2vl()
+    cfg = get_config("qwen2-vl-7b")
+    t0 = time.perf_counter()
+    params = model_mod.init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"init: qwen2-vl-7b full width, "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    trace = lambda: qwen2vl_requests(cfg.vocab_size)
+    serve = dict(engine_kw=QWEN2VL_KW, trace=trace,
+                 ref_label="serve-qwen2vl",
+                 layers_label="check-qwen2vl-layers",
+                 profile_pos=QWEN2VL_DECODE_POS)
+    launches, outputs, eng = phase_serve_padded(
+        cfg, params, "serve-qwen2vl", keep_engine=True, **serve)
+    decode_step_p50("serve-qwen2vl", eng, QWEN2VL_DECODE_POS)
+    phase_serve_eager("serve-eager-qwen2vl", eng, launches, outputs, cfg,
+                      params, engine_kw=QWEN2VL_KW, trace=trace,
+                      decode_pos=QWEN2VL_DECODE_POS, identical=True)
+    del eng
+    _free_card()
+    chunked, _, _ = phase_serve_padded(
+        cfg, params, "serve-qwen2vl-chunked", mono_outputs=outputs,
+        prefill_chunk=512, **serve)
+    _free_card()
+    quant, _, _ = phase_serve_padded(
+        cfg, params, "serve-qwen2vl-w8a8", mono_outputs=outputs,
+        precision="w8a8", **serve)
+    _free_card()
+    check_qwen2vl_rope("check-qwen2vl-rope", cfg, params)
+    del params
+    _free_card()
+    print(f"freed qwen2-vl-7b: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB still allocated", flush=True)
+    return {k: launches[k] + chunked[k] + quant[k]
+            for k in ("flash_attn", "decode_attn", "w8a8_matmul",
+                      "decode_attn_int8")}
 
 
 # ---- recurrentgemma-9b ------------------------------------------------------
@@ -5108,6 +5493,8 @@ def main():
     _free_card()
     print(f"freed gemma-2b: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB still allocated", flush=True)
+    for k, n in phase_qwen2vl().items():
+        launches[k] += n
     launches["flash_attn"] += phase_xlmr()["flash_attn"]
     for k, n in phase_whisper().items():
         launches[k] += n

@@ -6,15 +6,17 @@ head_dim 256 with padded heads; recurrentgemma-9b, RG-LRU recurrent
 blocks between local layers; xlmr-paper, the paper's bidirectional
 encoder with LayerNorm, q/k/v biases and a plain biased GELU MLP, served
 in length buckets; whisper-medium, an encoder over stub frame embeddings
-and a decoder whose layers add cross-attention to the encoder's output);
-the others join with the slices that port their block kinds."""
+and a decoder whose layers add cross-attention to the encoder's output;
+qwen2-vl-7b, M-RoPE over three position streams, q/k/v biases, padded
+heads and token or stub patch-embedding inputs); the others join with
+the slices that port their block kinds."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (deepseek_7b, gemma2_27b, gemma_2b,
-                                 recurrentgemma_9b, whisper_medium,
-                                 xlmr_paper)
+                                 qwen2_vl_7b, recurrentgemma_9b,
+                                 whisper_medium, xlmr_paper)
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
                                       ModelConfig, QuantConfig,
                                       reduce_for_smoke)
@@ -22,7 +24,8 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (deepseek_7b.CONFIG, gemma2_27b.CONFIG,
                         gemma_2b.CONFIG, recurrentgemma_9b.CONFIG,
-                        xlmr_paper.CONFIG, whisper_medium.CONFIG)}
+                        xlmr_paper.CONFIG, whisper_medium.CONFIG,
+                        qwen2_vl_7b.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

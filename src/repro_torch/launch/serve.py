@@ -2,9 +2,11 @@
 deepseek-7b --requests 16`` (or ``--arch gemma2-27b``, local and global
 layers in turn; or ``--arch gemma-2b``, MQA at head_dim 256 with padded
 heads; or ``--arch recurrentgemma-9b``, two RG-LRU recurrent blocks to each
-local one) — continuous-batching LM serving with bucketed batched prefill on
-the card (``--device cpu`` runs the plain versions of
-the kernels on the host). ``--smoke`` (the default) serves the reduced
+local one; or ``--arch qwen2-vl-7b``, M-RoPE, q/k/v biases and 28 query
+heads padded to 32, served on token prompts at its default (t, h, w)
+positions, as the JAX engine serves it) — continuous-batching LM serving
+with bucketed batched prefill on the card (``--device cpu`` runs the
+plain versions of the kernels on the host). ``--smoke`` (the default) serves the reduced
 config; ``--full-config`` the published widths. The request trace is the
 JAX launcher's: the same seeded generator, lengths and priorities.
 ``--arch dlrm`` serves the 4-stage DLRM pipeline on a row-wise int8 slab
@@ -56,6 +58,8 @@ this run's own replayed chunk calls, then checks the chunk is on the
 ladder, at or below the fitted knee and token-identical to chunk 16.
 ``--elastic-smoke`` runs the elastic controller on the fleet simulator
 (no model, no device). ``--service-ms-est`` turns on feasibility shedding.
+The encoder and encoder-decoder paths refuse the LM engine's flags
+(``LM_ONLY_FLAGS``) rather than serve without them.
 """
 from __future__ import annotations
 
@@ -547,7 +551,9 @@ def serve_encoder(args):
     """The encoder half of ``examples/serve_lm_bucketed.py`` on the port:
     the sorted batches are served once to build (and on the card capture)
     each bucket's stage, then again, timed. Returns (the ``EncoderServer``,
-    the timed ``EncodeRun``)."""
+    the timed ``EncodeRun``). Refuses the LM engine's flags
+    (``refuse_lm_flags``)."""
+    refuse_lm_flags(args, "serve_encoder")
     cfg = reduce_for_smoke(get_config(args.arch)) if args.smoke \
         else get_config(args.arch)
     cuda = torch.device(args.device).type == "cuda"
@@ -592,7 +598,9 @@ def serve_encdec(args):
     tokens), ``--new-tokens`` greedy tokens a row, through the two stages
     of ``EncDecServer``; a warm-up batch (seed 0: each stage's first call
     and, on the card, its capture), then a timed one (seed 1). Returns
-    (the server, the timed ``TranscribeRun``)."""
+    (the server, the timed ``TranscribeRun``). Refuses the LM engine's
+    flags (``refuse_lm_flags``)."""
+    refuse_lm_flags(args, "serve_encdec")
     cfg = reduce_for_smoke(get_config(args.arch)) if args.smoke \
         else get_config(args.arch)
     cuda = torch.device(args.device).type == "cuda"
@@ -632,17 +640,41 @@ def _chunk_arg(v: str):
     return v if v == "auto" else int(v)
 
 
-def main(argv=None):
+# the LM engine's flags, which the encoder (``serve_encoder``) and the
+# encoder-decoder (``serve_encdec``) paths do not take
+LM_ONLY_FLAGS = ("--precision", "--verify-quant", "--replicas",
+                 "--replica-precisions", "--prefill-chunk", "--prefix-cache",
+                 "--policy")
+
+
+def refuse_lm_flags(args, path: str) -> None:
+    """Raise ``SystemExit`` naming every flag of ``LM_ONLY_FLAGS`` that
+    ``args`` sets to other than its default: ``path`` would serve without
+    it."""
+    ap = _parser()
+    dest = lambda flag: flag[2:].replace("-", "_")
+    given = [f for f in LM_ONLY_FLAGS
+             if getattr(args, dest(f)) != ap.get_default(dest(f))]
+    if given:
+        raise SystemExit(f"--arch {args.arch} serves through {path}, which "
+                         f"does not take {', '.join(given)} (LM serving "
+                         f"only)")
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b",
-                    help="deepseek-7b, gemma2-27b, gemma-2b or "
-                         "recurrentgemma-9b, xlmr-paper for the bucketed "
+                    help="deepseek-7b, gemma2-27b, gemma-2b, "
+                         "recurrentgemma-9b or qwen2-vl-7b (token prompts "
+                         "at default M-RoPE positions), xlmr-paper for the "
+                         "bucketed "
                          "encoder (--requests sentences, --slots a batch), "
                          "whisper-medium to transcribe (--slots rows, "
                          "--new-tokens a row), or dlrm for "
                          "the recommendation pipeline (--smoke reduces an LM "
-                         "with reduce_for_smoke, which drops gemma-2b's "
-                         "head padding and head_dim 256)")
+                         "with reduce_for_smoke, which drops gemma-2b's and "
+                         "qwen2-vl-7b's head padding and gemma-2b's "
+                         "head_dim 256)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
@@ -721,7 +753,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, or cpu for the "
                          "kernels' plain versions)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     if args.elastic_smoke:
         return elastic_smoke()
     if args.arch == "dlrm":

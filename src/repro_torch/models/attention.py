@@ -2,8 +2,9 @@
 deepseek-7b serving run in ``repro/models/attention.py``: ``global``
 (causal over every position) and ``local`` (a sliding window of
 ``cfg.window_size`` keys, its cache a ring of ``min(window_size, max_len)``
-slots per row), both with the optional logit softcap, and optional q/k/v
-and output biases (XLM-R's); and whisper's cross-attention, a decoder
+slots per row), both with the optional logit softcap, optional q/k/v
+and output biases (XLM-R's, qwen2-vl's), and RoPE or M-RoPE (qwen2-vl's
+three position streams) on q and k; and whisper's cross-attention, a decoder
 query (its bias, no RoPE) over the encoder's frames. Prefill and prefill
 chunks go through the flash kernel, and so do an encoder's non-causal
 attention and a cross-attention's prefill; decode goes through the
@@ -38,7 +39,8 @@ from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.core.quantization import dense_w8a8, is_quantized_dense
 from repro_torch.kernels.decode_attn.ops import decode_attn, decode_attn_int8
 from repro_torch.kernels.flash_attn.ops import flash_attn
-from repro_torch.models.common import apply_rope, dtype_of, mk_param
+from repro_torch.models.common import (apply_mrope, apply_rope, dtype_of,
+                                       mk_param)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -134,6 +136,25 @@ def _head_proj(x: torch.Tensor, w, cfg: ModelConfig) -> torch.Tensor:
     return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
 
 
+def _rope(x: torch.Tensor, positions: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """RoPE as ``cfg.rope_mode`` says: plain at ``positions`` (B,S), or
+    M-RoPE at (t, h, w) position ids (3,B,S)."""
+    if cfg.rope_mode == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
+def _one_stream(positions: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Positions (B,S) of a chunk or a decode step in the form ``_rope``
+    takes: for M-RoPE the one stream broadcast to all three (3,B,S), as
+    the reference's chunk and decode paths do."""
+    if cfg.rope_mode == "mrope":
+        return positions[None].expand((3,) + positions.shape)
+    return positions
+
+
 def _project_q(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                positions: Optional[torch.Tensor]) -> torch.Tensor:
     """The query projection and its bias, then RoPE at ``positions``; a
@@ -144,19 +165,20 @@ def _project_q(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         q = q + p.bq
     if positions is None:
         return q
-    return apply_rope(q, positions, cfg.rope_theta)
+    return _rope(q, positions, cfg)
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
     """The projections, their biases (after the product, before RoPE, as
-    the reference adds them), then RoPE on q and k."""
+    the reference adds them), then RoPE (``cfg.rope_mode``'s) on q and
+    k."""
     q = _project_q(p, x, cfg, positions)
     k = _head_proj(x, p.wk, cfg)
     v = _head_proj(x, p.wv, cfg)
     if hasattr(p, "bk"):
         k, v = k + p.bk, v + p.bv
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg)
     return q, k, v
 
 
@@ -180,7 +202,8 @@ def full_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                    kv_valid: Optional[torch.Tensor] = None, *,
                    kind: str, causal: bool = True):
     """Attention over a whole (right-padded) sequence, causal or (an
-    encoder's) not: x (B,S,d), ``kv_valid`` (B,S) marks real tokens, and no
+    encoder's) not: x (B,S,d) at ``positions`` (B,S), or (3,B,S) for
+    M-RoPE; ``kv_valid`` (B,S) marks real tokens, and no
     query attends a padded key; a local layer sees the last
     ``window_size`` keys. Returns (y (B,S,d), (k, v))."""
     q, k, v = _project_qkv(p, x, cfg, positions)
@@ -294,7 +317,8 @@ def decode_attention(p: Attention, x: torch.Tensor, cache: Cache,
     cache is quantized on the write and read through the int8 decode
     kernel. Returns (y (B,1,d), cache)."""
     B = x.shape[0]
-    q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None])
+    q, k_new, v_new = _project_qkv(p, x, cfg,
+                                   _one_stream(pos[:, None], cfg))
     if rows is not None:
         active = torch.zeros(B, dtype=torch.bool, device=x.device)
         active[rows.to(x.device)] = True
@@ -542,7 +566,8 @@ def chunk_prefill_attention(p: Attention, x: torch.Tensor, cache: Cache,
 
     Every shape is fixed by (P, C), the ring's W and ``cc.dequant_len``."""
     P, C = x.shape[:2]
-    q, k_new, v_new = _project_qkv(p, x, cfg, cc.positions)
+    q, k_new, v_new = _project_qkv(p, x, cfg,
+                                   _one_stream(cc.positions, cfg))
     if kind == ATTN_LOCAL:
         return _chunk_prefill_local(p, q, k_new, v_new, cache, cc, cfg,
                                     x.dtype)

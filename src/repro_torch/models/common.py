@@ -1,6 +1,6 @@
 """Shared model utilities: parameter init, RMSNorm and LayerNorm,
 activations, the logit softcap, the recurrent blocks' causal conv with a
-carried tail, RoPE and vocab padding (counterpart of
+carried tail, RoPE and M-RoPE, and vocab padding (counterpart of
 ``repro/models/common.py``)."""
 from __future__ import annotations
 
@@ -161,6 +161,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     cos, sin = _rope_angles(positions, x.shape[-1], theta)   # (B,S,D/2)
     cos = cos[:, :, None, :]
     sin = sin[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): x (B,S,H,D); positions3 (3,B,S) the (t, h, w)
+    position ids. The D/2 frequencies are split into ``sections`` groups
+    in order, group i rotated by stream i's positions; the split-half
+    convention and the f32 math of ``apply_rope``. With t = h = w it is
+    ``apply_rope`` bit for bit. [arXiv:2409.12191]"""
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    cos_l, sin_l = [], []
+    start = 0
+    for sec, pos in zip(sections, positions3):
+        cos, sin = _rope_angles(pos, head_dim, theta)          # (B,S,D/2)
+        cos_l.append(cos[..., start:start + sec])
+        sin_l.append(sin[..., start:start + sec])
+        start += sec
+    cos = torch.cat(cos_l, dim=-1)[:, :, None, :]
+    sin = torch.cat(sin_l, dim=-1)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -1,10 +1,11 @@
 """Model assembly for the port: an LM (embedding, a stack of global, local
 and recurrent blocks in the order of ``cfg.layer_kinds()``, final norm,
-greedy head) — the path deepseek-7b, gemma2-27b, gemma-2b and
-recurrentgemma-9b serving run in ``repro/models/model.py`` — the XLM-R
-encoder (``cfg.family == "encoder"``: the same stack, non-causal, with
-LayerNorm, q/k/v biases and a plain biased MLP), whose hidden states mode
-'full' gives, and whisper's encoder-decoder (``cfg.encdec``): a
+greedy head) — the path deepseek-7b, gemma2-27b, gemma-2b,
+recurrentgemma-9b and qwen2-vl-7b (M-RoPE; tokens, or stub patch
+embeddings in their place) serving run in ``repro/models/model.py`` — the
+XLM-R encoder (``cfg.family == "encoder"``: the same stack, non-causal,
+with LayerNorm, q/k/v biases and a plain biased MLP), whose hidden states
+mode 'full' gives, and whisper's encoder-decoder (``cfg.encdec``): a
 non-causal encoder over stub frame embeddings (``encode``), then a decoder
 of ``decoder`` blocks whose cross-attention reads each layer's keys and
 values of the encoder's output (``build_cross_kv``). The JAX package
@@ -37,12 +38,10 @@ def check_supported(cfg: ModelConfig) -> None:
                                            RECURRENT},
         "mixture of experts": cfg.moe is not None,
         "SSM blocks": cfg.ssm is not None,
-        "M-RoPE": cfg.rope_mode != "standard",
-        # an enc-dec model's encoder takes frame embeddings and its decoder
-        # tokens; a model whose tokens are embeddings (qwen2-vl's) is not
-        # ported yet
-        "embedding inputs": cfg.input_kind != "tokens" and not (
-            cfg.encdec is not None and cfg.input_kind == "embeddings"),
+        # tokens, or stub embeddings in their place (an enc-dec model's
+        # encoder frames, qwen2-vl's patches)
+        f"embedding inputs of kind {cfg.input_kind!r}":
+            cfg.input_kind not in ("tokens", "embeddings"),
     }
     missing = [name for name, used in unsupported.items() if used]
     if missing:
@@ -179,6 +178,36 @@ def _write_cross(caches, cross, rows: torch.Tensor) -> None:
             {"k": c["cross_k"], "v": c["cross_v"]}, k, v, rows, ATTN_GLOBAL)
 
 
+def _default_positions(cfg: ModelConfig, B: int, S: int,
+                      device) -> torch.Tensor:
+    """Positions 0..S-1 of every row, (B,S); for M-RoPE the same in each of
+    the (t, h, w) streams, (3,B,S) (the reference's
+    ``_default_positions``)."""
+    pos = torch.arange(S, device=device).expand(B, S)
+    if cfg.rope_mode == "mrope":
+        pos = pos[None].expand(3, B, S)
+    return pos
+
+
+def _embed_inputs(params: Model, cfg: ModelConfig,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The stack's input (B,S,d): ``batch["embeds"]`` (B,S,d) for a config
+    of ``input_kind == "embeddings"`` that is given them (cast to the
+    activation dtype, times ``embedding_multiplier`` rounded to that dtype
+    where set), else the embedded ``batch["tokens"]`` (B,S) (the
+    reference's ``_embed_inputs``)."""
+    device = model_device(params)
+    if cfg.input_kind == "embeddings" and "embeds" in batch:
+        x = batch["embeds"].to(device=device,
+                               dtype=dtype_of(cfg.activation_dtype))
+        if cfg.embedding_multiplier:
+            x = x * torch.tensor(cfg.embedding_multiplier, dtype=x.dtype,
+                                 device=device)
+        return x
+    return vocab_mod.embed_lookup(params.embed, batch["tokens"].to(device),
+                                  cfg)
+
+
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, mode: str, caches: Optional[List[attn_mod.Cache]],
             pos: Optional[torch.Tensor] = None,
@@ -190,6 +219,13 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     Every shape follows the inputs' shapes (none follows their values), and
     nothing waits on the device, so a serving stage built on it can be
     captured as a CUDA graph.
+
+    The batch holds 'tokens' (B,S), or (a config of ``input_kind ==
+    "embeddings"``) 'embeds' (B,S,d) in their place (``_embed_inputs``);
+    in modes 'full' and 'prefill' it may hold 'positions', (B,S) or (3,B,S)
+    for M-RoPE, else they are ``_default_positions``. Chunks and decode
+    steps take their positions from their offsets (one stream, broadcast
+    to all three for M-RoPE), as the reference's do.
 
     mode 'full': batch {'tokens' (B,S)}, over every position (causal, but
     not for an encoder config, as in the reference), no caches (pass None;
@@ -216,13 +252,14 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     frame: the reference's ``decode_step`` passes no ``enc_valid``.
     """
     device = model_device(params)
-    tokens = batch["tokens"].to(device)
-    x = vocab_mod.embed_lookup(params.embed, tokens, cfg)
-    B, S = tokens.shape
+    x = _embed_inputs(params, cfg, batch)
+    B, S = x.shape[:2]
     positions = rows = None
     causal = cfg.family != "encoder"
     if mode in ("full", "prefill"):
-        positions = torch.arange(S, device=device).expand(B, S)
+        positions = batch.get("positions")
+        positions = _default_positions(cfg, B, S, device) \
+            if positions is None else positions.to(device)
         if kv_valid is not None:
             kv_valid = kv_valid.to(device)
     if mode == "full":
@@ -277,10 +314,10 @@ def head_table(params: Model, cfg: ModelConfig) -> torch.Tensor:
 
 def prefill(params: Model, cfg: ModelConfig, batch, max_len: int,
             kv_valid=None):
-    """Run the prompt into fresh caches; returns (last hidden (B,d),
-    caches). An enc-dec batch's ``enc_embeds`` sets the caches' encoder
-    frames, and its cross K/V comes back in them."""
-    B = batch["tokens"].shape[0]
+    """Run the prompt (tokens, or embeds) into fresh caches; returns (last
+    hidden (B,d), caches). An enc-dec batch's ``enc_embeds`` sets the
+    caches' encoder frames, and its cross K/V comes back in them."""
+    B = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[0]
     enc = batch.get("enc_embeds")
     caches = init_caches(cfg, B, max_len, model_device(params),
                          enc_len=None if enc is None else enc.shape[1])
@@ -315,10 +352,11 @@ def chunk_prefill_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
                 caches, pos, active=None):
-    """One decode step: tokens (B,1) at per-row positions ``pos`` (B,).
-    Returns (last hidden (B,d), caches)."""
-    x, caches = forward(params, cfg, {"tokens": tokens}, mode="decode",
-                        caches=caches, pos=pos, active=active)
+    """One decode step: tokens (B,1), or embeds (B,1,d), at per-row
+    positions ``pos`` (B,). Returns (last hidden (B,d), caches)."""
+    batch = {"tokens": tokens} if tokens.dim() == 2 else {"embeds": tokens}
+    x, caches = forward(params, cfg, batch, mode="decode", caches=caches,
+                        pos=pos, active=active)
     return x[:, -1], caches
 
 

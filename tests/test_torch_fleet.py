@@ -304,11 +304,13 @@ def _decisions(c):
             for d in c.decisions]
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 82, 187])
+@pytest.mark.parametrize("seed", [0, 1, 2, 82, 187, 7015])
 def test_controller_decides_like_the_reference(seed):
     """The same decision log and outcome as the frozen reference
     controller, at seeds where the reference keeps its last fp32 replica
-    (0, 1, 2) and at two where it drains it (82, 187; ROADMAP C)."""
+    (0, 1, 2) and at three where it drains it (82, 187, and 7015, the
+    failing example the reference's property test replays first; ROADMAP
+    C)."""
     sim, c, m = _last_fp32_run("port", seed)
     jsim, jc, jm = _last_fp32_run("jax", seed)
     assert _decisions(c) == _decisions(jc)
@@ -324,7 +326,22 @@ def test_scale_down_never_burns_last_fp32_at_seed_82():
     """The reference's invariant, held on the port at a seed where both
     controllers break it: deterministic, so the known defect stays
     visible until the reference is fixed."""
-    sim, c, m = _last_fp32_run("port", 82)
+    _hold_last_fp32(82)
+
+
+@pytest.mark.xfail(strict=True, reason="ROADMAP C, 'An unsteady JAX "
+                   "test': at seed 7015, the failing example the "
+                   "reference's property test replays first, the copied "
+                   "controller, like the reference's, scales down the last "
+                   "fp32 replica of a mixed fleet")
+def test_scale_down_never_burns_last_fp32_at_seed_7015():
+    """The same invariant at the seed the reference's saved example
+    holds."""
+    _hold_last_fp32(7015)
+
+
+def _hold_last_fp32(seed):
+    sim, c, m = _last_fp32_run("port", seed)
     assert c.scale_downs >= 1
     assert len(sim.router.fp32_alive) >= 1
     assert all(d.replica != 0 for d in c.decisions if d.action == "down")

@@ -272,13 +272,13 @@ def test_full_config_builds_at_full_width():
 
 @pytest.mark.parametrize("feature,kw", [
     ("mixture of experts", "moe"), ("SSM blocks", "ssm"),
-    ("embedding inputs", {"input_kind": "embeddings"}),
-    ("M-RoPE", {"rope_mode": "mrope"}),
+    ("block kinds other than global", {"block_pattern": ("ssm",)}),
+    ("embedding inputs", {"input_kind": "video"}),
     ("embedding inputs", {"input_kind": "embeds"})])
 def test_other_features_still_refused(feature, kw):
-    """Embedding inputs pass only with an encoder-decoder (whisper's
-    encoder takes frame embeddings): a decoder whose tokens are embeddings
-    (qwen2-vl's) is refused."""
+    """Inputs pass as tokens or as stub ``embeddings`` (whisper's encoder
+    frames, qwen2-vl's patches); any other input kind is refused, as are
+    an ``ssm`` block pattern, MoE and SSM blocks."""
     if isinstance(kw, str):          # a config that has the feature
         arch = {"moe": "dbrx-132b", "ssm": "mamba2-130m"}[kw]
         cfg = dataclasses.replace(reduce_for_smoke(get_config("xlmr-paper")),
@@ -287,6 +287,16 @@ def test_other_features_still_refused(feature, kw):
         cfg = dataclasses.replace(reduce_for_smoke(get_config("xlmr-paper")),
                                   **kw)
     with pytest.raises(NotImplementedError, match=feature):
+        model_mod.check_supported(cfg)
+
+
+def test_qwen2_vl_7b_passes_check_supported():
+    """M-RoPE and embedding inputs in a decoder-only model, at full width
+    and in smoke."""
+    for cfg in (get_config("qwen2-vl-7b"),
+                reduce_for_smoke(get_config("qwen2-vl-7b"))):
+        assert cfg.rope_mode == "mrope" and cfg.input_kind == "embeddings"
+        assert cfg.encdec is None
         model_mod.check_supported(cfg)
 
 
