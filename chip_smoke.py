@@ -83,6 +83,17 @@ result line):
              4608; 36864 -> 4608) at M 4 and 2048, each on the split-K or
              the TMA kernel (the device window must name it, not the
              fallback kernel), bit for bit, timed beside ``torch._int_mm``.
+2b. profile-mamba2 — right after the kernel phase, in a process of its
+             own (``--profile-mamba2``: the same window taken in this
+             process after the kernel phase lost a marker kernel every
+             time): full-width mamba2-130m's 4 x 4096 eager prefill
+             call (lens 4096, 3900, 2100, 300) and 8 replays of a graphed
+             4-slot decode stage in one window, each call between two
+             marker kernels (every marker must be in the trace): the
+             prefill's device time and the ``ssm`` (mixers) and ``ssd``
+             (scans) spans' shares, the step's device time and activities,
+             each beside its bound (the prefill's products at 989 TFLOP/s,
+             the step's weights and state bytes at 3.35 TB/s).
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``, its stages
              captured as CUDA graphs (the card's default): 8 requests, 32
@@ -308,6 +319,40 @@ result line):
              window 2048) and chunk (4 x 512 over a gathered 2048 + 512-key
              ring) and decode on a 2048-slot ring at G 16, hd 256, each
              timed beside SDPA with a boolean mask.
+6c''. check-mamba2, check-mamba2-block, serve-mamba2, serve-eager-mamba2,
+             serve-mamba2-chunked, serve-mamba2-long — after
+             recurrentgemma-9b: mamba2-130m, Mamba2 SSD mixer blocks alone
+             (no attention, no MLP; no kernel of the port lies on its path,
+             and every kernel's launch counter must stay 0 through its
+             serves). check-mamba2: ``reduce_mamba2`` in f32 (d_state 16,
+             heads of 16, chunk 32) and a bf16 cut at the published SSM
+             dims (2 layers of d_model 256, d_state 128, heads of 64, chunk
+             256), ``A_log``, ``D``, ``dt_bias``, ``conv_b``,
+             ``norm_scale`` and the norms drawn nonzero (``draw_ssm``):
+             modes full and prefill and 4 decode steps card vs host (2e-3
+             elementwise in f32, a relative 2e-2 in bf16), graphed ==
+             eager tokens, chunked (8, 16) == monolithic, a prefix hit ==
+             cold, snapshot -> restore bit for bit, paging and migration
+             token-identical (f32), chunk 256 vs monolithic >= 0.95 (bf16).
+             Then full width (24 layers, d_model 768, d_inner 1536 in 24
+             heads of 64, d_state 128, tied vocab 50280 padded to 50432;
+             129.10 M random bf16 weights from seed 0, ``draw_ssm``'s
+             leaves drawn): check-mamba2-block holds the first 4 layers in
+             bf16 against their f32 copy on the card (rows of 1024, 700,
+             257 and 1 tokens, then 8 decode steps, monolithic and in
+             chunks of 512) within ``SSM_BLOCK_TOL`` of what the layers
+             add, the conv taps reversed, the state zeroed between decode
+             steps, ``h0`` dropped in chunk steps and the pads' dt unmasked
+             each past it. serve-mamba2: 4 slots, max_len 4608, buckets to
+             4096, graphed and warmed on the same requests, 8 prompts
+             (4096, 3900, 2100, 300 and 4 of 17-200) x 32 tokens: tok/s,
+             TTFT, the decode stage's p50, the peak memory and the state's
+             bytes; its eager twin (tokens identical); chunk 512
+             (agreement printed); serve-mamba2-long: one prompt of 32,736
+             tokens and three of 300 at max_len 32768, monolithic (bucket
+             32768) and chunked at 2048: the state's bytes equal
+             serve-mamba2's, the long prompt's TTFT and the decode p50
+             printed.
 6d. check-gemma2 — gemma2-27b cut to
              4 layers (local, global, local, global) of d_model 256, head_dim
              128, G 2, window 64, both softcaps (``reduce_gemma2``), in f32
@@ -443,6 +488,7 @@ from repro_torch.models import dlrm as dlrm_mod  # noqa: E402
 from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models import rglru as rglru_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.core.quantization import QuantDense  # noqa: E402
 from repro_torch.models.quantize import (  # noqa: E402
     QuantizedParams, build_quantized_params)
@@ -1289,19 +1335,33 @@ def wide_group_cases() -> dict:
                                  (16, 256, 2, bf16))}
 
 
+# a profiler trace that came back without device activities it must hold
+# (an empty trace, a lost marker kernel) is taken again, this many times at
+# most: one of two runs of this script on one card came back with one
+# kernel-phase trace empty
+TRACE_TRIES = 3
+
+
 def kernel_times(fn, iters: int = 10) -> dict:
     """The device kernels a call of ``fn`` launches: name -> mean device
     microseconds a call, from one ``torch.profiler`` trace of ``iters``
-    calls."""
+    calls (an empty trace taken again, ``TRACE_TRIES`` traces at most)."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.device_time_total / iters for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    for _ in range(TRACE_TRIES):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: e.device_time_total / iters
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        if out:
+            break
+        print("kernel_times: the trace holds no device activity; taken "
+              "again", flush=True)
+    return out
 
 
 def _template_args(kernel: str) -> list:
@@ -1803,14 +1863,44 @@ def phase_kernels() -> dict:
     return main
 
 
+def marked_window(calls, before=None):
+    """Run ``calls`` in one ``torch.profiler`` window, each (after
+    ``before()``, if given) between two marker kernels
+    (``torch.cuda._sleep``'s ``spin_kernel``): kernels launched through
+    ctypes or replayed from a graph carry no PyTorch op to attribute them
+    to, so the markers say which call a device activity belongs to.
+    A window that lost a marker is taken again, ``TRACE_TRIES`` windows at
+    most. Returns (the trace, its device activities in start order, the
+    (first, second) marker index of each call), the last None when every
+    window lost a marker."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(TRACE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for fn in calls:
+                if before is not None:
+                    before()
+                torch.cuda._sleep(100)
+                fn()
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not e.is_user_annotation),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if len(marks) == 2 * len(calls):
+            return prof, events, list(zip(marks[::2], marks[1::2]))
+        print(f"marked window: {len(marks)} marker kernels in the trace, "
+              f"{2 * len(calls)} launched", flush=True)
+    return prof, events, None
+
+
 def device_window(fns: dict, iters: int = 10, routes=None) -> None:
     """Device time of one call of each of ``fns`` (a name -> callable; None
-    is skipped), from one ``torch.profiler`` window. Each call follows an
-    L2 flush and sits between two marker kernels (``torch.cuda._sleep``'s
-    ``spin_kernel``); its time is the sum of the device activities between
-    its two markers. (Kernels launched through ctypes carry no PyTorch op
-    to attribute them to, so the markers, not ``record_function``, say
-    which call a kernel belongs to.) ``routes``: a name of ``fns`` -> (a
+    is skipped), from one ``marked_window``: each call follows an L2 flush,
+    and its time is the sum of the device activities between its two
+    markers. ``routes``: a name of ``fns`` -> (a
     kernel name its calls must run, one they must not); the window must
     then be read, and each such call's kernels are printed."""
     routes = routes or {}
@@ -1819,30 +1909,15 @@ def device_window(fns: dict, iters: int = 10, routes=None) -> None:
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for fn in fns.values():
-            for _ in range(iters):
-                flush.zero_()
-                torch.cuda._sleep(100)
-                fn()
-                torch.cuda._sleep(100)
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and not e.is_user_annotation),
-                    key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-    if len(marks) != 2 * iters * len(fns):
-        print(f"device time per call: not measured ({len(marks)} marker "
-              f"kernels in the trace, {2 * iters * len(fns)} launched)",
-              flush=True)
+    _, events, pairs = marked_window(
+        [fn for fn in fns.values() for _ in range(iters)], flush.zero_)
+    if pairs is None:
+        print("device time per call: not measured (marker kernels missing "
+              "from the trace)", flush=True)
         if routes:
             raise AssertionError(f"device window unread: the kernels of "
                                  f"{sorted(routes)} cannot be checked")
         return
-    pairs = list(zip(marks[::2], marks[1::2]))
     times = [sum(e.time_range.elapsed_us() for e in events[a + 1:b]) / 1e3
              for a, b in pairs]
     for i, name in enumerate(fns):
@@ -2312,10 +2387,11 @@ def _prefix_trace(vocab, n=6, shared_len=24):
             for i, L in enumerate(rng.integers(4, 14, n))]
 
 
-def _check_identical(label: str, got, want) -> None:
-    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
-    if bad or len(got) != len(want):
-        raise AssertionError(f"check-chunked: {label}: requests {bad} differ")
+def _identical(label: str, what: str, got, want) -> None:
+    """Raises unless two runs' outputs are token for token the same."""
+    div = _first_divergence(got, want)
+    if div is not None or len(got) != len(want):
+        raise AssertionError(f"{label}: {what}: tokens differ: {div}")
 
 
 def _check_round_trip(small, card, kw, n: int = 16,
@@ -2340,11 +2416,58 @@ def _check_round_trip(small, card, kw, n: int = 16,
                 raise AssertionError(f"{label}: {k} row did not "
                                      f"round-trip bit for bit")
     st = eng.transfer_stats
-    dtype = next(c["k"].dtype for c in eng.caches if "k" in c)
+    kv = [c["k"].dtype for c in eng.caches if "k" in c]
+    dtype = kv[0] if kv else eng.caches[0]["conv"].dtype
     print(f"{label}: {dtype} cache, snapshot -> restore bit for bit "
           f"({src.bytes_partial} of {src.bytes_full} row bytes shipped; "
           f"{st.num_transfers_batched} batched copies for "
           f"{st.num_transfers_naive} tensors)", flush=True)
+
+
+def _check_paging_and_migration(label: str, small, card, ckw) -> None:
+    """On the card, chunked engines of ``ckw``: host paging (6 sessions on
+    2 slots) token-identical to a 6-slot engine, every page-out faulted
+    back in; mid-prefill migration (tickets exported after one chunk and
+    adopted by a second engine) token-identical to an unmigrated
+    engine."""
+    lens = (40, 5, 9, 30, 3, 12)
+    sessions = lambda: [Request(i, np.random.default_rng(9 + i).integers(
+        0, small.vocab_size, n).astype(np.int32), max_new_tokens=6)
+        for i, n in enumerate(lens)]
+    ref = _outputs(InferenceEngine(small, card, device=DEV,
+                                   **dict(ckw, batch_slots=6)), sessions())
+    paged = InferenceEngine(small, card, page_host=True, device=DEV,
+                            **dict(ckw, batch_slots=2))
+    _identical(label, "paging vs 6 slots", _outputs(paged, sessions()),
+               ref)
+    tel = paged.telemetry
+    if not tel.paged_out or tel.paged_in != tel.paged_out:
+        raise AssertionError(f"{label}: paged out {tel.paged_out}, "
+                             f"in {tel.paged_in}")
+    print(f"{label}: host paging, 6 sessions on 2 slots token-identical to "
+          f"6 slots ({tel.paged_out} paged out and in)", flush=True)
+    ref = _outputs(InferenceEngine(small, card, device=DEV, **ckw),
+                   sessions())
+    victim, thief = (InferenceEngine(small, card, device=DEV, **ckw)
+                     for _ in range(2))
+    got = sessions()
+    for r in got:
+        victim.submit(r)
+    victim.step_once()
+    stolen = victim.scheduler.steal_pending(
+        3, eligible=victim.migration_eligible, include_continuations=True)
+    for t in stolen:
+        thief.adopt_prefill(t, victim.export_prefill(t))
+    thief.scheduler.absorb(stolen, record=False)
+    while victim.has_work or thief.has_work:
+        for eng in (victim, thief):
+            if eng.has_work:
+                eng.step_once()
+    if not stolen:
+        raise AssertionError(f"{label}: no mid-prefill ticket migrated")
+    _identical(label, "migration", [r.output for r in got], ref)
+    print(f"{label}: migration, {len(stolen)} mid-prefill tickets "
+          f"exported and adopted, outputs token-identical", flush=True)
 
 
 def phase_check_chunked():
@@ -2366,7 +2489,8 @@ def phase_check_chunked():
         eng = InferenceEngine(small, card, prefill_chunk=chunk, device=DEV,
                               **kw)
         got = _outputs(eng, trace())
-        _check_identical(f"chunk {chunk} vs monolithic", got, mono)
+        _identical("check-chunked", f"chunk {chunk} vs monolithic", got,
+                   mono)
         on_host = _outputs(InferenceEngine(small, host, prefill_chunk=chunk,
                                            device="cpu", **kw), trace())
         agree = token_agreement(zip(got, on_host))
@@ -2382,7 +2506,7 @@ def phase_check_chunked():
     warm = InferenceEngine(small, card, prefix_cache=16, device=DEV, **ckw)
     warm.run(_prefix_trace(small.vocab_size))
     warm.telemetry.reset_serving_stats()
-    _check_identical("prefix hits vs cold", _outputs(
+    _identical("check-chunked", "prefix hits vs cold", _outputs(
         warm, _prefix_trace(small.vocab_size)), cold)
     if warm.telemetry.prefix_hits == 0:
         raise AssertionError("check-chunked: no prefix hit on the replay")
@@ -2391,43 +2515,7 @@ def phase_check_chunked():
           f"engine", flush=True)
     _check_round_trip(small, card, kw)
     _check_round_trip(_int8_kv(small), card, kw)
-    lens = (40, 5, 9, 30, 3, 12)
-    sessions = lambda: [Request(i, np.random.default_rng(9 + i).integers(
-        0, small.vocab_size, n).astype(np.int32), max_new_tokens=6)
-        for i, n in enumerate(lens)]
-    ref = _outputs(InferenceEngine(small, card, device=DEV,
-                                   **dict(ckw, batch_slots=6)), sessions())
-    paged = InferenceEngine(small, card, page_host=True, device=DEV,
-                            **dict(ckw, batch_slots=2))
-    _check_identical("paging vs 6 slots", _outputs(paged, sessions()), ref)
-    tel = paged.telemetry
-    if not tel.paged_out or tel.paged_in != tel.paged_out:
-        raise AssertionError(f"check-chunked: paged out {tel.paged_out}, "
-                             f"in {tel.paged_in}")
-    print(f"check-chunked: host paging, 6 sessions on 2 slots token-identical "
-          f"to 6 slots ({tel.paged_out} paged out and in)", flush=True)
-    ref = _outputs(InferenceEngine(small, card, device=DEV, **ckw),
-                   sessions())
-    victim, thief = (InferenceEngine(small, card, device=DEV, **ckw)
-                     for _ in range(2))
-    got = sessions()
-    for r in got:
-        victim.submit(r)
-    victim.step_once()
-    stolen = victim.scheduler.steal_pending(
-        3, eligible=victim.migration_eligible, include_continuations=True)
-    for t in stolen:
-        thief.adopt_prefill(t, victim.export_prefill(t))
-    thief.scheduler.absorb(stolen, record=False)
-    while victim.has_work or thief.has_work:
-        for eng in (victim, thief):
-            if eng.has_work:
-                eng.step_once()
-    if not stolen:
-        raise AssertionError("check-chunked: no mid-prefill ticket migrated")
-    _check_identical("migration", [r.output for r in got], ref)
-    print(f"check-chunked: migration, {len(stolen)} mid-prefill tickets "
-          f"exported and adopted, outputs token-identical", flush=True)
+    _check_paging_and_migration("check-chunked", small, card, ckw)
     small = _int8_kv(reduce_hd128(get_config("deepseek-7b")))
     host = model_mod.init_params(small, seed=0, device="cpu")
     qp = build_quantized_params(small, host)
@@ -3451,10 +3539,10 @@ def phase_check_qwen2vl() -> None:
         _free_card()
 
 
-def decode_step_p50(label: str, eng, pos, steps: int = 32) -> None:
+def decode_step_p50(label: str, eng, pos, steps: int = 32) -> float:
     """Wall time to completion (its tokens on the host) of ``steps``
     decode stage calls of ``eng`` at 4 rows from ``pos`` onward, one call
-    at a time: p50 and p99."""
+    at a time: p50 and p99 printed, the p50 returned."""
     run = eng.executor.get("decode", (eng.precision,), eng._build_decode)
     B = eng.batch_slots
     pos = np.array(pos[:B], np.int32)
@@ -3471,6 +3559,7 @@ def decode_step_p50(label: str, eng, pos, steps: int = 32) -> None:
           f"{np.percentile(times, 50):.3f} ms, p99 "
           f"{np.percentile(times, 99):.3f} ms over {steps} calls",
           flush=True)
+    return float(np.percentile(times, 50))
 
 
 def _layer_attention(attn, cfg, x, positions) -> torch.Tensor:
@@ -3888,6 +3977,601 @@ def phase_recurrentgemma() -> dict:
           flush=True)
     return {k: launches[k] + chunked[k] for k in ("flash_attn",
                                                    "decode_attn")}
+
+
+# ---- mamba2-130m ------------------------------------------------------------
+
+# 4 slots of 4608 positions; a slot's state (each of the 24 layers' SSD
+# ``state`` in f32 and its conv tail, 19.13 MB) does not depend on max_len;
+# the bucket ladder reaches the longest prompt
+MAMBA2_KW = dict(batch_slots=4, max_len=4608,
+                 prefill_buckets=(128, 256, 512, 1024, 2048, 4096),
+                 device=DEV)
+MAMBA2_DECODE_POS = (4000, 3500, 2100, 300)
+# serve-mamba2-long: one prompt of 32,736 tokens and three of 300 at
+# max_len 32768 (the engine prefills min(length, max_len - 33) tokens of
+# each: 32,735 of the long one, in the 32768 bucket)
+MAMBA2_LONG_KW = dict(batch_slots=4, max_len=32768,
+                      prefill_buckets=(512, 2048, 32768), device=DEV)
+MAMBA2_LONG_LENS = (32736, 300, 300, 300)
+# check-mamba2-block: the error over what the first 4 layers add, bf16 on
+# the card against f32 on the card, fixed before the first run on the card
+# (PERF.md: 0.0132 read, the planted faults 0.1492-1.2595; H100 80GB HBM3,
+# 700 W; this script)
+SSM_BLOCK_TOL = 0.05
+SSM_FAULTS = {"taps": "conv taps reversed",
+              "state": "state zeroed between decode steps",
+              "h0": "h0 dropped in chunk steps",
+              "dt": "pad tokens' dt unmasked"}
+
+
+def draw_ssm(params, seed: int) -> None:
+    """Draw in place, from a seeded generator on the parameters' device,
+    the leaves that init leaves at 0 or 1 (where a port that dropped one
+    agrees with one that keeps it): each ssm layer's ``A_log`` (A in [1,
+    16]) and ``dt_bias`` (softplus of it in [0.001, 0.1], log-uniform;
+    Mamba2's init ranges), ``D`` (about 1), ``conv_b`` and ``norm_scale``
+    (about 0), and every norm's scale (about 0)."""
+    dev = model_mod.model_device(params)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, t in params.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            u = torch.rand(t.shape, generator=gen, device=dev)
+            n = torch.randn(t.shape, generator=gen, device=dev)
+            if leaf == "A_log":
+                v = u * float(np.log(16.0))
+            elif leaf == "dt_bias":
+                dt = torch.exp(float(np.log(1e-3)) + u * float(np.log(100.0)))
+                v = dt + torch.log(-torch.expm1(-dt))
+            elif leaf == "D":
+                v = 1.0 + 0.5 * n
+            elif leaf in ("conv_b", "norm_scale", "scale"):
+                v = 0.3 * n
+            else:
+                continue
+            t.copy_(v.to(t.dtype))
+
+
+def reduce_mamba2(dtype: str):
+    """check-mamba2's configs: in f32 ``reduce_for_smoke`` (2 layers of
+    d_model 64, d_inner 128 in 8 heads of 16, d_state 16, chunk 32); in
+    bf16 2 layers of d_model 256 at the published SSM dims (d_inner 512 in
+    8 heads of 64, d_state 128, chunk 256). Vocab 256, tied."""
+    cfg = get_config("mamba2-130m")
+    small = reduce_for_smoke(cfg)
+    if dtype == "float32":
+        return small
+    return dataclasses.replace(small, d_model=256, ssm=cfg.ssm,
+                               param_dtype=dtype, activation_dtype=dtype)
+
+
+def _mamba2_hidden(params, cfg, toks, valid, steps, max_len: int):
+    """Through the model layer: mode 'full' over ``toks`` (B,S), a prefill
+    of the same (``valid`` (B,S) marking the real tokens) into fresh
+    caches, then one decode step of each of ``steps`` ((B,1) tokens) at
+    each row's next position. Returns the real tokens' hidden states of
+    both passes, the decode steps' (n,B,d) and the final caches, on the
+    host (f32 but the caches)."""
+    dev = model_mod.model_device(params)
+    valid = valid.to(dev)
+    batch = {"tokens": toks.to(dev)}
+    lens = valid.sum(-1).to(torch.int32)
+    with torch.inference_mode():
+        full, _ = model_mod.forward(params, cfg, batch, mode="full",
+                                    caches=None)
+        caches = model_mod.init_caches(cfg, toks.shape[0], max_len, dev)
+        pre, caches = model_mod.forward(params, cfg, batch, mode="prefill",
+                                        caches=caches, kv_valid=valid)
+        hs = []
+        for i, step in enumerate(steps):
+            h, caches = model_mod.decode_step(params, cfg, step.to(dev),
+                                              caches, lens + i)
+            hs.append(h)
+    return (full[valid].float().cpu(), pre[valid].float().cpu(),
+            torch.stack(hs).float().cpu(),
+            [{k: t.cpu() for k, t in c.items()} for c in caches])
+
+
+def phase_check_mamba2() -> None:
+    """check-mamba2 on ``reduce_mamba2`` in f32 and bf16, ``draw_ssm``'s
+    leaves drawn: modes full and prefill over right-padded rows (f32: 64,
+    45, 17 and 1 tokens in a bucket of 64, two SSD chunks; bf16: 600, 300,
+    77 and 1 in a bucket of 768, three chunks), then 4 decode steps, card
+    against host (``_hold_hidden``: 2e-3 elementwise in f32, a relative
+    2e-2 in bf16; the SSD state likewise). Then engines on the card:
+    graphed == eager tokens (monolithic and chunked) in both; in f32
+    chunked (8, 16) == monolithic tokens, a prefix hit == a cold engine,
+    snapshot -> restore bit for bit (the state moves whole), host paging
+    and mid-prefill migration token-identical; in bf16 chunk 256 vs
+    monolithic greedy agreement >= 0.95."""
+    for dtype, lens, bucket in (("float32", (64, 45, 17, 1), 64),
+                                ("bfloat16", (600, 300, 77, 1), 768)):
+        cfg = reduce_mamba2(dtype)
+        dt = dtype_of(dtype)
+        host = model_mod.init_params(cfg, seed=1, device="cpu")
+        draw_ssm(host, seed=2)
+        card = copy.deepcopy(host).to(DEV)
+        B = len(lens)
+        gen = torch.Generator().manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (B, bucket), generator=gen,
+                             dtype=torch.int32)
+        valid = torch.arange(bucket)[None, :] < torch.tensor(lens)[:, None]
+        steps = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                               dtype=torch.int32) for _ in range(4)]
+        args = (toks, valid, steps, bucket + 8)
+        got, want = (_mamba2_hidden(m, cfg, *args) for m in (card, host))
+        label = f"check-mamba2[{dtype}]"
+        held = [_hold_hidden(f"{label} {what}", g, w, dt)
+                for what, g, w in zip(("full", "prefill", "decode"), got,
+                                      want)]
+        state = _hold_hidden(f"{label} state", torch.stack(
+            [c["state"] for c in got[3]]), torch.stack(
+            [c["state"] for c in want[3]]), dt)
+        print(f"{label}: {cfg.num_layers} ssm layers of d_model "
+              f"{cfg.d_model}, {cfg.ssm.num_heads(cfg.d_model)} heads of "
+              f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk "
+              f"{cfg.ssm.chunk_size}; rows of {list(lens)} tokens in a "
+              f"bucket of {bucket}, card vs host: full {held[0]}, prefill "
+              f"{held[1]}, 4 decode steps {held[2]}, final state {state} "
+              f"(tol {TOL[dt]})", flush=True)
+        if dtype == "float32":
+            kw = dict(batch_slots=3, max_len=128, prefill_buckets=(16, 32,
+                                                                   64))
+            trace = lambda: _requests(6, 3, 60, 8, cfg.vocab_size, seed=3)
+            chunks = (8, 16)
+        else:
+            kw = dict(batch_slots=3, max_len=1024,
+                      prefill_buckets=(256, 512, 768))
+            trace = lambda: _requests(6, 40, 700, 8, cfg.vocab_size, seed=3)
+            chunks = (256,)
+        mono = _outputs(InferenceEngine(cfg, card, device=DEV, **kw),
+                        trace())
+        for chunk in chunks:
+            eng = InferenceEngine(cfg, card, prefill_chunk=chunk, device=DEV,
+                                  **kw)
+            out = _outputs(eng, trace())
+            agree = token_agreement(zip(out, mono))
+            div = _first_divergence(out, mono)
+            print(f"{label}: chunk {chunk} vs monolithic greedy-token "
+                  f"agreement {agree:.4f} "
+                  f"({'tokens identical' if div is None else div}; "
+                  f"{eng.telemetry.continuations} continuations)",
+                  flush=True)
+            if (dtype == "float32" and div is not None) or agree < 0.95:
+                raise AssertionError(f"{label}: chunk {chunk} vs monolithic:"
+                                     f" {div}, agreement {agree}")
+        for chunk in (None, chunks[-1]):
+            engs = [InferenceEngine(cfg, card, prefill_chunk=chunk,
+                                    cuda_graphs=graphs, device=DEV, **kw)
+                    for graphs in (True, False)]
+            where = f"chunk {chunk}" if chunk else "monolithic"
+            _identical(label, f"{where} graphed vs eager",
+                       *(_outputs(e, trace()) for e in engs))
+            print(f"{label}: {where}: 6 requests token-identical graphed "
+                  f"and eager; final caches max abs difference "
+                  f"{_cache_diff(*engs):.3e}", flush=True)
+        if dtype != "float32":
+            continue
+        ckw = dict(kw, prefill_chunk=8)
+        cold = _outputs(InferenceEngine(cfg, card, device=DEV, **ckw),
+                        _prefix_trace(cfg.vocab_size))
+        warm = InferenceEngine(cfg, card, prefix_cache=16, device=DEV, **ckw)
+        warm.run(_prefix_trace(cfg.vocab_size))
+        warm.telemetry.reset_serving_stats()
+        _identical(label, "prefix hits vs cold",
+                   _outputs(warm, _prefix_trace(cfg.vocab_size)), cold)
+        if not warm.telemetry.prefix_hits:
+            raise AssertionError(f"{label}: no prefix hit on the replay")
+        print(f"{label}: prefix cache, 6 requests replayed with "
+              f"{warm.telemetry.prefix_hits} hits, token-identical to a "
+              f"cold engine", flush=True)
+        _check_round_trip(cfg, card, kw, n=40, label=label)
+        _check_paging_and_migration(label, cfg, card, ckw)
+        del host, card
+        _free_card()
+
+
+def _ssm_run(blocks, cfg, x0, valid, steps, chunk=None, fault=None):
+    """A prefill of ``x0`` (B,S,d), real where ``valid`` (B,S), through the
+    ssm ``blocks`` into fresh caches of ``cfg`` (whose layers are those
+    blocks): in one call, or with ``chunk`` in chunk steps of that many
+    tokens; then one decode step of each input of ``steps`` ((B,1,d)).
+    ``fault`` (a key of ``SSM_FAULTS``) is planted for the run: the conv
+    taps reversed, the state zeroed between decode steps, the entering
+    state ``h0`` zeroed before every chunk step, or the pad tokens' dt
+    left unmasked. Returns (the prefill's output at the real tokens, the
+    decode outputs (n,B,d)), f32 on the host."""
+    dev = x0.device
+    B, S = valid.shape
+    lens = valid.sum(-1).to(torch.int32)
+    ssms = [b.ssm for b in blocks]
+    saved = [m.conv_w.detach().clone() for m in ssms]
+    chunk_step, mask_pads = ssm_mod.ssm_chunk_step, ssm_mod._mask_pads
+
+    def h0_dropped(p, x, cache, slots, start, lengths):
+        cache["state"][slots.long()] = 0.0
+        return chunk_step(p, x, cache, slots, start, lengths)
+
+    with torch.inference_mode():
+        try:
+            if fault == "taps":
+                for m in ssms:
+                    m.conv_w.copy_(m.conv_w.flip(0))
+            elif fault == "h0":
+                ssm_mod.ssm_chunk_step = h0_dropped
+            elif fault == "dt":
+                ssm_mod._mask_pads = lambda dt, valid: dt
+            caches = model_mod.init_caches(cfg, B, S + len(steps), dev)
+            rows = torch.arange(B, device=dev)
+            if chunk is None:
+                x = x0
+                for b, c in zip(blocks, caches):
+                    x = blk_mod.apply_block(b, x, cfg, mode="prefill",
+                                            cache=c, kv_valid=valid,
+                                            rows=rows)
+            else:
+                parts = []
+                for s0 in range(0, S, chunk):
+                    n = (lens - s0).clamp(0, chunk)
+                    cc = types.SimpleNamespace(
+                        kv_rows=rows.to(torch.int32),
+                        q_off=torch.full_like(lens, s0), lens=s0 + n)
+                    x = x0[:, s0:s0 + chunk]
+                    for b, c in zip(blocks, caches):
+                        x = blk_mod.apply_block(b, x, cfg, mode="chunk",
+                                                cache=c, chunk=cc)
+                    parts.append(x)
+                x = torch.cat(parts, dim=1)
+            outs = []
+            for i, y in enumerate(steps):
+                if fault == "state" and i:
+                    for c in caches:
+                        c["state"].zero_()
+                for b, c in zip(blocks, caches):
+                    y = blk_mod.apply_block(b, y, cfg, mode="decode",
+                                            cache=c, pos=lens + i)
+                outs.append(y[:, 0])
+        finally:
+            ssm_mod.ssm_chunk_step, ssm_mod._mask_pads = chunk_step, \
+                mask_pads
+            for m, w in zip(ssms, saved):
+                m.conv_w.copy_(w)
+        return x[valid].float().cpu(), torch.stack(outs).float().cpu()
+
+
+def check_ssm_block(label: str, cfg, params, layers: int = 4,
+                    lens=(1024, 700, 257, 1), steps: int = 8,
+                    chunk: int = 512) -> None:
+    """The first ``layers`` ssm layers of ``params`` run two ways from the
+    same weights and inputs: in the model's type, and in f32 (a copy cast
+    up), both on ``DEV``. The inputs are the embedded tokens of rows of
+    ``lens`` real tokens (right-padded), then ``steps`` decode steps of
+    one token; the model's type runs monolithic and in chunk steps of
+    ``chunk``, f32 monolithic. The greedy agreement of a served model
+    cannot show a broken layer, so the error is ||out - out_f32|| /
+    ||out_f32 - in||, the layers' output error over what they add, the
+    largest of the prefill's (its real tokens) and the decode steps' in
+    either mode, held to ``SSM_BLOCK_TOL``. Each planted fault of
+    ``SSM_FAULTS`` must leave it in one mode at least."""
+    ucfg = dataclasses.replace(cfg, num_layers=layers)
+    blocks = list(params.layers[:layers])
+    if any(b.kind != "ssm" for b in blocks):
+        raise AssertionError(f"{label}: the first layers are "
+                             f"{[b.kind for b in blocks]}")
+    B, S = len(lens), max(lens)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    with torch.inference_mode():
+        emb = vocab_mod.embed_lookup(params.embed, toks, cfg)
+    lens_t = torch.tensor(lens, device=DEV)
+    valid = torch.arange(S, device=DEV)[None, :] < lens_t[:, None]
+    x0, xs = emb[:, :S], [emb[:, S + i:S + i + 1] for i in range(steps)]
+    fcfg = dataclasses.replace(ucfg, param_dtype="float32",
+                               activation_dtype="float32")
+    f32 = [copy.deepcopy(b).to(dtype=torch.float32) for b in blocks]
+    want = _ssm_run(f32, fcfg, x0.float(), valid, [x.float() for x in xs])
+    del f32
+    base = (x0[valid].float().cpu(),
+            torch.stack([x[:, 0] for x in xs]).float().cpu())
+
+    def errs(fault=None) -> dict:
+        """{mode: (prefill, decode) error over what the layers add}."""
+        out = {}
+        for mode, ch in (("monolithic", None), (f"chunk {chunk}", chunk)):
+            got = _ssm_run(blocks, ucfg, x0, valid, xs, ch, fault)
+            out[mode] = tuple(((g - w).norm() / (w - b).norm()).item()
+                              if torch.isfinite(g).all() else float("inf")
+                              for g, w, b in zip(got, want, base))
+        return out
+
+    parts = errs()
+    got = max(max(v) for v in parts.values())
+    faults = {name: max(max(v) for v in errs(key).values())
+              for key, name in SSM_FAULTS.items()}
+    if errs() != parts:
+        raise AssertionError(f"{label}: the layers' output changed after "
+                             f"the planted faults were undone")
+    print(f"{label}: {layers} ssm layers of d_model {cfg.d_model}, {B} rows "
+          f"of {list(lens)} tokens then {steps} decode steps; "
+          f"{params.embed.dtype} vs f32 on {DEV}: error over what the "
+          f"layers add {got:.4f} (" + "; ".join(
+              f"{m} prefill {p:.4f}, decode {d:.4f}"
+              for m, (p, d) in parts.items())
+          + f"; tol {SSM_BLOCK_TOL}); planted faults: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in faults.items()), flush=True)
+    if not got <= SSM_BLOCK_TOL:
+        raise AssertionError(f"{label}: error {got} > {SSM_BLOCK_TOL}")
+    for name, e in faults.items():
+        if not e > SSM_BLOCK_TOL:
+            raise AssertionError(f"{label}: the planted fault '{name}' "
+                                 f"stays within the tolerance ({e} <= "
+                                 f"{SSM_BLOCK_TOL}): the check cannot see "
+                                 f"it")
+
+
+def mamba2_requests(vocab: int):
+    """The mamba2 serve phases' traffic: 8 prompts x 32 new tokens, long
+    and short in turn: 4096, 3900, 2100 and 300 tokens, and 4 of 17-200."""
+    rng = np.random.default_rng(0)
+    lens = np.stack([[4096, 3900, 2100, 300],
+                     rng.integers(17, 201, 4)], 1).reshape(-1)
+    return [Request(i, rng.integers(0, vocab, int(L)).astype(np.int32),
+                    max_new_tokens=32) for i, L in enumerate(lens)]
+
+
+def _state_bytes(eng) -> int:
+    return sum(t.numel() * t.element_size() for c in eng.caches
+               for t in c.values())
+
+
+def _require_no_launch(label: str, launches: dict) -> None:
+    """Nothing of a mamba2 path routes through attention or w8a8: every
+    kernel's counter stays 0."""
+    ran = {k: n for k, n in launches.items() if n}
+    if ran or flash_attn.noncausal_launches:
+        raise AssertionError(f"{label}: kernels launched: {ran}, non-causal "
+                             f"flash {flash_attn.noncausal_launches}")
+
+
+def phase_serve_mamba2(cfg, params, label="serve-mamba2", mono_outputs=None,
+                       **kw):
+    """Full-width mamba2-130m serving in bf16, graphed and warmed on the
+    same requests (every stage key captured before the measured run); with
+    ``prefill_chunk`` in ``kw``, chunked. No kernel launches. Prints the
+    state's bytes and the decode stage's p50; a chunked serve's agreement
+    with ``mono_outputs`` is printed, not held (near-flat logits of random
+    full-width weights). Returns (launches, outputs, the engine, the
+    decode stage's p50 ms)."""
+    trace = lambda: mamba2_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = InferenceEngine(cfg, params, **MAMBA2_KW, **kw)
+    launches, outputs = _serve(eng, cfg, label, base, trace=trace,
+                               warm=trace, model=cfg.name)
+    _require_no_launch(label, launches)
+    nbytes = _state_bytes(eng)
+    print(f"{label}: state {nbytes} bytes for {eng.batch_slots} slots "
+          f"({nbytes / eng.batch_slots / 1e6:.2f} MB a slot, whatever "
+          f"max_len); every kernel's launches 0", flush=True)
+    p50 = decode_step_p50(label, eng, MAMBA2_DECODE_POS)
+    if mono_outputs is not None:
+        agree = token_agreement(zip(outputs, mono_outputs))
+        div = _first_divergence(outputs, mono_outputs)
+        print(f"{label}: greedy-token agreement with serve-mamba2 "
+              f"{agree:.4f} ({'tokens identical' if div is None else div}; "
+              f"printed, not held)", flush=True)
+    return launches, outputs, eng, p50
+
+
+def phase_serve_mamba2_long(cfg, params, state_bytes: int,
+                            step_p50: float) -> None:
+    """serve-mamba2-long: ``MAMBA2_LONG_LENS`` x 32 new tokens at max_len
+    32768, monolithic (the long prompt alone in the 32768 bucket, 128 SSD
+    chunks) and chunked at 2048, each graphed and warmed on the same
+    requests: all served, 32 tokens each, no kernel launched, the state's
+    bytes those of serve-mamba2 (the state does not grow with the
+    context). Prints the long prompt's TTFT (submit to its first token
+    on the host) and the decode stage's p50 beside serve-mamba2's."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+               for L in MAMBA2_LONG_LENS]
+    trace = lambda: [Request(i, p, max_new_tokens=32)
+                     for i, p in enumerate(prompts)]
+    for chunk in (None, 2048):
+        label = "serve-mamba2-long" + (f" chunk {chunk}" if chunk else "")
+        torch.cuda.reset_peak_memory_stats()
+        eng = InferenceEngine(cfg, params, prefill_chunk=chunk,
+                              **MAMBA2_LONG_KW)
+        eng.run(trace())
+        eng.telemetry.reset_serving_stats()
+        reqs = trace()
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ttft = None
+        for r in reqs:
+            eng.submit(r)
+        while eng.has_work:
+            eng.step_once()
+            if ttft is None and reqs[0].output:
+                ttft = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in LAUNCHERS.items()}
+        _require_no_launch(label, launches)
+        bad = [r.rid for r in reqs if len(r.output) != 32]
+        if bad or eng.telemetry.served != len(reqs):
+            raise AssertionError(f"{label}: requests {bad} did not get 32 "
+                                 f"tokens ({eng.telemetry.served} served)")
+        nbytes = _state_bytes(eng)
+        if nbytes != state_bytes:
+            raise AssertionError(f"{label}: state {nbytes} bytes at max_len "
+                                 f"32768, serve-mamba2's {state_bytes}")
+        p50 = decode_step_p50(label, eng, (32700, 300, 300, 300))
+        print(f"{label}: prompts {[len(p) for p in prompts]} (the long one "
+              f"prefilled to {eng._prefill_len(reqs[0])}); served "
+              f"{eng.telemetry.served}/{len(reqs)} x 32 tokens in "
+              f"{wall:.3f} s, the long prompt's TTFT {ttft:.2f} ms; state "
+              f"{nbytes} bytes, equal to serve-mamba2's at max_len 4608; "
+              f"decode stage p50 {p50:.3f} ms (serve-mamba2's "
+              f"{step_p50:.3f}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{_graph_counts(eng)}", flush=True)
+        del eng
+        _free_card()
+
+
+def init_mamba2():
+    """Full-width mamba2-130m (24 ssm layers, d_model 768, tied vocab 50280
+    padded to 50432; random bf16 weights from seed 0, ``draw_ssm``'s
+    leaves drawn from seed 1)."""
+    cfg = get_config("mamba2-130m")
+    t0 = time.perf_counter()
+    params = model_mod.init_params(cfg, seed=0, device=DEV)
+    draw_ssm(params, seed=1)
+    torch.cuda.synchronize()
+    print(f"init: mamba2-130m full width, "
+          f"{sum(p.numel() for p in params.parameters()) / 1e6:.2f} M "
+          f"params, {torch.cuda.memory_allocated() / 2**30:.3f} GiB, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, params
+
+
+def _ssd_flops(B: int, S: int, cfg) -> float:
+    """The SSD's products in a prefill of B rows of S tokens, as the port
+    computes them (chunks of ``chunk_size``, or one chunk): C.B once a
+    chunk (shared by the heads), the decay-weighted product with x, the
+    chunk states and their readout."""
+    s = cfg.ssm
+    h, p, n = s.num_heads(cfg.d_model), s.head_dim, s.d_state
+    ch = min(s.chunk_size, S)
+    ch = ch if S % ch == 0 else S
+    per_chunk = 2 * (ch * ch * n + h * ch * ch * p + 2 * h * ch * p * n)
+    return float(per_chunk * (S // ch) * B * cfg.num_layers)
+
+
+# the argument that runs profile-mamba2 alone, in a process of its own
+PROFILE_MAMBA2_ARG = "--profile-mamba2"
+
+
+def phase_profile_mamba2() -> None:
+    """profile-mamba2 in a process of its own (``python3 chip_smoke.py
+    --profile-mamba2``): its window, taken in this process after the
+    kernel phase, came back with 17 of its 18 markers in each of four
+    tries, and read whole as a fresh process's first window."""
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    PROFILE_MAMBA2_ARG], check=True, timeout=900)
+
+
+def profile_mamba2() -> None:
+    """profile-mamba2: in one ``marked_window``, a 4 x 4096 prefill call
+    (lens 4096,
+    3900, 2100, 300) through the model layer, eagerly, and 8 replays of a
+    graphed decode stage of 4 slots; the window must hold every marker.
+    Prints the prefill's device time and the ``ssm`` (mixers) and ``ssd``
+    (scans) spans' shares of it, and the decode step's device time and
+    device activities, each beside its bound: the prefill's products (the
+    projections and the SSD) at 989 TFLOP/s, the step's bytes (the
+    weights and 4 slots' state read and written) at 3.35 TB/s."""
+    cfg, params = init_mamba2()
+    label = "profile-mamba2"
+    lens = (4096, 3900, 2100, 300)
+    B, S = len(lens), max(lens)
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    lens_t = torch.tensor(lens, device=DEV)
+    valid = torch.arange(S, device=DEV)[None, :] < lens_t[:, None]
+    caches = model_mod.init_caches(cfg, B, MAMBA2_KW["max_len"], DEV)
+    eng = InferenceEngine(cfg, params, **MAMBA2_KW)
+    run = eng.executor.get("decode", (eng.precision,), eng._build_decode)
+    step_in = {"tokens": np.zeros((B, 1), np.int32),
+               "pos": np.array(MAMBA2_DECODE_POS, np.int32),
+               "active": np.ones(B, bool)}
+    run(step_in)                        # the eager warm-up, then the capture
+    run(step_in)
+    replay = run.variants[None].graph.replay
+
+    @torch.inference_mode()
+    def prefill():
+        x, _ = model_mod.forward(params, cfg, {"tokens": toks},
+                                 mode="prefill", caches=caches,
+                                 kv_valid=valid)
+        return model_mod.greedy_next(
+            params, cfg, x[torch.arange(B, device=DEV), lens_t - 1])
+
+    prefill()
+    replay()
+    torch.cuda.synchronize()
+    steps = 8
+    calls = [prefill] + [replay] * steps
+    prof, events, pairs = marked_window(calls)
+    if pairs is None:
+        raise AssertionError(f"{label}: the window lost marker kernels, and "
+                             f"with them device activities")
+    ms = [sum(e.time_range.elapsed_us() for e in events[a + 1:b]) / 1e3
+          for a, b in pairs]
+    count = [b - a - 1 for a, b in pairs]
+    spans, ssm_ms = _span_ms(prof, ssm_mod.SSM_SPAN)
+    scans, ssd_ms = _span_ms(prof, ssm_mod.SSD_SPAN)
+    if spans != cfg.num_layers or scans != cfg.num_layers or not ssm_ms:
+        raise AssertionError(f"{label}: {spans} ssm and {scans} ssd spans "
+                             f"({ssm_ms:.3f} ms) for {cfg.num_layers} layers")
+    proj = sum(m.numel() for b in params.layers
+               for m in (b.ssm.in_proj, b.ssm.out_proj))
+    head = 2.0 * B * params.embed.numel()      # the greedy head, last tokens
+    flops = 2.0 * B * S * proj + _ssd_flops(B, S, cfg) + head
+    wbytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    pre_bound, pre_by = bound(flops, wbytes, torch.bfloat16)
+    sbytes = _state_bytes(eng)
+    step_bound, step_by = bound(2.0 * B * proj + head, wbytes + 2 * sbytes,
+                                torch.bfloat16)
+    step_ms = sum(ms[1:]) / steps
+    print(f"{label}: eager prefill {B}x{S} (lens {list(lens)}): device "
+          f"{ms[0]:.3f} ms over {count[0]} activities (bound "
+          f"{pre_bound:.3f} ms by {pre_by}: {flops / 1e12:.3f} TFLOP, of "
+          f"which the SSD {_ssd_flops(B, S, cfg) / 1e12:.3f}; "
+          f"{ms[0] / pre_bound:.1f}x); the ssm spans {ssm_ms:.3f} ms "
+          f"({100 * ssm_ms / ms[0]:.1f}%), the ssd spans {ssd_ms:.3f} ms "
+          f"({100 * ssd_ms / ms[0]:.1f}%)", flush=True)
+    print(f"{label}: graphed decode step, {B} rows: device {step_ms:.4f} ms "
+          f"(min {min(ms[1:]):.4f}) over {count[1]} activities (bound "
+          f"{step_bound:.4f} ms by {step_by}: {wbytes / 1e9:.4f} GB of "
+          f"weights, {sbytes / 1e6:.2f} MB of state read and written; "
+          f"{step_ms / step_bound:.1f}x); all {2 * len(calls)} markers in "
+          f"the window", flush=True)
+    del eng, caches, params
+    _free_card()
+
+
+def phase_mamba2() -> None:
+    """check-mamba2, then full-width mamba2-130m (``init_mamba2``):
+    check-mamba2-block on its first 4 layers, serve-mamba2,
+    serve-eager-mamba2, serve-mamba2-chunked (512), serve-mamba2-long.
+    No kernel runs on its path; frees the weights."""
+    phase_check_mamba2()
+    cfg, params = init_mamba2()
+    check_ssm_block("check-mamba2-block", cfg, params)
+    _free_card()
+    launches, outputs, eng, p50 = phase_serve_mamba2(cfg, params)
+    nbytes = _state_bytes(eng)
+    phase_serve_eager("serve-eager-mamba2", eng, launches, outputs, cfg,
+                      params, engine_kw=MAMBA2_KW,
+                      trace=lambda: mamba2_requests(cfg.vocab_size),
+                      decode_pos=MAMBA2_DECODE_POS, identical=True)
+    del eng
+    _free_card()
+    _, _, eng, _ = phase_serve_mamba2(cfg, params, "serve-mamba2-chunked",
+                                      outputs, prefill_chunk=512)
+    del eng
+    _free_card()
+    phase_serve_mamba2_long(cfg, params, nbytes, p50)
+    del params
+    _free_card()
+    print(f"freed mamba2-130m: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB still allocated", flush=True)
 
 
 # ---- XLM-R ----------------------------------------------------------------
@@ -5424,12 +6108,16 @@ def main():
     SMS = torch.cuda.get_device_properties(0).multi_processor_count
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == [PROFILE_MAMBA2_ARG]:
+        profile_mamba2()
+        return
     print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     phase_build()
     phase_host_link()
     main_path = phase_kernels()
+    phase_profile_mamba2()
     cfg = get_config("deepseek-7b")
     t0 = time.perf_counter()
     params = model_mod.init_params(cfg, seed=0, device=DEV)
@@ -5500,6 +6188,7 @@ def main():
         launches[k] += n
     for k, n in phase_recurrentgemma().items():
         launches[k] += n
+    phase_mamba2()
     phase_check_gemma2()
     g2cfg = get_config("gemma2-27b")
     t0 = time.perf_counter()

@@ -8,24 +8,25 @@ encoder with LayerNorm, q/k/v biases and a plain biased GELU MLP, served
 in length buckets; whisper-medium, an encoder over stub frame embeddings
 and a decoder whose layers add cross-attention to the encoder's output;
 qwen2-vl-7b, M-RoPE over three position streams, q/k/v biases, padded
-heads and token or stub patch-embedding inputs); the others join with
-the slices that port their block kinds."""
+heads and token or stub patch-embedding inputs; mamba2-130m, Mamba2 SSD
+mixer blocks alone, whose per-slot state is constant in the context
+length); the others join with the slices that port their block kinds."""
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (deepseek_7b, gemma2_27b, gemma_2b,
-                                 qwen2_vl_7b, recurrentgemma_9b,
+                                 mamba2_130m, qwen2_vl_7b, recurrentgemma_9b,
                                  whisper_medium, xlmr_paper)
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
-                                      ModelConfig, QuantConfig,
+                                      SSM, ModelConfig, QuantConfig,
                                       reduce_for_smoke)
 
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (deepseek_7b.CONFIG, gemma2_27b.CONFIG,
                         gemma_2b.CONFIG, recurrentgemma_9b.CONFIG,
                         xlmr_paper.CONFIG, whisper_medium.CONFIG,
-                        qwen2_vl_7b.CONFIG)}
+                        qwen2_vl_7b.CONFIG, mamba2_130m.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -37,4 +38,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ATTN_GLOBAL", "ATTN_LOCAL", "ModelConfig", "QuantConfig",
-           "RECURRENT", "get_config", "reduce_for_smoke"]
+           "RECURRENT", "SSM", "get_config", "reduce_for_smoke"]

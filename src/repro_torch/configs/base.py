@@ -50,6 +50,12 @@ class SSMConfig:
     head_dim: int = 64
     chunk_size: int = 256
 
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
 
 @dataclass(frozen=True)
 class RecurrentConfig:

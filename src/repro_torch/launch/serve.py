@@ -4,7 +4,10 @@ layers in turn; or ``--arch gemma-2b``, MQA at head_dim 256 with padded
 heads; or ``--arch recurrentgemma-9b``, two RG-LRU recurrent blocks to each
 local one; or ``--arch qwen2-vl-7b``, M-RoPE, q/k/v biases and 28 query
 heads padded to 32, served on token prompts at its default (t, h, w)
-positions, as the JAX engine serves it) — continuous-batching LM serving
+positions, as the JAX engine serves it; or ``--arch mamba2-130m``, Mamba2
+SSD mixer blocks alone, whose per-slot state is constant in the context
+length, on no CUDA kernel: its path has no attention and, with
+``--precision w8a8``, zero int8 sites) — continuous-batching LM serving
 with bucketed batched prefill on the card (``--device cpu`` runs the
 plain versions of the kernels on the host). ``--smoke`` (the default) serves the reduced
 config; ``--full-config`` the published widths. The request trace is the
@@ -665,8 +668,9 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b",
                     help="deepseek-7b, gemma2-27b, gemma-2b, "
-                         "recurrentgemma-9b or qwen2-vl-7b (token prompts "
-                         "at default M-RoPE positions), xlmr-paper for the "
+                         "recurrentgemma-9b, qwen2-vl-7b (token prompts "
+                         "at default M-RoPE positions) or mamba2-130m (SSD "
+                         "blocks; w8a8 builds 0 sites), xlmr-paper for the "
                          "bucketed "
                          "encoder (--requests sentences, --slots a batch), "
                          "whisper-medium to transcribe (--slots rows, "

@@ -1,11 +1,13 @@
-"""Residual blocks of the global, local, recurrent and decoder kinds: a
-pre-norm mixer (attention, or the RG-LRU for ``recurrent``) then a pre-norm
-MLP, each output normed again before its residual add when
+"""Residual blocks of the global, local, recurrent, ssm and decoder kinds:
+a pre-norm mixer (attention, or the RG-LRU for ``recurrent``) then a
+pre-norm MLP, each output normed again before its residual add when
 ``cfg.post_attn_norm`` is set (gemma2's sandwich norms); a ``decoder``
 block (whisper's) puts a pre-norm cross-attention to the encoder's output
-between its causal self-attention and its MLP. Every norm is the one
-``cfg.norm_type`` names (RMSNorm, or LayerNorm) — the attention, recurrent
-and decoder paths of ``repro/models/blocks.py``."""
+between its causal self-attention and its MLP; an ``ssm`` block (Mamba2's)
+is the pre-norm mixer and its residual add alone, with no MLP half. Every
+norm is the one ``cfg.norm_type`` names (RMSNorm, or LayerNorm) — the
+attention, recurrent, ssm and decoder paths of
+``repro/models/blocks.py``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -14,13 +16,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, \
-    ModelConfig
+    SSM, ModelConfig
 
 # an enc-dec model's decoder layer: global self-attention, cross-attention
 # to the encoder's output, MLP (the reference's kind of the same name)
 DECODER = "decoder"
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import dtype_of, make_norm
 from repro_torch.models.mlp import MLP, apply_mlp
 
@@ -32,14 +35,17 @@ class Block(nn.Module):
         self.kind = kind
         dt = dtype_of(cfg.param_dtype)
         self.pre_norm = make_norm(cfg, dt, device)
+        if kind == SSM:
+            self.ssm = ssm_mod.SSM(cfg, gen, device)
+            return                          # a Mamba2 block: mixer only
         if kind == RECURRENT:
             self.rec = rglru_mod.RGLRU(cfg, gen, device)
         elif kind in (ATTN_GLOBAL, ATTN_LOCAL, DECODER):
             self.attn = attn.Attention(cfg, gen, device)
         else:
             raise ValueError(f"block kind must be {ATTN_GLOBAL!r}, "
-                             f"{ATTN_LOCAL!r}, {RECURRENT!r} or {DECODER!r}, "
-                             f"got {kind!r}")
+                             f"{ATTN_LOCAL!r}, {RECURRENT!r}, {SSM!r} or "
+                             f"{DECODER!r}, got {kind!r}")
         if kind == DECODER:
             self.xattn_norm = make_norm(cfg, dt, device)
             self.xattn = attn.Attention(cfg, gen, device)
@@ -62,6 +68,18 @@ def _recurrent(p: Block, h: torch.Tensor, mode: str, cache, kv_valid, rows,
     return rglru_mod.rglru_forward(
         p.rec, h, valid=kv_valid, cache=cache if mode == "prefill" else None,
         rows=rows)
+
+
+def _ssm(p: Block, h: torch.Tensor, mode: str, cache, kv_valid, rows, chunk,
+         active) -> torch.Tensor:
+    if mode == "decode":
+        return ssm_mod.ssm_decode_step(p.ssm, h, cache, active=active)
+    if mode == "chunk":
+        return ssm_mod.ssm_chunk_step(p.ssm, h, cache, chunk.kv_rows,
+                                      chunk.q_off, chunk.lens - chunk.q_off)
+    return ssm_mod.ssm_forward(p.ssm, h, valid=kv_valid,
+                               cache=cache if mode == "prefill" else None,
+                               rows=rows)
 
 
 def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
@@ -94,6 +112,8 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                          "per-slot chunk contract")
     akind = ATTN_GLOBAL if kind == DECODER else kind
     h = p.pre_norm(x, cfg.norm_eps)
+    if kind == SSM:                         # no post-norm, no MLP half
+        return x + _ssm(p, h, mode, cache, kv_valid, rows, chunk, active)
     if kind == RECURRENT:
         y = _recurrent(p, h, mode, cache, kv_valid, rows, chunk, active)
     elif mode == "decode":

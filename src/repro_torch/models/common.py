@@ -146,6 +146,14 @@ def tail_at_lengths(seq: torch.Tensor, lengths: torch.Tensor, k: int,
     return torch.gather(full, 1, idx)
 
 
+def write_rows(cache, new, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """A recurrent layer's exit state into its cache, in place:
+    ``cache[name][dst[j]] = new[name][src[j]]``, one fixed-shape index
+    write per leaf (repeated entries write equal values)."""
+    for name, val in new.items():
+        cache[name][dst] = val[src].to(cache[name].dtype)
+
+
 def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
     """positions (..., S) -> cos/sin (..., S, head_dim//2), f32."""
     half = head_dim // 2

@@ -1,8 +1,9 @@
-"""Model assembly for the port: an LM (embedding, a stack of global, local
-and recurrent blocks in the order of ``cfg.layer_kinds()``, final norm,
-greedy head) — the path deepseek-7b, gemma2-27b, gemma-2b,
-recurrentgemma-9b and qwen2-vl-7b (M-RoPE; tokens, or stub patch
-embeddings in their place) serving run in ``repro/models/model.py`` — the
+"""Model assembly for the port: an LM (embedding, a stack of global, local,
+recurrent and ssm blocks in the order of ``cfg.layer_kinds()``, final
+norm, greedy head) — the path deepseek-7b, gemma2-27b, gemma-2b,
+recurrentgemma-9b, qwen2-vl-7b (M-RoPE; tokens, or stub patch embeddings
+in their place) and mamba2-130m (Mamba2 SSD blocks alone) serving run in
+``repro/models/model.py`` — the
 XLM-R encoder (``cfg.family == "encoder"``: the same stack, non-causal,
 with LayerNorm, q/k/v biases and a plain biased MLP), whose hidden states
 mode 'full' gives, and whisper's encoder-decoder (``cfg.encdec``): a
@@ -22,10 +23,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
-                                      ModelConfig)
+                                      SSM, ModelConfig)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import dtype_of, make_norm, mk_param
 from repro_torch.sharding import vocab as vocab_mod
 
@@ -33,11 +35,10 @@ from repro_torch.sharding import vocab as vocab_mod
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a config that uses a feature the port does not have yet."""
     unsupported = {
-        "block kinds other than global, local and recurrent":
+        "block kinds other than global, local, recurrent and ssm":
             not set(cfg.block_pattern) <= {ATTN_GLOBAL, ATTN_LOCAL,
-                                           RECURRENT},
+                                           RECURRENT, SSM},
         "mixture of experts": cfg.moe is not None,
-        "SSM blocks": cfg.ssm is not None,
         # tokens, or stub embeddings in their place (an enc-dec model's
         # encoder frames, qwen2-vl's patches)
         f"embedding inputs of kind {cfg.input_kind!r}":
@@ -104,14 +105,16 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     """One preallocated cache dict per layer: K/V for an attention layer, a
     ring of ``min(window_size, max_len)`` slots for a local one (int8
     values and fp16 scales when ``cfg.quant.kv_cache_dtype == "int8"``);
-    ``h`` and ``conv`` for a recurrent layer (``rglru.init_rglru_cache``,
-    whatever the KV cache's format). An enc-dec config's decoder layer
+    ``h`` and ``conv`` for a recurrent layer (``rglru.init_rglru_cache``),
+    ``state`` and ``conv`` for an ssm layer (``ssm.init_ssm_cache``),
+    whatever the KV cache's format. An enc-dec config's decoder layer
     holds a global layer's K/V and, for the ``enc_len`` frames of the
     encoder's output, ``cross_k`` and ``cross_v`` (B, enc_len, K, hd) in
     the activation dtype, which prefill fills in place (a captured decode
     reads them where they are)."""
-    caches = [rglru_mod.init_rglru_cache(cfg, batch, device)
-              if kind == RECURRENT
+    state = {RECURRENT: rglru_mod.init_rglru_cache,
+             SSM: ssm_mod.init_ssm_cache}
+    caches = [state[kind](cfg, batch, device) if kind in state
               else attn_mod.init_kv_cache(cfg, batch, max_len, device, kind)
               for kind in cfg.layer_kinds()]
     if cfg.encdec is not None:
@@ -131,11 +134,11 @@ def cache_extents(cfg: ModelConfig, caches
     """(positions a global layer's row holds, slots a local layer's ring
     holds) of ``init_caches``' caches, None for a kind the model has no
     layer of: the bounds of a chunk call's writes (``chunk_writes``), read
-    here by the engine and by ``chunk_prefill_step`` alike. A recurrent
-    layer's state has no positions and bounds nothing."""
+    here by the engine and by ``chunk_prefill_step`` alike. A recurrent or
+    ssm layer's state has no positions and bounds nothing."""
     extent = {kind: c["k"].shape[1]
               for c, kind in zip(caches, cfg.layer_kinds())
-              if kind != RECURRENT}
+              if kind in (ATTN_GLOBAL, ATTN_LOCAL)}
     return extent.get(ATTN_GLOBAL), extent.get(ATTN_LOCAL)
 
 

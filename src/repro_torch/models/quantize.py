@@ -12,7 +12,10 @@ position's ``repeats`` copies in one array; the port has one module per
 layer, so a scan site here groups the layers ``r * len(unit) + i``: one
 decision for all of them, its error the max over them, and a fall-back
 moves all of them back to the fp weight together. deepseek-7b has 7
-sites, not 210. Embeddings, norms and the LM head stay fp.
+sites, not 210. Embeddings, norms, the LM head and the RG-LRU and SSM
+mixers stay fp (the reference's skip-list), so a model of ssm layers alone
+(mamba2-130m) has no site: its build decides nothing and serves the fp
+weights.
 
 The workflow quantizes every site, measures end-to-end top-1 token
 disagreement against the fp model on a calibration batch, and while the

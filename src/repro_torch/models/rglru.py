@@ -24,7 +24,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (causal_conv_with_carry, dtype_of,
-                                       mk_param, tail_at_lengths)
+                                       mk_param, tail_at_lengths,
+                                       write_rows)
 
 N_BLOCKS = 8        # block-diagonal gate projections
 LRU_C = 8.0         # RG-LRU temperature constant
@@ -132,14 +133,6 @@ def _take_rows(src: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return src[b, (lengths.long() - 1).clamp(min=0)]
 
 
-def _write_rows(cache: State, new: State, src: torch.Tensor,
-                dst: torch.Tensor) -> None:
-    """cache[name][dst[j]] = new[name][src[j]] in place, one fixed-shape
-    index write per leaf (repeated entries write equal values)."""
-    for name, val in new.items():
-        cache[name][dst] = val[src].to(cache[name].dtype)
-
-
 def rglru_forward(p: RGLRU, x: torch.Tensor,
                   valid: Optional[torch.Tensor] = None,
                   cache: Optional[State] = None,
@@ -169,9 +162,9 @@ def rglru_forward(p: RGLRU, x: torch.Tensor,
             pad = rows < 0
             src = torch.where(pad, 0, torch.arange(B, device=x.device))
             dst = torch.where(pad, rows[0], rows)
-            _write_rows(cache, {"h": _take_rows(h, lengths),
-                                "conv": tail_at_lengths(u_pre, lengths,
-                                                        K - 1)}, src, dst)
+            write_rows(cache, {"h": _take_rows(h, lengths),
+                               "conv": tail_at_lengths(u_pre, lengths,
+                                                       K - 1)}, src, dst)
         return out
 
 
@@ -208,10 +201,10 @@ def rglru_chunk_step(p: RGLRU, x: torch.Tensor, cache: State,
         j = torch.arange(P, device=x.device)
         src = torch.where(real, j, real.int().argmax())
         K = p.conv_w.shape[0]
-        _write_rows(cache, {"h": _take_rows(h, lengths),
-                            "conv": tail_at_lengths(u_pre, lengths, K - 1,
-                                                    prepend=carry)},
-                    src, rows[src])
+        write_rows(cache, {"h": _take_rows(h, lengths),
+                           "conv": tail_at_lengths(u_pre, lengths, K - 1,
+                                                   prepend=carry)},
+                   src, rows[src])
         return out
 
 

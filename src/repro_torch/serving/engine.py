@@ -215,13 +215,15 @@ class InferenceEngine:
         self.caches = model_mod.init_caches(cfg, batch_slots, max_len,
                                             self.device)
         # a chunk call's bounds: the global rows' positions and the local
-        # rings' slots (None for a kind the model lacks)
+        # rings' slots (None for a kind the model lacks: both for a model
+        # of ssm layers alone, whose chunks nothing bounds)
         self._global_len, self._ring = model_mod.cache_extents(cfg,
                                                                self.caches)
         # per layer: is its state positional (a snapshot slices it to the
         # written prefix)? A ring is, only when max_len clamps it below its
         # window (the JAX package's ``_cache_seq_axes``: the ring's extent
-        # then grows with max_len); a recurrent layer's state never is
+        # then grows with max_len); a recurrent or ssm layer's state never
+        # is, and moves whole
         self._positional = [kind == ATTN_GLOBAL or (
             kind == ATTN_LOCAL and cfg.window_size > max_len)
             for kind in cfg.layer_kinds()]

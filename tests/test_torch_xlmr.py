@@ -43,6 +43,7 @@ from repro.models import mlp as jax_mlp
 from repro.models import model as jax_model
 from repro_torch import convert
 from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.configs.base import SSMConfig
 from repro_torch.configs.xlmr_paper import SEQ_BUCKETS
 from repro_torch.core import bucketing
 from repro_torch.core.quantization import (QuantDense, quantize_weight_int8,
@@ -270,15 +271,22 @@ def test_full_config_builds_at_full_width():
         "mlp.b_down"}
 
 
+# features the port once refused and now serves: each case still names
+# the refusal it used to hit, and now passes ``check_supported``
+ACCEPTED = ("SSM blocks", "block kinds other than global")
+
+
 @pytest.mark.parametrize("feature,kw", [
     ("mixture of experts", "moe"), ("SSM blocks", "ssm"),
-    ("block kinds other than global", {"block_pattern": ("ssm",)}),
+    ("block kinds other than global", {"block_pattern": ("ssm",),
+                                       "ssm": SSMConfig()}),
     ("embedding inputs", {"input_kind": "video"}),
     ("embedding inputs", {"input_kind": "embeds"})])
 def test_other_features_still_refused(feature, kw):
     """Inputs pass as tokens or as stub ``embeddings`` (whisper's encoder
-    frames, qwen2-vl's patches); any other input kind is refused, as are
-    an ``ssm`` block pattern, MoE and SSM blocks."""
+    frames, qwen2-vl's patches); any other input kind is refused, as is
+    MoE. SSM blocks (an ``ssm`` sub-config, an ``ssm`` block pattern) are
+    served since mamba2-130m's slice and pass."""
     if isinstance(kw, str):          # a config that has the feature
         arch = {"moe": "dbrx-132b", "ssm": "mamba2-130m"}[kw]
         cfg = dataclasses.replace(reduce_for_smoke(get_config("xlmr-paper")),
@@ -286,6 +294,9 @@ def test_other_features_still_refused(feature, kw):
     else:
         cfg = dataclasses.replace(reduce_for_smoke(get_config("xlmr-paper")),
                                   **kw)
+    if feature in ACCEPTED:
+        model_mod.check_supported(cfg)
+        return
     with pytest.raises(NotImplementedError, match=feature):
         model_mod.check_supported(cfg)
 
