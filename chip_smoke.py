@@ -83,7 +83,18 @@ result line):
              4608; 36864 -> 4608) at M 4 and 2048, each on the split-K or
              the TMA kernel (the device window must name it, not the
              fallback kernel), bit for bit, timed beside ``torch._int_mm``.
-2b. profile-mamba2 — right after the kernel phase, in a process of its
+2a. dbrx-kernels — right after the kernel phase, in a process of its own
+             (``--dbrx-kernels``; ``CHILD_PHASES``): dbrx-132b's shapes
+             (bf16, 48 query heads over 8 kv heads, G 6, hd 128): flash
+             prefill B 4, S = T = 4096 with uneven lens and its chunk call
+             (4 x 512 in place over a 4 x 4608 cache), both on the
+             CUDA-core ``flash_fwd_kernel`` (6 does not divide the TMA
+             kernel's 128-row tile; the window must name it), both decode
+             kernels at B 4, S 4608 (a warp's pass of 8 heads holds 6),
+             w8a8 at its attention projections (K 6144 -> 6144, 1024) at M
+             4 and 16384, each against its plain version, then their
+             device window.
+2b. profile-mamba2 — after it, in a process of its
              own (``--profile-mamba2``: the same window taken in this
              process after the kernel phase lost a marker kernel every
              time): full-width mamba2-130m's 4 x 4096 eager prefill
@@ -94,6 +105,16 @@ result line):
              (scans) spans' shares, the step's device time and activities,
              each beside its bound (the prefill's products at 989 TFLOP/s,
              the step's weights and state bytes at 3.35 TB/s).
+2c. profile-dbrx — then, in a process of its own as well
+             (``--profile-dbrx``): dbrx-132b's first 8 layers at full
+             width, a 4 x 4096 eager prefill call (lens 4096, 3900, 2100,
+             300) and 8 replays of a graphed 4-slot decode stage in one
+             marked window: the prefill's device time, the ``moe`` spans'
+             share (and ``moe.route``, ``moe.dispatch``, ``moe.experts``,
+             ``moe.combine``) and flash's, the step's device time and
+             activities, each beside its bound (the experts' products over
+             their whole capacity buffers at 989 TFLOP/s; every weight and
+             the K/V read at 3.35 TB/s).
 3. serve  — full-width deepseek-7b in bf16 (random weights from a seed)
              through ``InferenceEngine(device="cuda")``, its stages
              captured as CUDA graphs (the card's default): 8 requests, 32
@@ -353,6 +374,39 @@ result line):
              32768) and chunked at 2048: the state's bytes equal
              serve-mamba2's, the long prompt's TTFT and the decode p50
              printed.
+             check-dbrx, check-dbrx-layers, serve-dbrx,
+             serve-eager-dbrx, serve-dbrx-chunked, serve-dbrx-w8a8 — after
+             mamba2-130m's: dbrx-132b (global attention at G 6 whose MLP
+             half is a mixture of 16 experts, top 4, capacity factor 1.25,
+             entries past an expert's capacity dropped first come, first
+             served). check-dbrx: ``reduce_dbrx`` in f32 at factors 1.25
+             (drops asserted) and 16 (none) and a bf16 cut (2 layers of
+             d_model 256, 12 heads over 2 kv heads of 64, 16 experts top-4
+             of 512) at 1.25, norms drawn: modes full and prefill and 4
+             decode steps card vs host (2e-3 elementwise in f32, a relative
+             2e-2 in bf16), graphed == eager tokens at each, and at factor
+             16 chunked (8, 16) == monolithic, a prefix hit == cold,
+             snapshot -> restore bit for bit, paging and migration. Then
+             the first 8 of its 40 layers at full width (d_model 6144, 48
+             heads over 8 kv heads of 128, d_expert 10752, untied vocab
+             100352; 27.31 B random bf16 weights from seed 0, 54.6 GB; all
+             40 layers take ~264 GB): check-dbrx-layers holds its first 2
+             blocks against their attention plus a dense MoE written here
+             (per expert the tokens that chose it in token order, the first
+             C kept), the worst real token within ``MOE_LAYERS_TOL`` of
+             what a layer adds, the share of entries dropped printed, and
+             the top-k weights unnormalised, capacity ignored, drops taken
+             last come first served and act(u)*g each past it.
+             serve-dbrx: 4 slots, max_len 4608, buckets to 4096, graphed
+             and warmed on the same requests, 8 prompts (4096, 3900, 2100,
+             300 and 4 of 17-200) x 32 tokens: tok/s, TTFT, the decode
+             stage's p50, the peak memory, and each layer's share of
+             entries dropped in a 4 x 4096 prefill of the long prompts
+             (the model run outside the engine); its eager twin (tokens
+             identical); chunk 512 (agreement printed); w8a8 + int8 KV
+             (the attention projections alone are sites: 4, 32 int8
+             weights; the experts stay bf16), agreement printed, and
+             check-dbrx-w8a8-layers.
 6d. check-gemma2 — gemma2-27b cut to
              4 layers (local, global, local, global) of d_model 256, head_dim
              128, G 2, window 64, both softcaps (``reduce_gemma2``), in f32
@@ -446,6 +500,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -487,6 +542,7 @@ from repro_torch.models import blocks as blk_mod  # noqa: E402
 from repro_torch.models import dlrm as dlrm_mod  # noqa: E402
 from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rglru as rglru_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.core.quantization import QuantDense  # noqa: E402
@@ -2394,6 +2450,24 @@ def _identical(label: str, what: str, got, want) -> None:
         raise AssertionError(f"{label}: {what}: tokens differ: {div}")
 
 
+def _check_prefix_hits(label: str, cfg, card, ckw) -> None:
+    """A warm prefix cache (16 entries) over ``_prefix_trace``'s shared
+    prompt: its replay must hit and be token-identical to a cold engine
+    of the same settings ``ckw``."""
+    cold = _outputs(InferenceEngine(cfg, card, device=DEV, **ckw),
+                    _prefix_trace(cfg.vocab_size))
+    warm = InferenceEngine(cfg, card, prefix_cache=16, device=DEV, **ckw)
+    warm.run(_prefix_trace(cfg.vocab_size))
+    warm.telemetry.reset_serving_stats()
+    _identical(label, "prefix hits vs cold",
+               _outputs(warm, _prefix_trace(cfg.vocab_size)), cold)
+    if not warm.telemetry.prefix_hits:
+        raise AssertionError(f"{label}: no prefix hit on the replay")
+    print(f"{label}: prefix cache, 6 requests replayed with "
+          f"{warm.telemetry.prefix_hits} hits, token-identical to a cold "
+          f"engine", flush=True)
+
+
 def _check_round_trip(small, card, kw, n: int = 16,
                       label: str = "check-chunked") -> None:
     """Snapshot -> restore into another slot -> snapshot, bit for bit, on
@@ -2501,18 +2575,7 @@ def phase_check_chunked():
             raise AssertionError(f"check-chunked: chunk {chunk} card/host "
                                  f"agreement {agree} < 0.95")
     ckw = dict(kw, prefill_chunk=8)
-    cold = _outputs(InferenceEngine(small, card, device=DEV, **ckw),
-                    _prefix_trace(small.vocab_size))
-    warm = InferenceEngine(small, card, prefix_cache=16, device=DEV, **ckw)
-    warm.run(_prefix_trace(small.vocab_size))
-    warm.telemetry.reset_serving_stats()
-    _identical("check-chunked", "prefix hits vs cold", _outputs(
-        warm, _prefix_trace(small.vocab_size)), cold)
-    if warm.telemetry.prefix_hits == 0:
-        raise AssertionError("check-chunked: no prefix hit on the replay")
-    print(f"check-chunked: prefix cache, 6 requests replayed with "
-          f"{warm.telemetry.prefix_hits} hits, token-identical to a cold "
-          f"engine", flush=True)
+    _check_prefix_hits("check-chunked", small, card, ckw)
     _check_round_trip(small, card, kw)
     _check_round_trip(_int8_kv(small), card, kw)
     _check_paging_and_migration("check-chunked", small, card, ckw)
@@ -3190,7 +3253,8 @@ def phase_serve_gemma_2b(cfg, params, label: str = "serve-gemma2b",
 
 def phase_serve_padded(cfg, params, label: str, engine_kw: dict, trace,
                        ref_label: str, layers_label: str, profile_pos,
-                       mono_outputs=None, keep_engine: bool = False, **kw):
+                       mono_outputs=None, keep_engine: bool = False,
+                       hold: bool = True, **kw):
     """Full-width serving of an arch with padded heads (bf16; or, with
     ``precision="w8a8"`` in ``kw``, w8a8 with an int8 KV cache), graphed
     and warmed on the same requests ``trace()``, so every stage key is
@@ -3199,8 +3263,9 @@ def phase_serve_padded(cfg, params, label: str, engine_kw: dict, trace,
     offset when chunked), and bf16 decode, or the w8a8 GEMM and int8
     decode with bf16 decode not at all. A w8a8 serve's greedy agreement
     with the bf16 serve's (``ref_label``) ``mono_outputs`` must reach 0.90
-    (the reference's w8a8 guardrail), and its layers check
-    (``layers_label``) follow; a chunked one's agreement is printed. The
+    (the reference's w8a8 guardrail; printed, not held, without
+    ``hold``), and its layers check (``layers_label``) follow; a chunked
+    one's agreement is printed. The
     monolithic serves' graphed decode stage is then profiled at rows from
     ``profile_pos``. Returns (launches, outputs, the engine if
     ``keep_engine`` else None)."""
@@ -3215,8 +3280,10 @@ def phase_serve_padded(cfg, params, label: str, engine_kw: dict, trace,
     if quant:
         torch.cuda.synchronize()
         q = eng.quant
+        n_int8 = sum(isinstance(m, QuantDense) for m in q.params.modules())
         print(f"{label}: build step {time.perf_counter() - t0:.1f} s: "
-              f"{q.quantized_sites} sites int8, {q.fallback_sites} fall back "
+              f"{q.quantized_sites} sites int8 ({n_int8} int8 weights over "
+              f"{cfg.num_layers} layers), {q.fallback_sites} fall back "
               f"to bf16 (calibration disagreement "
               f"{q.result.metric_delta:.4f}); {q.schemes}", flush=True)
     launches, outputs = _serve(eng, cfg, label, base, trace=trace,
@@ -3236,8 +3303,9 @@ def phase_serve_padded(cfg, params, label: str, engine_kw: dict, trace,
         div = _first_divergence(outputs, mono_outputs)
         print(f"{label}: greedy-token agreement with {ref_label} "
               f"{agree:.4f} ({'tokens identical' if div is None else div})"
-              + ("" if quant else " (printed, not held)"), flush=True)
-        if quant and agree < 0.90:
+              + ("" if quant and hold else " (printed, not held)"),
+              flush=True)
+        if quant and hold and agree < 0.90:
             raise AssertionError(f"{label}: agreement with the bf16 serve "
                                  f"{agree} < 0.90")
     if quant:
@@ -3277,8 +3345,8 @@ def layers_reference(cfg, params, lens, max_len: int) -> dict:
     prefilled at ``max_len``, then one token each. Keeps the inputs, the
     bf16 step's final hidden state ``ref`` and what the layers add to it:
     ||ref - h_embed||, ``h_embed`` the final norm of the embedded next
-    token alone. Computed from the whole fp model, before any build step
-    releases a leaf of it."""
+    token alone; a MoE model's routes (``_routes``). Computed from the
+    whole fp model, before any build step releases a leaf of it."""
     B, S = len(lens), max(lens)
     lens = torch.tensor(lens, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(7)
@@ -3289,7 +3357,9 @@ def layers_reference(cfg, params, lens, max_len: int) -> dict:
     ref = dict(toks=toks, nxt=nxt, max_len=max_len, lens=lens.tolist(),
                valid=torch.arange(S, device=DEV)[None, :] < lens[:, None],
                pos=lens.to(torch.int32))
-    ref["ref"] = _layers_step(ref, params, cfg)
+    with _routes() as routes:
+        ref["ref"] = _layers_step(ref, params, cfg)
+    ref["routes"] = routes if cfg.moe is not None else None
     with torch.inference_mode():
         h_embed = params.final_norm(
             vocab_mod.embed_lookup(params.embed, nxt, cfg),
@@ -3309,28 +3379,42 @@ def check_w8a8_layers(label: str, ref: dict, qcfg, qparams) -> None:
     it: every layer's ``wo`` scale zeroed (no attention reaches the
     residual) and the int8 cache's value scales negated after the prefill
     (the int8 decode kernel reads -V: each layer's decode attention flips
-    sign)."""
+    sign). A MoE model's w8a8 runs take the bf16 run's routes: a route is
+    a discrete choice, and one moved by the int8 error changes whole
+    experts' outputs and the drops after them; the share of tokens whose
+    own top-k differs is printed."""
     want, layers = ref["ref"], ref["layers"]
+    routes = ref["routes"]
 
     def err(h) -> float:
         if not torch.isfinite(h).all():
             return float("inf")
         return ((h - want).norm() / layers).item()
 
-    got = err(_layers_step(ref, qparams, qcfg))
+    def step(fault=None):
+        if routes is None:
+            return _layers_step(ref, qparams, qcfg, fault), None
+        with _routes(routes) as own:
+            return _layers_step(ref, qparams, qcfg, fault), own
+
+    h, own = step()
+    got = err(h)
+    flips = ("" if own is None else
+             f"; {100 * _route_flips(routes, own):.3f}% of tokens routed "
+             f"otherwise by the w8a8 model's own router (bf16's routes "
+             f"taken)")
     wo = [lay.attn.wo for lay in qparams.layers]
     held = [w.scale if isinstance(w, QuantDense) else w.data for w in wo]
     saved = [t.clone() for t in held]
     for t in held:
         t.zero_()
     try:
-        no_attn = err(_layers_step(ref, qparams, qcfg))
+        no_attn = err(step()[0])
     finally:
         for t, v in zip(held, saved):
             t.copy_(v)
-    neg_v = err(_layers_step(ref, qparams, qcfg, lambda cs: [
-        c["v_scale"].neg_() for c in cs]))
-    if err(_layers_step(ref, qparams, qcfg)) != got:
+    neg_v = err(step(lambda cs: [c["v_scale"].neg_() for c in cs])[0])
+    if err(step()[0]) != got:
         raise AssertionError(f"{label}: the w8a8 step changed after the "
                              f"planted faults were undone")
     print(f"{label}: full-width decode step, {len(ref['lens'])} rows at pos "
@@ -3338,7 +3422,7 @@ def check_w8a8_layers(label: str, ref: dict, qcfg, qparams) -> None:
           f"bf16 final hidden state by {(layers / want.norm()).item():.4f} "
           f"of its norm; w8a8 + int8 KV error over that {got:.4f} (tol "
           f"{W8A8_LAYERS_TOL}); planted faults: wo scales zeroed "
-          f"{no_attn:.4f}, int8 value scales negated {neg_v:.4f}",
+          f"{no_attn:.4f}, int8 value scales negated {neg_v:.4f}{flips}",
           flush=True)
     if not got <= W8A8_LAYERS_TOL:
         raise AssertionError(f"{label}: w8a8 + int8 KV error {got} > "
@@ -4046,7 +4130,7 @@ def reduce_mamba2(dtype: str):
                                param_dtype=dtype, activation_dtype=dtype)
 
 
-def _mamba2_hidden(params, cfg, toks, valid, steps, max_len: int):
+def _model_hidden(params, cfg, toks, valid, steps, max_len: int):
     """Through the model layer: mode 'full' over ``toks`` (B,S), a prefill
     of the same (``valid`` (B,S) marking the real tokens) into fresh
     caches, then one decode step of each of ``steps`` ((B,1) tokens) at
@@ -4100,7 +4184,7 @@ def phase_check_mamba2() -> None:
         steps = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
                                dtype=torch.int32) for _ in range(4)]
         args = (toks, valid, steps, bucket + 8)
-        got, want = (_mamba2_hidden(m, cfg, *args) for m in (card, host))
+        got, want = (_model_hidden(m, cfg, *args) for m in (card, host))
         label = f"check-mamba2[{dtype}]"
         held = [_hold_hidden(f"{label} {what}", g, w, dt)
                 for what, g, w in zip(("full", "prefill", "decode"), got,
@@ -4154,18 +4238,7 @@ def phase_check_mamba2() -> None:
         if dtype != "float32":
             continue
         ckw = dict(kw, prefill_chunk=8)
-        cold = _outputs(InferenceEngine(cfg, card, device=DEV, **ckw),
-                        _prefix_trace(cfg.vocab_size))
-        warm = InferenceEngine(cfg, card, prefix_cache=16, device=DEV, **ckw)
-        warm.run(_prefix_trace(cfg.vocab_size))
-        warm.telemetry.reset_serving_stats()
-        _identical(label, "prefix hits vs cold",
-                   _outputs(warm, _prefix_trace(cfg.vocab_size)), cold)
-        if not warm.telemetry.prefix_hits:
-            raise AssertionError(f"{label}: no prefix hit on the replay")
-        print(f"{label}: prefix cache, 6 requests replayed with "
-              f"{warm.telemetry.prefix_hits} hits, token-identical to a "
-              f"cold engine", flush=True)
+        _check_prefix_hits(label, cfg, card, ckw)
         _check_round_trip(cfg, card, kw, n=40, label=label)
         _check_paging_and_migration(label, cfg, card, ckw)
         del host, card
@@ -4452,19 +4525,6 @@ def _ssd_flops(B: int, S: int, cfg) -> float:
     return float(per_chunk * (S // ch) * B * cfg.num_layers)
 
 
-# the argument that runs profile-mamba2 alone, in a process of its own
-PROFILE_MAMBA2_ARG = "--profile-mamba2"
-
-
-def phase_profile_mamba2() -> None:
-    """profile-mamba2 in a process of its own (``python3 chip_smoke.py
-    --profile-mamba2``): its window, taken in this process after the
-    kernel phase, came back with 17 of its 18 markers in each of four
-    tries, and read whole as a fresh process's first window."""
-    subprocess.run([sys.executable, os.path.abspath(__file__),
-                    PROFILE_MAMBA2_ARG], check=True, timeout=900)
-
-
 def profile_mamba2() -> None:
     """profile-mamba2: in one ``marked_window``, a 4 x 4096 prefill call
     (lens 4096,
@@ -4572,6 +4632,644 @@ def phase_mamba2() -> None:
     _free_card()
     print(f"freed mamba2-130m: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB still allocated", flush=True)
+
+
+# ---- dbrx-132b --------------------------------------------------------------
+
+# the served cut: the first 8 of dbrx-132b's 40 layers at full width (27.31
+# B parameters, 54.6 GB in bf16; all 40 take ~264 GB, past one card)
+DBRX_LAYERS = 8
+# 4 slots of 4608 positions (the 8 layers' K/V, 0.60 GB); the bucket
+# ladder reaches the longest prompt
+DBRX_KW = dict(batch_slots=4, max_len=4608,
+               prefill_buckets=(128, 256, 512, 1024, 2048, 4096), device=DEV)
+# the long prompts of the serve phases and of the kernel and profile cases,
+# and the decode positions of the kernel cases and the decode stage calls
+DBRX_PROMPTS = (4096, 3900, 2100, 300)
+DBRX_DECODE_POS = (4095, 3000, 1200, 31)
+# dbrx-132b's attention projections (K, N): wq and wo (6144 -> 48 x 128 =
+# 6144), wk and wv (6144 -> 8 x 128); the experts are not w8a8 sites
+DBRX_PROJECTIONS = ((6144, 6144), (6144, 1024))
+# check-dbrx-layers: the prompts, the longest row last (entries rank in
+# token order and the pads of a right-padded row route too, so the drops
+# land on the last rows' tokens: with the longest row first they fell on
+# pads alone in a rehearsal on the host), and the bound on the worst real
+# token's ||block - dense|| / ||dense - x|| over each layer (fixed before
+# the first chip run)
+DBRX_LAYERS_LENS = (1, 257, 700, 1024)
+MOE_LAYERS_TOL = 0.02
+# check-dbrx's bf16 leg: the share of tokens whose top-k may differ
+# between the card and the host (bf16 rounding moves near-tied routes)
+MOE_ROUTE_FLIPS = 0.02
+MOE_FAULTS = {"renorm": "top-k weights not renormalised",
+              "capacity": "capacity ignored",
+              "lcfs": "drops last come, first served",
+              "act": "act(u)*g in place of act(g)*u"}
+
+
+def dbrx_kernel_cases() -> None:
+    """The kernels at dbrx-132b's served shapes (bf16, 48 query heads over
+    8 kv heads: G 6, head_dim 128), each held against its plain version
+    and timed beside its library call and its bound: flash's prefill of a
+    4096 bucket with lens ``DBRX_PROMPTS`` (1e) and its chunk call, 4 x
+    512 in place over a 4 x 4608 cache at offsets 3584, 2048, 512, 0
+    (1e'), beside SDPA with a boolean mask, both on the CUDA-core
+    ``flash_fwd_kernel`` (G 6 does not divide the TMA kernel's 128-row
+    tile); both decode kernels at B 4, S 4608, pos ``DBRX_DECODE_POS``
+    (2e bf16 beside SDPA, 3e int8; a warp's pass of 8 heads holds 6); w8a8
+    at the attention projections at M 4 (4e, the split-K kernel) and
+    16384, a 4 x 4096 prefill (4e', the TMA kernel), beside
+    ``torch._int_mm``. Then one profiler window of their device times,
+    which must name the kernel each flash and w8a8 case ran. Their inputs
+    come from a generator of their own, so that every other case keeps
+    its inputs."""
+    gen = torch.Generator(device=DEV).manual_seed(34)
+    bf16 = torch.bfloat16
+    fns, routes = {}, {}
+    name = "dbrx_1e_B4_S4096_H48_K8_hd128"
+    r = flash_case(name, gen, 4, 4096, 48, 8, 128, bf16, list(DBRX_PROMPTS))
+    _show("flash_attn", name, r)
+    fns["flash_attn " + name] = r["call"]
+    fns["SDPA (boolean mask) " + name] = r["library_call"]
+    routes["flash_attn " + name] = ("flash_fwd_kernel<", "flash_fwd_kernel_tma")
+    name = "dbrx_1e'_chunk_P4_C512_T4608_H48_K8_hd128"
+    r = flash_chunk_case(name, gen, 4, 4608, 48, 8, 128, 512, bf16,
+                         slots=[0, 1, 2, 3], start=[3584, 2048, 512, 0],
+                         lengths=[512] * 4, measure=True)
+    _show("flash_attn", name, r)
+    fns["flash_attn " + name] = r["call"]
+    fns["SDPA (boolean mask) " + name] = r["library_call"]
+    routes["flash_attn " + name] = ("flash_fwd_kernel<", "flash_fwd_kernel_tma")
+    case = (4, 48, 8, 128, 4608, list(DBRX_DECODE_POS), bf16)
+    name = "dbrx_2e_B4_S4608_H48_K8_hd128"
+    r = decode_case(name, gen, *case)
+    _show("decode_attn", name, r)
+    fns["decode_attn " + name] = r["call"]
+    fns["SDPA " + name] = r["library_call"]
+    name = "dbrx_3e_B4_S4608_H48_K8_hd128"
+    r = decode_int8_case(name, gen, *case)
+    _show("decode_attn_int8", name, r)
+    fns["decode_attn_int8 " + name] = r["call"]
+    for M, row in ((4, "4e"), (16384, "4e'")):
+        for K, N in DBRX_PROJECTIONS:
+            name = f"dbrx_{row}_M{M}_K{K}_N{N}"
+            r = w8a8_case(name, gen, M, K, N)
+            _show("w8a8_matmul", name, r)
+            fns["w8a8_matmul " + name] = r["call"]
+            fns["torch._int_mm + scales " + name] = r["library_call"]
+            routes["w8a8_matmul " + name] = (
+                "w8a8_splitk_kernel" if M <= 16 else "w8a8_kernel_tma",
+                "w8a8_kernel<")
+    device_window(fns, routes=routes)
+
+
+def reduce_dbrx(dtype: str, factor: float = 1.25):
+    """check-dbrx's configs at capacity factor ``factor``: in f32
+    ``reduce_for_smoke`` (2 layers of d_model 64, 4 heads over 4 kv heads
+    of 16, 4 experts top-2 of d_expert 32); in bf16 2 layers of d_model
+    256, 12 heads over 2 kv heads of 64 (G 6) and dbrx's 16 experts top-4
+    at d_expert 512. Vocab 256, untied."""
+    cfg = get_config("dbrx-132b")
+    small = reduce_for_smoke(cfg)
+    if dtype != "float32":
+        small = dataclasses.replace(
+            small, d_model=256, num_heads=12, num_kv_heads=2, head_dim=64,
+            moe=dataclasses.replace(cfg.moe, d_expert=512),
+            param_dtype=dtype, activation_dtype=dtype)
+    return dataclasses.replace(small, moe=dataclasses.replace(
+        small.moe, capacity_factor=factor))
+
+
+def draw_norms(params, seed: int) -> None:
+    """Draw every norm's scale in place (about 0, from a seeded generator
+    on the parameters' device): at init they are 0, where a port that
+    dropped one agrees with one that keeps it. The router is drawn at init
+    (normal, nonzero)."""
+    dev = model_mod.model_device(params)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, t in params.named_parameters():
+            if name.rsplit(".", 1)[-1] == "scale":
+                t.copy_((0.3 * torch.randn(t.shape, generator=gen,
+                                           device=dev)).to(t.dtype))
+
+
+@contextlib.contextmanager
+def _patched(mod, attrs: dict):
+    """Within: ``mod``'s attributes named in ``attrs`` set to its values;
+    restored after."""
+    saved = {k: getattr(mod, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(mod, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(mod, k, v)
+
+
+@contextlib.contextmanager
+def _counting_drops():
+    """Within: every ``moe._dispatch_indices`` call appends (entries
+    dropped, entries) to the list it yields."""
+    real, seen = moe_mod._dispatch_indices, []
+
+    def counting(e_flat, *args):
+        slot, keep = real(e_flat, *args)
+        seen.append((int((~keep).sum()), keep.numel()))
+        return slot, keep
+    with _patched(moe_mod, {"_dispatch_indices": counting}):
+        yield seen
+
+
+@contextlib.contextmanager
+def _routes(replay=None):
+    """Within: every ``moe._route`` call appends its own top-k ids (on the
+    host) to the list it yields. With ``replay`` (such a list from another
+    run of the same calls), each call routes by the ids of the same call
+    there instead, its weights its own softmax's at those ids,
+    renormalised."""
+    real, seen = moe_mod._route, []
+
+    def route(x, router_w, cfg):
+        idx, w, aux = real(x, router_w, cfg)
+        seen.append(idx.cpu())
+        if replay is not None:
+            idx = replay[len(seen) - 1].to(idx.device)
+            w = torch.gather(torch.softmax(x.float() @ router_w, dim=-1),
+                             -1, idx)
+            w = w / w.sum(dim=-1, keepdim=True)
+        return idx, w, aux
+    with _patched(moe_mod, {"_route": route}):
+        yield seen
+
+
+def _route_flips(a: list, b: list) -> float:
+    """The share of tokens, over every call, whose top-k sets differ
+    between the route lists ``a`` and ``b``."""
+    diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+    return diff / sum(x.shape[0] for x in a)
+
+
+def drop_shares(params, cfg, toks, valid) -> list:
+    """Each layer's share of (token, expert) entries dropped in one call
+    of mode 'full' over ``toks`` (B,S) (``valid`` marking the real
+    tokens; the pads route too, as in a prefill of the same rows)."""
+    with torch.inference_mode(), _counting_drops() as seen:
+        model_mod.forward(params, cfg, {"tokens": toks}, mode="full",
+                          caches=None, kv_valid=valid)
+    return [d / n for d, n in seen]
+
+
+def phase_check_dbrx() -> None:
+    """check-dbrx on ``reduce_dbrx`` in f32 at capacity factors 1.25 (some
+    entries dropped, asserted) and 16 (none), and in bf16 at 1.25, the
+    norms drawn (``draw_norms``): modes full and prefill over right-padded
+    rows (f32: 64, 45, 17 and 1 tokens in a bucket of 64; bf16: 600, 300,
+    77 and 1 in a bucket of 768), then 4 decode steps, card against host
+    (``_hold_hidden``: 2e-3 elementwise in f32, a relative 2e-2 in bf16;
+    the K/V caches likewise). In bf16 the host takes the card's routes
+    (``_routes``), and the share of tokens whose own top-k differs between
+    the two is held to ``MOE_ROUTE_FLIPS``: a route is a discrete choice,
+    and one moved by bf16 rounding changes whole experts' outputs. Then
+    engines on the card: graphed == eager
+    tokens (monolithic and chunked) at each config; at factor 16 chunked
+    (8, 16) == monolithic tokens, a prefix hit == a cold engine, snapshot
+    -> restore bit for bit, host paging and mid-prefill migration
+    token-identical. Drops depend on the call's tokens, so these hold
+    only where nothing drops."""
+    for dtype, factor, lens, bucket in (
+            ("float32", 1.25, (64, 45, 17, 1), 64),
+            ("float32", 16.0, (64, 45, 17, 1), 64),
+            ("bfloat16", 1.25, (600, 300, 77, 1), 768)):
+        cfg = reduce_dbrx(dtype, factor)
+        dt = dtype_of(dtype)
+        host = model_mod.init_params(cfg, seed=1, device="cpu")
+        draw_norms(host, seed=2)
+        card = copy.deepcopy(host).to(DEV)
+        B = len(lens)
+        gen = torch.Generator().manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (B, bucket), generator=gen,
+                             dtype=torch.int32)
+        valid = torch.arange(bucket)[None, :] < torch.tensor(lens)[:, None]
+        steps = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                               dtype=torch.int32) for _ in range(4)]
+        args = (toks, valid, steps, bucket + 8)
+        label = f"check-dbrx[{dtype}, capacity factor {factor}]"
+        with _routes() as card_routes:
+            got = _model_hidden(card, cfg, *args)
+        routes = ""
+        if dtype == "float32":
+            want = _model_hidden(host, cfg, *args)
+        else:
+            # a route is a discrete choice: bf16 rounding that differs on
+            # the card moves a few tokens' top-k, and with them whole
+            # experts' outputs and the drops after them. The host takes
+            # the card's routes, so the rest is held by its tolerance; the
+            # share of tokens whose own routes differ is held apart
+            own = _model_hidden(host, cfg, *args)
+            with _routes(card_routes) as host_routes:
+                want = _model_hidden(host, cfg, *args)
+            flips = _route_flips(card_routes, host_routes)
+            direct = ((got[0].float() - own[0].float()).norm()
+                      / own[0].float().norm()).item()
+            routes = (f"; {100 * flips:.3f}% of tokens routed otherwise "
+                      f"on the host (tol {100 * MOE_ROUTE_FLIPS:.0f}%), "
+                      f"mode full against the host's own routes relative "
+                      f"error {direct:.3e} (not held); held with the "
+                      f"card's routes on the host")
+            if flips > MOE_ROUTE_FLIPS:
+                raise AssertionError(f"{label}: {flips} of the tokens "
+                                     f"routed otherwise on the host")
+        held = [_hold_hidden(f"{label} {what}", g, w, dt)
+                for what, g, w in zip(("full", "prefill", "decode"), got,
+                                      want)]
+        kv = _hold_hidden(f"{label} K/V", torch.stack(
+            [c[n] for c in got[3] for n in ("k", "v")]).float(), torch.stack(
+            [c[n] for c in want[3] for n in ("k", "v")]).float(), dt)
+        shares = drop_shares(card, cfg, toks.to(DEV), valid.to(DEV))
+        print(f"{label}: {cfg.num_layers} layers of d_model {cfg.d_model}, "
+              f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
+              f"{cfg.head_dim}, {cfg.moe.num_experts} experts top-"
+              f"{cfg.moe.top_k} of {cfg.moe.d_expert}; rows of {list(lens)} "
+              f"tokens in a bucket of {bucket}, card vs host: full "
+              f"{held[0]}, prefill {held[1]}, 4 decode steps {held[2]}, "
+              f"K/V {kv} (tol {TOL[dt]}){routes}; entries dropped by "
+              f"layer {[round(s, 4) for s in shares]}", flush=True)
+        if (factor == 1.25) != (sum(shares) > 0):
+            raise AssertionError(f"{label}: drop shares {shares}")
+        kw = (dict(batch_slots=3, max_len=128, prefill_buckets=(16, 32, 64))
+              if dtype == "float32" else
+              dict(batch_slots=3, max_len=1024,
+                   prefill_buckets=(256, 512, 768)))
+        trace = (lambda: _requests(6, 3, 60, 8, cfg.vocab_size, seed=3)) \
+            if dtype == "float32" else \
+            (lambda: _requests(6, 40, 700, 8, cfg.vocab_size, seed=3))
+        chunk = 16 if dtype == "float32" else 256
+        for c in (None, chunk):
+            engs = [InferenceEngine(cfg, card, prefill_chunk=c,
+                                    cuda_graphs=graphs, device=DEV, **kw)
+                    for graphs in (True, False)]
+            where = f"chunk {c}" if c else "monolithic"
+            _identical(label, f"{where} graphed vs eager",
+                       *(_outputs(e, trace()) for e in engs))
+            print(f"{label}: {where}: 6 requests token-identical graphed "
+                  f"and eager; final caches max abs difference "
+                  f"{_cache_diff(*engs):.3e}", flush=True)
+        if factor == 1.25:
+            continue
+        mono = _outputs(InferenceEngine(cfg, card, device=DEV, **kw),
+                        trace())
+        for c in (8, 16):
+            eng = InferenceEngine(cfg, card, prefill_chunk=c, device=DEV,
+                                  **kw)
+            _identical(label, f"chunk {c} vs monolithic",
+                       _outputs(eng, trace()), mono)
+            print(f"{label}: chunk {c}: 6 requests token-identical to "
+                  f"monolithic ({eng.telemetry.continuations} "
+                  f"continuations)", flush=True)
+        ckw = dict(kw, prefill_chunk=8)
+        _check_prefix_hits(label, cfg, card, ckw)
+        _check_round_trip(cfg, card, kw, n=40, label=label)
+        _check_paging_and_migration(label, cfg, card, ckw)
+        del host, card
+        _free_card()
+
+
+def _dense_moe(p, h: torch.Tensor, cfg):
+    """check-dbrx-layers' own mixture of experts over h (T,d), written
+    apart from ``models/moe.py``: the router's softmax over h in f32, each
+    token's top k, their weights renormalised; then per expert the tokens
+    that chose it in token order, the first C = max(ceil(T k / E * factor),
+    min(4, T k)) of them kept, each through the expert's SwiGLU FFN in the
+    weights' dtype, weighted, summed per token in f32. Returns (out (T,d)
+    in h's dtype, entries dropped)."""
+    m = cfg.moe
+    T = h.shape[0]
+    C = max(math.ceil(T * m.top_k * m.capacity_factor / m.num_experts),
+            min(4, T * m.top_k))
+    probs = torch.softmax(h.float() @ p.router, dim=-1)
+    w, idx = torch.topk(probs, m.top_k, dim=-1)
+    w = w / w.sum(dim=-1, keepdim=True)
+    out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    kept = 0
+    for e in range(m.num_experts):
+        tok, j = (idx == e).nonzero(as_tuple=True)      # in token order
+        tok, j = tok[:C], j[:C]
+        kept += tok.numel()
+        x = h[tok]
+        y = (F.silu(x @ p.wg[e]) * (x @ p.wu[e])) @ p.wd[e]
+        out.index_add_(0, tok, (y * w[tok, j].to(y.dtype)[:, None]).float())
+    return out.to(h.dtype), T * m.top_k - kept
+
+
+def _moe_fault(name: str) -> dict:
+    """The ``models/moe.py`` functions that plant fault ``name`` of
+    ``MOE_FAULTS``."""
+    route, dispatch = moe_mod._route, moe_mod._dispatch_indices
+
+    def unnormalised(x, router_w, cfg):
+        idx, _, aux = route(x, router_w, cfg)
+        probs = torch.softmax(x.float() @ router_w, dim=-1)
+        return idx, torch.gather(probs, -1, idx), aux
+
+    def last_first(e_flat, *args):
+        slot, keep = dispatch(e_flat.flip(0), *args)
+        return slot.flip(0), keep.flip(0)
+
+    def swapped(xin, wg, wu, wd, cfg):
+        return torch.bmm(F.silu(torch.bmm(xin, wu)) * torch.bmm(xin, wg), wd)
+
+    return {"renorm": {"_route": unnormalised},
+            "capacity": {"_capacity": lambda T, cfg: T},
+            "lcfs": {"_dispatch_indices": last_first},
+            "act": {"_expert_ffn": swapped}}[name]
+
+
+def check_moe_layers(label: str, cfg, params, lens=DBRX_LAYERS_LENS,
+                     layers: int = 2) -> None:
+    """The first ``layers`` blocks of ``params`` (dbrx's global attention
+    and MoE), each on the same input x on both sides: the port's block
+    (``blocks.apply_block``, mode 'full', over right-padded rows of
+    ``lens`` tokens) against its attention plus ``_dense_moe``, in the
+    same dtype; the next layer's input is the dense side's output. The
+    metric is per token: ||block - dense|| / ||dense - x|| at the real
+    tokens, its worst over the layers held to ``MOE_LAYERS_TOL``. The
+    share of entries dropped is printed; each of ``MOE_FAULTS``, planted
+    in ``models/moe.py``, must land past the bound."""
+    if cfg.post_attn_norm or cfg.activation != "silu" or not cfg.glu:
+        raise ValueError(f"{label}: a SwiGLU MoE block without post-norms")
+    B, S = len(lens), max(lens)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    valid = torch.arange(S, device=DEV)[None, :] \
+        < torch.tensor(lens, device=DEV)[:, None]
+    positions = torch.arange(S, device=DEV).expand(B, S)
+    worst, dropped = 0.0, 0
+    faults = dict.fromkeys(MOE_FAULTS, 0.0)
+    with torch.inference_mode():
+        x = vocab_mod.embed_lookup(params.embed, toks, cfg)
+        for layer in params.layers[:layers]:
+            y, _ = attn_mod.full_attention(
+                layer.attn, layer.pre_norm(x, cfg.norm_eps), cfg, positions,
+                valid, kind=layer.kind)
+            mid = x + y
+            out, n = _dense_moe(layer.moe, layer.pre_mlp_norm(
+                mid, cfg.norm_eps).reshape(B * S, -1), cfg)
+            dense = mid + out.view(B, S, -1)
+            added = (dense - x).float().norm(dim=-1)[valid]
+
+            def err() -> float:
+                got = blk_mod.apply_block(layer, x, cfg, mode="full",
+                                          cache=None, positions=positions,
+                                          kv_valid=valid)
+                e = (got - dense).float().norm(dim=-1)[valid] / added
+                return float("inf") if not torch.isfinite(e).all() \
+                    else e.max().item()
+            worst = max(worst, err())
+            for name in MOE_FAULTS:
+                with _patched(moe_mod, _moe_fault(name)):
+                    faults[name] = max(faults[name], err())
+            dropped += n
+            x = dense
+    entries = layers * B * S * cfg.moe.top_k
+    print(f"{label}: the first {layers} layers at d_model {cfg.d_model}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
+          f"{cfg.moe.d_expert}, capacity factor {cfg.moe.capacity_factor}, "
+          f"in {cfg.param_dtype}, rows of {list(lens)} tokens: the block vs "
+          f"the dense formulation, worst token {worst:.4f} of what the "
+          f"layer adds (tol {MOE_LAYERS_TOL}); entries dropped "
+          f"{100 * dropped / entries:.2f}% ({dropped} of {entries}, pads "
+          f"included); planted faults: " + "; ".join(
+              f"{MOE_FAULTS[k]} {v:.4f}" for k, v in faults.items()),
+          flush=True)
+    if not worst <= MOE_LAYERS_TOL:
+        raise AssertionError(f"{label}: worst token {worst} > "
+                             f"{MOE_LAYERS_TOL}")
+    if not dropped:
+        raise AssertionError(f"{label}: nothing dropped, so the drops are "
+                             f"not checked")
+    for name, e in faults.items():
+        if not e > MOE_LAYERS_TOL:
+            raise AssertionError(f"{label}: the planted fault "
+                                 f"'{MOE_FAULTS[name]}' stays within the "
+                                 f"bound ({e} <= {MOE_LAYERS_TOL})")
+
+
+def init_dbrx():
+    """dbrx-132b's first ``DBRX_LAYERS`` layers at full width (d_model
+    6144, 48 heads over 8 kv heads of 128, 16 experts top-4 of 10752,
+    untied vocab 100352; random bf16 weights from seed 0)."""
+    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=DBRX_LAYERS)
+    t0 = time.perf_counter()
+    params = model_mod.init_params(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    print(f"init: dbrx-132b full width, {cfg.num_layers} of 40 layers, "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, params
+
+
+def dbrx_requests(vocab: int):
+    """The dbrx serve phases' traffic: 8 prompts x 32 new tokens, long and
+    short in turn: ``DBRX_PROMPTS`` and 4 of 17-200."""
+    rng = np.random.default_rng(0)
+    lens = np.stack([DBRX_PROMPTS, rng.integers(17, 201, 4)], 1).reshape(-1)
+    return [Request(i, rng.integers(0, vocab, int(L)).astype(np.int32),
+                    max_new_tokens=32) for i, L in enumerate(lens)]
+
+
+def _long_prompts(cfg, reqs):
+    """The trace's ``DBRX_PROMPTS`` requests as one right-padded batch:
+    (tokens (4, 4096), valid) on the card."""
+    long = [r.tokens for r in reqs if len(r.tokens) in DBRX_PROMPTS]
+    S = max(len(t) for t in long)
+    toks = torch.zeros(len(long), S, dtype=torch.int32)
+    for i, t in enumerate(long):
+        toks[i, :len(t)] = torch.from_numpy(t)
+    lens = torch.tensor([len(t) for t in long])
+    return toks.to(DEV), (torch.arange(S)[None, :] < lens[:, None]).to(DEV)
+
+
+def phase_dbrx() -> dict:
+    """check-dbrx, then dbrx-132b's first 8 layers at full width
+    (``init_dbrx``): check-dbrx-layers on its first 2, serve-dbrx (graphed,
+    ``dbrx_requests`` warmed on the same requests; tok/s, TTFT, the decode
+    stage's p50, the peak memory; the share of entries dropped in a 4 x
+    4096 prefill of the trace's long prompts, from a run of the model
+    outside the engine), serve-eager-dbrx (tokens identical),
+    serve-dbrx-chunked (512; agreement printed), serve-dbrx-w8a8 with an
+    int8 KV cache (every attention projection int8, 32 weights, the
+    experts bf16; agreement printed) and its layers check. Frees the weights; returns
+    the launches of the graphed bf16, chunked and w8a8 serves."""
+    phase_check_dbrx()
+    cfg, params = init_dbrx()
+    check_moe_layers("check-dbrx-layers", cfg, params)
+    _free_card()
+    trace = lambda: dbrx_requests(cfg.vocab_size)
+    serve = dict(engine_kw=DBRX_KW, trace=trace, ref_label="serve-dbrx",
+                 layers_label="check-dbrx-w8a8-layers",
+                 profile_pos=DBRX_DECODE_POS, hold=False)
+    launches, outputs, eng = phase_serve_padded(
+        cfg, params, "serve-dbrx", keep_engine=True, **serve)
+    decode_step_p50("serve-dbrx", eng, DBRX_DECODE_POS)
+    shares = drop_shares(params, cfg, *_long_prompts(cfg, trace()))
+    print(f"serve-dbrx: entries dropped in a {len(DBRX_PROMPTS)} x "
+          f"{max(DBRX_PROMPTS)} prefill of the trace's long prompts (lens "
+          f"{list(DBRX_PROMPTS)}, capacity factor "
+          f"{cfg.moe.capacity_factor}), by layer: "
+          f"{[round(100 * s, 2) for s in shares]}% (mean "
+          f"{100 * sum(shares) / len(shares):.2f}%)", flush=True)
+    phase_serve_eager("serve-eager-dbrx", eng, launches, outputs, cfg,
+                      params, engine_kw=DBRX_KW, trace=trace,
+                      decode_pos=DBRX_DECODE_POS, identical=True)
+    del eng
+    _free_card()
+    chunked, _, _ = phase_serve_padded(
+        cfg, params, "serve-dbrx-chunked", mono_outputs=outputs,
+        prefill_chunk=512, **serve)
+    _free_card()
+    # on seed-0 weights the calibration's greedy argmax is noise (near-flat
+    # logits, and routes moved by any perturbation): at the default budget
+    # every site fell back (a chip run: 0 of 4 int8). The build quantizes
+    # every site, and check-dbrx-w8a8-layers holds the layers instead
+    quant, _, eng = phase_serve_padded(
+        cfg, params, "serve-dbrx-w8a8", mono_outputs=outputs,
+        precision="w8a8", quant_budget=1.0, keep_engine=True, **serve)
+    n_int8 = sum(isinstance(m, QuantDense)
+                 for m in eng.quant.params.modules())
+    moe_int8 = [n for n, m in eng.quant.params.named_modules()
+                if isinstance(m, QuantDense) and ".moe." in f".{n}."]
+    if n_int8 != 4 * cfg.num_layers or moe_int8:
+        raise AssertionError(f"serve-dbrx-w8a8: {n_int8} int8 weights, "
+                             f"{len(moe_int8)} of them the experts'; want "
+                             f"the 4 attention projections of each layer")
+    del eng, params
+    _free_card()
+    print(f"freed dbrx-132b: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB still allocated", flush=True)
+    return {k: launches[k] + chunked[k] + quant[k]
+            for k in ("flash_attn", "decode_attn", "w8a8_matmul",
+                      "decode_attn_int8")}
+
+
+MOE_SPANS = (moe_mod.MOE_SPAN, moe_mod.ROUTE_SPAN, moe_mod.DISPATCH_SPAN,
+             moe_mod.EXPERTS_SPAN, moe_mod.COMBINE_SPAN)
+
+
+def _dbrx_flops(cfg, params, B: int, T: int, pairs: int) -> dict:
+    """The products of one call of ``T`` tokens in ``B`` rows over ``pairs``
+    (query, key) pairs, as the port computes them: the experts over their
+    whole capacity buffers (E x C slots a layer), the attention
+    projections and the router over every token of the call, attention
+    over the pairs, and the greedy head at one token a row."""
+    m, d, L = cfg.moe, cfg.d_model, cfg.num_layers
+    C = moe_mod._capacity(T, cfg)
+    attn = params.layers[0].attn
+    proj = sum(getattr(attn, w).numel() for w in ("wq", "wk", "wv", "wo"))
+    return {"experts": 2.0 * 3 * m.padded_experts * C * d * m.d_expert * L,
+            "projections": 2.0 * T * (proj + d * m.num_experts) * L,
+            "attention": 4.0 * pairs * cfg.num_heads * cfg.head_dim * L,
+            "head": 2.0 * B * params.lm_head.numel()}
+
+
+def profile_dbrx() -> None:
+    """profile-dbrx: in one ``marked_window``, a 4 x 4096 prefill call
+    (lens ``DBRX_PROMPTS``) through the model layer, eagerly, and 8
+    replays of a graphed decode stage of 4 slots at ``DBRX_DECODE_POS``;
+    the window must hold every marker. Prints the prefill's device time,
+    the ``moe`` spans' share of it (and of that, ``moe.route``,
+    ``moe.dispatch``, ``moe.experts`` and ``moe.combine``) and flash's,
+    and the step's device time and device activities, each beside its
+    bound: the prefill's products (the experts over their capacity
+    buffers) at 989 TFLOP/s, the step's bytes (every weight, since each
+    expert runs over its capacity buffer, and the K/V its rows read) at
+    3.35 TB/s."""
+    cfg, params = init_dbrx()
+    label = "profile-dbrx"
+    lens = DBRX_PROMPTS
+    B, S = len(lens), max(lens)
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    lens_t = torch.tensor(lens, device=DEV)
+    valid = torch.arange(S, device=DEV)[None, :] < lens_t[:, None]
+    caches = model_mod.init_caches(cfg, B, DBRX_KW["max_len"], DEV)
+    eng = InferenceEngine(cfg, params, **DBRX_KW)
+    run = eng.executor.get("decode", (eng.precision,), eng._build_decode)
+    step_in = {"tokens": np.zeros((B, 1), np.int32),
+               "pos": np.array(DBRX_DECODE_POS, np.int32),
+               "active": np.ones(B, bool)}
+    run(step_in)                        # the eager warm-up, then the capture
+    run(step_in)
+    replay = run.variants[None].graph.replay
+
+    @torch.inference_mode()
+    def prefill():
+        x, _ = model_mod.forward(params, cfg, {"tokens": toks},
+                                 mode="prefill", caches=caches,
+                                 kv_valid=valid)
+        return model_mod.greedy_next(
+            params, cfg, x[torch.arange(B, device=DEV), lens_t - 1])
+
+    prefill()
+    replay()
+    torch.cuda.synchronize()
+    steps = 8
+    calls = [prefill] + [replay] * steps
+    prof, events, pairs = marked_window(calls)
+    if pairs is None:
+        raise AssertionError(f"{label}: the window lost marker kernels, and "
+                             f"with them device activities")
+    ms = [sum(e.time_range.elapsed_us() for e in events[a + 1:b]) / 1e3
+          for a, b in pairs]
+    count = [b - a - 1 for a, b in pairs]
+    spans = {}
+    for name in MOE_SPANS:
+        n, t = _span_ms(prof, name)
+        if n != cfg.num_layers or not t:
+            raise AssertionError(f"{label}: {n} {name} spans ({t:.3f} ms) "
+                                 f"for {cfg.num_layers} layers")
+        spans[name] = t
+    a, b = pairs[0]
+    flash_ms = sum(e.time_range.elapsed_us() for e in events[a + 1:b]
+                   if "flash_fwd_kernel" in e.name) / 1e3
+    if not flash_ms:
+        raise AssertionError(f"{label}: no flash kernel in the prefill")
+    flops = _dbrx_flops(cfg, params, B, B * S,
+                        sum(n * (n + 1) // 2 for n in lens))
+    wbytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    pre_bound, pre_by = bound(sum(flops.values()), wbytes, torch.bfloat16)
+    kv_bytes = sum(2 * (p + 1) * cfg.num_kv_heads * cfg.head_dim * 2
+                   for p in DBRX_DECODE_POS) * cfg.num_layers
+    step_flops = sum(_dbrx_flops(cfg, params, B, B, sum(
+        p + 1 for p in DBRX_DECODE_POS)).values())
+    step_bound, step_by = bound(step_flops, wbytes + kv_bytes,
+                                torch.bfloat16)
+    step_ms = sum(ms[1:]) / steps
+    moe_ms = spans[moe_mod.MOE_SPAN]
+    print(f"{label}: eager prefill {B}x{S} (lens {list(lens)}, capacity "
+          f"{moe_mod._capacity(B * S, cfg)} a layer's expert): device "
+          f"{ms[0]:.3f} ms over {count[0]} activities (bound "
+          f"{pre_bound:.3f} ms by {pre_by}: " + ", ".join(
+              f"{k} {v / 1e12:.3f}" for k, v in flops.items())
+          + f" TFLOP; {ms[0] / pre_bound:.2f}x); the moe spans "
+          f"{moe_ms:.3f} ms ({100 * moe_ms / ms[0]:.1f}%: " + ", ".join(
+              f"{k} {100 * spans[k] / ms[0]:.1f}%" for k in MOE_SPANS[1:])
+          + f"), flash {flash_ms:.3f} ms ({100 * flash_ms / ms[0]:.1f}%)",
+          flush=True)
+    print(f"{label}: graphed decode step, {B} rows at pos "
+          f"{list(DBRX_DECODE_POS)}: device {step_ms:.4f} ms (min "
+          f"{min(ms[1:]):.4f}) over {count[1]} activities (bound "
+          f"{step_bound:.4f} ms by {step_by}: {wbytes / 1e9:.3f} GB of "
+          f"weights, {kv_bytes / 1e9:.3f} GB of K/V read; "
+          f"{step_ms / step_bound:.2f}x); all {2 * len(calls)} markers in "
+          f"the window", flush=True)
+    del eng, caches, params
+    _free_card()
 
 
 # ---- XLM-R ----------------------------------------------------------------
@@ -6100,6 +6798,23 @@ def phase_fleet_dlrm(cfg, asn, params, batches, outs) -> int:
     return total
 
 
+# phases that run in a process of their own (``python3 chip_smoke.py
+# <arg>``), right after the kernel phase, each checked profiler window the
+# first of its process: profile-mamba2's window, taken in this process
+# after the kernel phase, came back with 17 of its 18 markers in each of
+# four tries, and the kernel phase's main window lost one of its 2160 in 3
+# of 3 tries once the G 6 cases' window ran before it here
+CHILD_PHASES = {"--dbrx-kernels": dbrx_kernel_cases,
+                "--profile-mamba2": profile_mamba2,
+                "--profile-dbrx": profile_dbrx}
+
+
+def run_child(arg: str) -> None:
+    _free_card()
+    subprocess.run([sys.executable, os.path.abspath(__file__), arg],
+                   check=True, timeout=900)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6108,8 +6823,8 @@ def main():
     SMS = torch.cuda.get_device_properties(0).multi_processor_count
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] == [PROFILE_MAMBA2_ARG]:
-        profile_mamba2()
+    if len(sys.argv) == 2 and sys.argv[1] in CHILD_PHASES:
+        CHILD_PHASES[sys.argv[1]]()
         return
     print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -6117,7 +6832,8 @@ def main():
     phase_build()
     phase_host_link()
     main_path = phase_kernels()
-    phase_profile_mamba2()
+    for arg in CHILD_PHASES:
+        run_child(arg)
     cfg = get_config("deepseek-7b")
     t0 = time.perf_counter()
     params = model_mod.init_params(cfg, seed=0, device=DEV)
@@ -6189,6 +6905,8 @@ def main():
     for k, n in phase_recurrentgemma().items():
         launches[k] += n
     phase_mamba2()
+    for k, n in phase_dbrx().items():
+        launches[k] += n
     phase_check_gemma2()
     g2cfg = get_config("gemma2-27b")
     t0 = time.perf_counter()

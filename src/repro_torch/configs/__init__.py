@@ -10,14 +10,17 @@ and a decoder whose layers add cross-attention to the encoder's output;
 qwen2-vl-7b, M-RoPE over three position streams, q/k/v biases, padded
 heads and token or stub patch-embedding inputs; mamba2-130m, Mamba2 SSD
 mixer blocks alone, whose per-slot state is constant in the context
-length); the others join with the slices that port their block kinds."""
+length; dbrx-132b, global attention blocks whose MLP half is a
+mixture of 16 experts, top 4, with capacity drops); the others join with
+the slices that port their block kinds."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import (deepseek_7b, gemma2_27b, gemma_2b,
-                                 mamba2_130m, qwen2_vl_7b, recurrentgemma_9b,
-                                 whisper_medium, xlmr_paper)
+from repro_torch.configs import (dbrx_132b, deepseek_7b, gemma2_27b,
+                                 gemma_2b, mamba2_130m, qwen2_vl_7b,
+                                 recurrentgemma_9b, whisper_medium,
+                                 xlmr_paper)
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
                                       SSM, ModelConfig, QuantConfig,
                                       reduce_for_smoke)
@@ -26,7 +29,8 @@ _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (deepseek_7b.CONFIG, gemma2_27b.CONFIG,
                         gemma_2b.CONFIG, recurrentgemma_9b.CONFIG,
                         xlmr_paper.CONFIG, whisper_medium.CONFIG,
-                        qwen2_vl_7b.CONFIG, mamba2_130m.CONFIG)}
+                        qwen2_vl_7b.CONFIG, mamba2_130m.CONFIG,
+                        dbrx_132b.CONFIG)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -5,7 +5,9 @@ leading ``repeats`` axis (``params["scan"]``, one stacked dict per unit
 position) plus an unrolled ``params["tail"]``; the port has one module per
 layer. Layer ``r * len(unit) + i`` is ``scan[i]`` at index ``r``, then the
 tail. Block dicts use the same names as the port's modules, so a flattened
-JAX path is the port's ``state_dict`` key. That holds for quantized
+JAX path is the port's ``state_dict`` key: a MoE block's ``moe`` leaves
+too (``router``, the experts' ``wg``/``wu``/``wd`` with the padded
+experts' rows, ``shared``). That holds for quantized
 weights too: the JAX leaf ``{"q8": (K,N) int8, "scale": (N,) f32}`` is the
 port's ``QuantDense`` module with buffers ``q8`` and ``scale`` (``q8``
 keeps its logical (K,N) shape; the port stores it column-major). The

@@ -7,10 +7,16 @@ heads padded to 32, served on token prompts at its default (t, h, w)
 positions, as the JAX engine serves it; or ``--arch mamba2-130m``, Mamba2
 SSD mixer blocks alone, whose per-slot state is constant in the context
 length, on no CUDA kernel: its path has no attention and, with
-``--precision w8a8``, zero int8 sites) — continuous-batching LM serving
+``--precision w8a8``, zero int8 sites; or ``--arch dbrx-132b``, global
+attention at G 6 whose MLP half is a mixture of 16 experts, top 4, with
+capacity drops, and whose w8a8 build quantizes the attention projections
+alone) — continuous-batching LM serving
 with bucketed batched prefill on the card (``--device cpu`` runs the
 plain versions of the kernels on the host). ``--smoke`` (the default) serves the reduced
-config; ``--full-config`` the published widths. The request trace is the
+config; ``--full-config`` the published widths, refused before anything
+is allocated when the weights alone pass the card's memory (dbrx-132b's
+~264 GB: ``chip_smoke.py``'s serve-dbrx serves 8 of its 40 layers at
+full width instead). The request trace is the
 JAX launcher's: the same seeded generator, lengths and priorities.
 ``--arch dlrm`` serves the 4-stage DLRM pipeline on a row-wise int8 slab
 (batches of 64 from ``dlrm_batches``, a full-trace warm-up first);
@@ -89,6 +95,10 @@ from repro_torch.serving.encoder import (EncoderServer, arrival_batches,
 from repro_torch.serving.engine import InferenceEngine, Request, make_replicas
 from repro_torch.serving.perf_model import PerfModel
 from repro_torch.serving.router import ReplicaRouter
+
+# one H100's memory: the card a ``--full-config`` model must fit when the
+# launcher serves on the host (on the card, the card's own)
+CARD_BYTES = 80e9
 
 # the JAX launcher's greedy-token-agreement guardrail for w8a8 serving
 QUANT_AGREEMENT_THRESHOLD = 0.90
@@ -184,9 +194,28 @@ def _verify_prefix(args, cfg, params, kw):
     return tel
 
 
+def refuse_oversize(cfg, device) -> None:
+    """Raise ``SystemExit`` before any allocation when ``cfg``'s weights
+    alone pass the card's memory (counted on the meta device)."""
+    meta = model_mod.Model(cfg, None, "meta")
+    nbytes = sum(t.numel() * t.element_size() for t in meta.parameters())
+    device = torch.device(device)
+    card = (torch.cuda.get_device_properties(device).total_memory
+            if device.type == "cuda" else CARD_BYTES)
+    if nbytes > card:
+        raise SystemExit(
+            f"--full-config {cfg.name}: its {cfg.num_layers} layers' "
+            f"weights take {nbytes / 1e9:.1f} GB in {cfg.param_dtype}, past "
+            f"the card's {card / 1e9:.1f} GB (chip_smoke.py's serve-dbrx "
+            f"phase serves dbrx-132b's first 8 layers at full width on one "
+            f"card)")
+
+
 def serve_lm(args):
     cfg = reduce_for_smoke(get_config(args.arch)) if args.smoke \
         else get_config(args.arch)
+    if not args.smoke:
+        refuse_oversize(cfg, args.device)
     if torch.device(args.device).type == "cuda":
         # set-up, not serving: without this the first prefill call would
         # compile the kernels inside the first requests' TTFT

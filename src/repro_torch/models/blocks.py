@@ -4,10 +4,12 @@ pre-norm MLP, each output normed again before its residual add when
 ``cfg.post_attn_norm`` is set (gemma2's sandwich norms); a ``decoder``
 block (whisper's) puts a pre-norm cross-attention to the encoder's output
 between its causal self-attention and its MLP; an ``ssm`` block (Mamba2's)
-is the pre-norm mixer and its residual add alone, with no MLP half. Every
-norm is the one ``cfg.norm_type`` names (RMSNorm, or LayerNorm) — the
-attention, recurrent, ssm and decoder paths of
-``repro/models/blocks.py``."""
+is the pre-norm mixer and its residual add alone, with no MLP half. When
+``cfg.moe`` is set, the MLP half of a block holds ``moe``, a mixture of
+experts (``models/moe.py``), in place of ``mlp``; its load-balance loss is
+not carried through the stack. Every norm is the one ``cfg.norm_type``
+names (RMSNorm, or LayerNorm) — the attention, recurrent, ssm, decoder and
+MoE paths of ``repro/models/blocks.py``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -22,6 +24,7 @@ from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, \
 # to the encoder's output, MLP (the reference's kind of the same name)
 DECODER = "decoder"
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import dtype_of, make_norm
@@ -52,7 +55,10 @@ class Block(nn.Module):
         if cfg.post_attn_norm:
             self.post_norm = make_norm(cfg, dt, device)
         self.pre_mlp_norm = make_norm(cfg, dt, device)
-        self.mlp = MLP(cfg, gen, device)
+        if cfg.moe is not None:
+            self.moe = moe_mod.MoE(cfg, gen, device)
+        else:
+            self.mlp = MLP(cfg, gen, device)
         if cfg.post_attn_norm:
             self.post_mlp_norm = make_norm(cfg, dt, device)
 
@@ -135,7 +141,9 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         x = x + attn.cross_attention(p.xattn, p.xattn_norm(x, cfg.norm_eps),
                                      cross[0], cross[1], cfg, mode=mode,
                                      kv_valid=cross_valid)
-    y = apply_mlp(p.mlp, p.pre_mlp_norm(x, cfg.norm_eps), cfg)
+    h = p.pre_mlp_norm(x, cfg.norm_eps)
+    y = moe_mod.moe_apply(p.moe, h, cfg)[0] if cfg.moe is not None \
+        else apply_mlp(p.mlp, h, cfg)
     if cfg.post_attn_norm:
         y = p.post_mlp_norm(y, cfg.norm_eps)
     return x + y

@@ -13,13 +13,15 @@ from repro_torch.models.common import activation_fn, dtype_of, mk_param
 
 class MLP(nn.Module):
     """``w_gate`` (only when ``cfg.glu``), ``w_up`` (d, f) and ``w_down``
-    (f, d), the JAX layout; with ``cfg.mlp_bias`` also ``b_up`` (f,) and
-    ``b_down`` (d,), zeros at init."""
+    (f, d), the JAX layout, f = ``d_ff`` or ``cfg.d_ff``; with
+    ``cfg.mlp_bias`` also ``b_up`` (f,) and ``b_down`` (d,), zeros at
+    init."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device,
+                 d_ff: int = None):
         super().__init__()
         dt = dtype_of(cfg.param_dtype)
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         if cfg.glu:
             self.w_gate = mk_param((d, f), dt, device, gen)
         self.w_up = mk_param((d, f), dt, device, gen)

@@ -2,7 +2,8 @@
 recurrent and ssm blocks in the order of ``cfg.layer_kinds()``, final
 norm, greedy head) — the path deepseek-7b, gemma2-27b, gemma-2b,
 recurrentgemma-9b, qwen2-vl-7b (M-RoPE; tokens, or stub patch embeddings
-in their place) and mamba2-130m (Mamba2 SSD blocks alone) serving run in
+in their place), mamba2-130m (Mamba2 SSD blocks alone) and dbrx-132b
+(global blocks whose MLP half is a mixture of experts) serving run in
 ``repro/models/model.py`` — the
 XLM-R encoder (``cfg.family == "encoder"``: the same stack, non-causal,
 with LayerNorm, q/k/v biases and a plain biased MLP), whose hidden states
@@ -38,7 +39,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "block kinds other than global, local, recurrent and ssm":
             not set(cfg.block_pattern) <= {ATTN_GLOBAL, ATTN_LOCAL,
                                            RECURRENT, SSM},
-        "mixture of experts": cfg.moe is not None,
         # tokens, or stub embeddings in their place (an enc-dec model's
         # encoder frames, qwen2-vl's patches)
         f"embedding inputs of kind {cfg.input_kind!r}":

@@ -12,8 +12,10 @@ position's ``repeats`` copies in one array; the port has one module per
 layer, so a scan site here groups the layers ``r * len(unit) + i``: one
 decision for all of them, its error the max over them, and a fall-back
 moves all of them back to the fp weight together. deepseek-7b has 7
-sites, not 210. Embeddings, norms, the LM head and the RG-LRU and SSM
-mixers stay fp (the reference's skip-list), so a model of ssm layers alone
+sites, not 210. Embeddings, norms, the LM head, the MoE experts and
+router, and the RG-LRU and SSM mixers stay fp (the reference's skip-list:
+``QUANT_SITES`` has no ``moe``), so dbrx-132b's sites are its attention
+projections alone (4, whatever its depth) and a model of ssm layers alone
 (mamba2-130m) has no site: its build decides nothing and serves the fp
 weights.
 

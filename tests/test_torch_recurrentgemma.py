@@ -367,21 +367,19 @@ def test_config_and_support():
              "recurrent")),
     ("moe", ("mixture of experts",))])
 def test_the_other_refusals_still_stand(what, names):
-    """Accepting recurrent blocks lifts no other refusal: mixture-of-experts
-    is still refused by name. An SSM block, which ``names`` lists as the
-    refusals it once hit, is served since mamba2-130m's slice: a pattern
-    of ssm and recurrent blocks passes."""
+    """The features ``names`` lists as the refusals they once hit are
+    served since their slices, beside recurrent blocks: an SSM block since
+    mamba2-130m's (a pattern of ssm and recurrent blocks passes) and
+    mixture-of-experts since dbrx-132b's (recurrent blocks whose MLP half
+    is a MoE pass)."""
     cfg = _configs()[1]
     if what == "ssm":
         cfg = dataclasses.replace(cfg, block_pattern=("ssm", RECURRENT),
                                   ssm=SSMConfig())
-        model_mod.check_supported(cfg)
-        return
-    cfg = dataclasses.replace(cfg, moe=MoEConfig(num_experts=4, top_k=2,
-                                                 d_expert=32))
-    with pytest.raises(NotImplementedError) as err:
-        model_mod.check_supported(cfg)
-    assert all(n in str(err.value) for n in names), str(err.value)
+    else:
+        cfg = dataclasses.replace(cfg, moe=MoEConfig(num_experts=4, top_k=2,
+                                                     d_expert=32))
+    model_mod.check_supported(cfg)
 
 
 def test_params_and_caches_carry_across_and_back(smoke):

@@ -282,7 +282,8 @@ def test_quantization_workflow_decides_like_the_original(budget):
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "gemma2-27b", "gemma-2b",
                                   "recurrentgemma-9b", "xlmr-paper",
-                                  "qwen2-vl-7b", "mamba2-130m"])
+                                  "qwen2-vl-7b", "mamba2-130m",
+                                  "dbrx-132b"])
 def test_config_copy_equals_the_original(arch):
     """Each config the port registers is the JAX package's, field for
     field, at full width and through ``reduce_for_smoke``."""

@@ -273,7 +273,8 @@ def test_full_config_builds_at_full_width():
 
 # features the port once refused and now serves: each case still names
 # the refusal it used to hit, and now passes ``check_supported``
-ACCEPTED = ("SSM blocks", "block kinds other than global")
+ACCEPTED = ("SSM blocks", "block kinds other than global",
+            "mixture of experts")
 
 
 @pytest.mark.parametrize("feature,kw", [
@@ -284,9 +285,10 @@ ACCEPTED = ("SSM blocks", "block kinds other than global")
     ("embedding inputs", {"input_kind": "embeds"})])
 def test_other_features_still_refused(feature, kw):
     """Inputs pass as tokens or as stub ``embeddings`` (whisper's encoder
-    frames, qwen2-vl's patches); any other input kind is refused, as is
-    MoE. SSM blocks (an ``ssm`` sub-config, an ``ssm`` block pattern) are
-    served since mamba2-130m's slice and pass."""
+    frames, qwen2-vl's patches); any other input kind is refused. SSM
+    blocks (an ``ssm`` sub-config, an ``ssm`` block pattern) are served
+    since mamba2-130m's slice and MoE (a ``moe`` sub-config) since
+    dbrx-132b's, and pass."""
     if isinstance(kw, str):          # a config that has the feature
         arch = {"moe": "dbrx-132b", "ssm": "mamba2-130m"}[kw]
         cfg = dataclasses.replace(reduce_for_smoke(get_config("xlmr-paper")),
