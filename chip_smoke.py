@@ -88,12 +88,18 @@ result line):
              (bf16, 48 query heads over 8 kv heads, G 6, hd 128): flash
              prefill B 4, S = T = 4096 with uneven lens and its chunk call
              (4 x 512 in place over a 4 x 4608 cache), both on the
-             CUDA-core ``flash_fwd_kernel`` (6 does not divide the TMA
-             kernel's 128-row tile; the window must name it), both decode
-             kernels at B 4, S 4608 (a warp's pass of 8 heads holds 6),
-             w8a8 at its attention projections (K 6144 -> 6144, 1024) at M
-             4 and 16384, each against its plain version, then their
-             device window.
+             tensor-core ``flash_fwd_kernel_tma`` (a 128-row tile holds 21
+             positions of 6 heads and 2 pad rows; the window must name
+             it), both decode kernels at B 4, S 4608 (a warp's pass of 8
+             heads holds 6), w8a8 at its attention projections (K 6144 ->
+             6144, 1024) at M 4 and 16384, flash at command-r-plus's 96
+             heads over 8 (G 12) on the same prefill and chunk shapes and
+             flash's G sweep (G 3, 5, 6, 7, 12, 24, 48, 96, 128 at hd 64,
+             128 and 256; an empty row, a window, a live softcap,
+             non-causal, chunks off the tile, a kv row outside the cache;
+             bf16 at hd 32, G 6 on the CUDA-core ``flash_fwd_kernel``),
+             each against its plain version, then their device window,
+             which must name each case's kernel.
 2b. profile-mamba2 — after it, in a process of its
              own (``--profile-mamba2``: the same window taken in this
              process after the kernel phase lost a marker kernel every
@@ -498,6 +504,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -719,11 +726,11 @@ def softcap_live(name: str, plain, cap: float, want: torch.Tensor,
 
 
 def heads_distinct(name: str, want: torch.Tensor, K: int, dtype) -> None:
-    """A G-16 case holds 16 different outputs per kv head: the plain
-    output ``want`` (..., H, hd) of each head differs past the case's
-    tolerance from head 0 of its group and from the head 8 before it, so a
-    kernel that computed only 8 heads of a group, or one head per group,
-    fails the case."""
+    """A case holds G different outputs per kv head: the plain output
+    ``want`` (..., H, hd) of each head differs past the case's tolerance
+    from head 0 of its group and from the head 8 before it, so a kernel
+    that computed only 8 heads of a group (a warp's pass), or one head per
+    group, fails the case."""
     tol = TOL[dtype]
     w = want.float()
     w = w.reshape(*w.shape[:-2], K, w.shape[-2] // K, w.shape[-1])
@@ -739,12 +746,27 @@ def heads_distinct(name: str, want: torch.Tensor, K: int, dtype) -> None:
                              f"heads")
 
 
+def plain_by_kv_heads(q, k, v, lens, parts: int = 1, **kw):
+    """The flash plain version over ``parts`` equal slices of the kv heads
+    (with their query heads), joined: the same function, with 1/parts of
+    the whole score matrix (f32, B x H x S x T) alive at a time."""
+    if parts == 1:
+        return flash_attention_ref(q, k, v, lens, **kw)
+    n = k.shape[2] // parts
+    G = q.shape[2] // k.shape[2]
+    return torch.cat([flash_attention_ref(
+        q[:, :, i * n * G:(i + 1) * n * G], k[:, :, i * n:(i + 1) * n],
+        v[:, :, i * n:(i + 1) * n], lens, **kw) for i in range(parts)], dim=2)
+
+
 def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, q_scale=1.0,
-               T=None, **kw):
+               T=None, distinct=False, ref_parts=1, **kw):
     """One flash case on the card, S queries over T keys (default S);
     returns the measurement dict. With a softcap and a ``q_scale`` past 1,
     the softcap is shown live (``softcap_live``) and SDPA without it timed
-    as a stand-in."""
+    as a stand-in. G-16 cases, and others with ``distinct``, must hold
+    distinct heads (``heads_distinct``); the plain version runs over
+    ``ref_parts`` slices of the kv heads (``plain_by_kv_heads``)."""
     T = S if T is None else T
     q = _randn(gen, (B, S, H, hd), dtype) * q_scale
     k = _randn(gen, (B, T, K, hd), dtype)
@@ -753,17 +775,17 @@ def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, q_scale=1.0,
                                                     device=DEV)
     got = flash_attn(q, k, v, lens_t, **kw)
     torch.cuda.synchronize()
-    want = flash_attention_ref(q, k, v, lens_t, **kw)
+    want = plain_by_kv_heads(q, k, v, lens_t, ref_parts, **kw)
     err = compare(f"flash_attn[{name}]", got, want, dtype)
-    if H // K == 16:
+    if H // K == 16 or distinct:
         heads_distinct(f"flash_attn[{name}]", want, K, dtype)
     cap = kw.get("softcap", 0.0)
     uncapped = None
     if cap and q_scale != 1.0:
         uncapped = softcap_live(
             f"flash_attn[{name}]",
-            lambda c: flash_attention_ref(q, k, v, lens_t,
-                                          **{**kw, "softcap": c}),
+            lambda c: plain_by_kv_heads(q, k, v, lens_t, ref_parts,
+                                        **{**kw, "softcap": c}),
             cap, want, dtype)
     # the work these inputs need: the (query, key) pairs the mask keeps
     causal, window = kw.get("causal", True), kw.get("window", 0)
@@ -803,8 +825,8 @@ def flash_case(name, gen, B, S, H, K, hd, dtype, lens=None, q_scale=1.0,
         return flash_attn(q, k, v, lens_t, **kw)
 
     return dict(max_abs_err=err, ms=time_ms(call),
-                plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, lens_t,
-                                                             **kw)),
+                plain_ms=time_ms(lambda: plain_by_kv_heads(q, k, v, lens_t,
+                                                           ref_parts, **kw)),
                 bound_ms=bound_ms, bound_by=bound_by, call=call,
                 **_library(library, stand_in=uncapped is not None))
 
@@ -841,13 +863,14 @@ def chunk_mask(start, lengths, C: int, T: int, window: int = 0):
 
 def flash_chunk_case(name, gen, Bk, T, H, K, hd, C, dtype, slots, start,
                      lengths, window=0, softcap=0.0, measure=False,
-                     quiet=False, q_scale=1.0):
+                     quiet=False, q_scale=1.0, distinct=False):
     """Prefill chunks through flash at query offsets ``start`` over rows
     ``slots`` of a (Bk, T) cache, held against the plain version on the
     same inputs; with ``measure``, timed beside its bound and SDPA (a
     boolean mask over the gathered rows, the gather outside the timed
     call) and returned as a measurement dict, else its error. A softcap
-    with a ``q_scale`` past 1 is shown live, as in ``flash_case``."""
+    with a ``q_scale`` past 1 is shown live, and heads held distinct, as
+    in ``flash_case``."""
     P = len(slots)
     q = _randn(gen, (P, C, H, hd), dtype) * q_scale
     k, v = (_randn(gen, (Bk, T, K, hd), dtype) for _ in range(2))
@@ -859,7 +882,7 @@ def flash_chunk_case(name, gen, Bk, T, H, K, hd, C, dtype, slots, start,
     torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, lens, **kw)
     err = compare(f"flash_attn[{name}]", got, want, dtype)
-    if H // K == 16 and not quiet:
+    if (H // K == 16 or distinct) and not quiet:
         heads_distinct(f"flash_attn[{name}]", want, K, dtype)
     uncapped = None
     if softcap and q_scale != 1.0:
@@ -902,11 +925,14 @@ def flash_chunk_case(name, gen, Bk, T, H, K, hd, C, dtype, slots, start,
                 **_library(library, stand_in=uncapped is not None))
 
 
-def flash_bad_row(gen) -> None:
-    """A kv row outside the cache reads no key: that row gives 0, on both
-    routes, and the other rows stay right."""
-    for dt, hd in ((torch.bfloat16, 128), (torch.float32, 32)):
-        q = _randn(gen, (3, 16, 4, hd), dt)
+def flash_bad_row(gen, cases=((torch.bfloat16, 128, 2),
+                              (torch.float32, 32, 2))) -> list:
+    """A kv row outside the cache reads no key: that row gives 0, and the
+    other rows stay right, for each (dtype, head_dim, G) of ``cases`` (by
+    default both routes). Returns each case's call."""
+    calls = []
+    for dt, hd, G in cases:
+        q = _randn(gen, (3, 16, 2 * G, hd), dt)
         k, v = (_randn(gen, (3, 64, 2, hd), dt) for _ in range(2))
         lens = torch.tensor([40, 40, 40], dtype=torch.int32, device=DEV)
         rows = torch.tensor([1, 3, -1], dtype=torch.int32, device=DEV)
@@ -915,12 +941,16 @@ def flash_bad_row(gen) -> None:
         torch.cuda.synchronize()
         if got[1:].any():
             raise AssertionError(f"flash_attn: kv rows 3 and -1 of a 3-row "
-                                 f"cache did not give 0 ({dt})")
+                                 f"cache did not give 0 ({dt}, G {G})")
         compare("flash_attn[kv rows outside the cache]", got,
                 flash_attention_ref(q, k, v, lens, q_off=off, kv_rows=rows),
                 dt)
+        calls.append(functools.partial(flash_attn, q, k, v, lens, q_off=off,
+                                       kv_rows=rows))
     print("flash_attn: kv rows outside the cache give 0 for their rows only "
-          "(bf16 hd 128, f32 hd 32)", flush=True)
+          "(" + ", ".join(f"{str(dt).split('.')[-1]} hd {hd} G {G}"
+                          for dt, hd, G in cases) + ")", flush=True)
+    return calls
 
 
 # deepseek-7b's chunk call: 4 slots at offsets (384, 128, 0, 256) over a
@@ -1430,8 +1460,15 @@ def _template_args(kernel: str) -> list:
 
 def require_flash_kernel(name: str, fn, tma: bool, hd: int = 256) -> None:
     """One call of ``fn`` ran flash's head_dim-``hd`` kernel on the tensor
-    cores (``flash_fwd_kernel_tma<hd, ...>``) or on the CUDA cores."""
-    names = [n for n in kernel_times(fn, 1) if "flash_fwd_kernel" in n]
+    cores (``flash_fwd_kernel_tma<hd, ...>``) or on the CUDA cores. A trace
+    that names no flash kernel at all (one that lost its activities) is
+    taken again, ``TRACE_TRIES`` traces at most."""
+    for _ in range(TRACE_TRIES):
+        names = [n for n in kernel_times(fn, 1) if "flash_fwd_kernel" in n]
+        if names:
+            break
+        print(f"flash_attn[{name}]: the trace names no flash kernel; taken "
+              f"again", flush=True)
     ran = [n for n in names if str(hd) in _template_args(n)
            and ("flash_fwd_kernel_tma" in n) == tma]
     print(f"flash_attn[{name}]: the profile names {names}", flush=True)
@@ -1439,6 +1476,12 @@ def require_flash_kernel(name: str, fn, tma: bool, hd: int = 256) -> None:
         raise AssertionError(f"flash_attn[{name}]: expected the "
                              f"{'TMA' if tma else 'CUDA-core'} kernel at "
                              f"hd {hd}, the profile names {names}")
+
+
+def tma_route(hd: int) -> tuple:
+    """A ``device_window`` route: flash's head_dim-``hd`` tensor-core
+    kernel, never its CUDA-core one."""
+    return (f"flash_fwd_kernel_tma<{hd}", "flash_fwd_kernel<")
 
 
 # gemma2-27b's dense projections (K, N): wq, wk and wv, gate and up, wo,
@@ -1477,10 +1520,11 @@ def gemma_2b_flash_cases(gen, device_fns: dict) -> None:
     beside SDPA (no softcap: a true yardstick) and their bound; f32 at hd
     256 on the CUDA cores, timed; then the tile edges at hd 256: S not a
     multiple of the row or the 64-key tile, an empty row, a window, a
-    softcap with q scaled x16 (live), G 8 (the TMA kernel) and 12 (the
-    CUDA cores), non-causal, and chunks off the tile, in f32 and with a
-    window. The profile must name ``flash_fwd_kernel_tma<256, ...>`` for
-    the bf16 prefill and chunk call and the CUDA-core kernel for f32."""
+    softcap with q scaled x16 (live), G 8 and 12 (12 does not divide the
+    128-row tile: 10 positions a tile, 8 pad rows), non-causal, and chunks
+    off the tile, in f32 and with a window. The profile must name
+    ``flash_fwd_kernel_tma<256, ...>`` for the bf16 prefill, the chunk
+    call and G 12, and the CUDA-core kernel for f32."""
     f32, bf16 = torch.float32, torch.bfloat16
     name = "gemma_2b_B4_S4096_H16_K1_hd256"
     r = flash_case(name, gen, 4, 4096, 16, 1, 256, bf16,
@@ -1511,8 +1555,7 @@ def gemma_2b_flash_cases(gen, device_fns: dict) -> None:
             "hd256_G16_softcap30_q16": (2, 300, 16, 1, bf16, None,
                                         {"softcap": 30.0}),
             "hd256_G8_S300": (2, 300, 16, 2, bf16, [300, 129], {}),
-            "hd256_G12_S300_cuda_cores": (2, 300, 24, 2, bf16, [300, 129],
-                                          {}),
+            "hd256_G12_S300_tma": (2, 300, 24, 2, bf16, [300, 129], {}),
             "hd256_G16_noncausal": (1, 200, 16, 1, bf16, None,
                                     {"causal": False}),
             "hd256_G16_f32_S300": (2, 300, 16, 1, f32, [300, 77], {}),
@@ -1521,6 +1564,8 @@ def gemma_2b_flash_cases(gen, device_fns: dict) -> None:
                        q_scale=SOFTCAP_Q_SCALE if "softcap" in kw else 1.0,
                        **kw)
         _show("flash_attn", name, r)
+        if name == "hd256_G12_S300_tma":
+            require_flash_kernel(name, r["call"], tma=True)
     for name, (Bk, T, H, K, C, slots, start, lengths, window, dt) in {
             "chunk_hd256_G16_off_tile_C100_T700": (
                 3, 700, 16, 1, 100, [2, 0], [537, 61], [100, 77], 0, bf16),
@@ -4667,22 +4712,36 @@ MOE_FAULTS = {"renorm": "top-k weights not renormalised",
               "act": "act(u)*g in place of act(g)*u"}
 
 
+# command-r-plus's attention (ROADMAP A4's next config): 96 query heads
+# over 8 kv heads (G 12: 10 positions and 8 pad rows a 128-row tile),
+# head_dim 128
+CMDR_HEADS = (96, 8, 128)
+# flash's tensor-core kernel at every kind of G up to its 128-row tile:
+# G that leave pad rows (3, 5, 6, 7, 12, 24, 48, 96) and 128 (one position
+# a tile), each at head_dim 64, 128 and 256; S 131 is no multiple of a
+# tile's 128 // G positions wherever a tile holds more than one
+FLASH_G_SWEEP = (3, 5, 6, 7, 12, 24, 48, 96, 128)
+FLASH_G_SWEEP_S = 131
+
+
 def dbrx_kernel_cases() -> None:
     """The kernels at dbrx-132b's served shapes (bf16, 48 query heads over
     8 kv heads: G 6, head_dim 128), each held against its plain version
     and timed beside its library call and its bound: flash's prefill of a
     4096 bucket with lens ``DBRX_PROMPTS`` (1e) and its chunk call, 4 x
     512 in place over a 4 x 4608 cache at offsets 3584, 2048, 512, 0
-    (1e'), beside SDPA with a boolean mask, both on the CUDA-core
-    ``flash_fwd_kernel`` (G 6 does not divide the TMA kernel's 128-row
-    tile); both decode kernels at B 4, S 4608, pos ``DBRX_DECODE_POS``
-    (2e bf16 beside SDPA, 3e int8; a warp's pass of 8 heads holds 6); w8a8
-    at the attention projections at M 4 (4e, the split-K kernel) and
-    16384, a 4 x 4096 prefill (4e', the TMA kernel), beside
-    ``torch._int_mm``. Then one profiler window of their device times,
-    which must name the kernel each flash and w8a8 case ran. Their inputs
-    come from a generator of their own, so that every other case keeps
-    its inputs."""
+    (1e'), beside SDPA with a boolean mask, both on the tensor-core
+    ``flash_fwd_kernel_tma`` (21 positions, 126 real rows and 2 pad rows a
+    128-row tile); both decode kernels at B 4, S 4608, pos
+    ``DBRX_DECODE_POS`` (2e bf16 beside SDPA, 3e int8; a warp's pass of 8
+    heads holds 6); w8a8 at the attention projections at M 4 (4e, the
+    split-K kernel) and 16384, a 4 x 4096 prefill (4e', the TMA kernel),
+    beside ``torch._int_mm``; flash at command-r-plus's heads
+    (``CMDR_HEADS``, G 12) on the same prefill (1cr) and chunk call (1cr')
+    shapes, their heads held distinct; ``flash_g_sweep``'s cases. Then one
+    profiler window of their device times, which must name the kernel
+    each flash and w8a8 case ran. Their inputs come from generators of
+    their own, so that every other case keeps its inputs."""
     gen = torch.Generator(device=DEV).manual_seed(34)
     bf16 = torch.bfloat16
     fns, routes = {}, {}
@@ -4691,7 +4750,7 @@ def dbrx_kernel_cases() -> None:
     _show("flash_attn", name, r)
     fns["flash_attn " + name] = r["call"]
     fns["SDPA (boolean mask) " + name] = r["library_call"]
-    routes["flash_attn " + name] = ("flash_fwd_kernel<", "flash_fwd_kernel_tma")
+    routes["flash_attn " + name] = tma_route(128)
     name = "dbrx_1e'_chunk_P4_C512_T4608_H48_K8_hd128"
     r = flash_chunk_case(name, gen, 4, 4608, 48, 8, 128, 512, bf16,
                          slots=[0, 1, 2, 3], start=[3584, 2048, 512, 0],
@@ -4699,7 +4758,7 @@ def dbrx_kernel_cases() -> None:
     _show("flash_attn", name, r)
     fns["flash_attn " + name] = r["call"]
     fns["SDPA (boolean mask) " + name] = r["library_call"]
-    routes["flash_attn " + name] = ("flash_fwd_kernel<", "flash_fwd_kernel_tma")
+    routes["flash_attn " + name] = tma_route(128)
     case = (4, 48, 8, 128, 4608, list(DBRX_DECODE_POS), bf16)
     name = "dbrx_2e_B4_S4608_H48_K8_hd128"
     r = decode_case(name, gen, *case)
@@ -4720,7 +4779,89 @@ def dbrx_kernel_cases() -> None:
             routes["w8a8_matmul " + name] = (
                 "w8a8_splitk_kernel" if M <= 16 else "w8a8_kernel_tma",
                 "w8a8_kernel<")
+    H, K, hd = CMDR_HEADS
+    name = f"cmdr_1cr_B4_S4096_H{H}_K{K}_hd{hd}"
+    # the plain version over two halves of the kv heads: its whole f32
+    # score matrix, 26 GB here, is made three times over
+    r = flash_case(name, gen, 4, 4096, H, K, hd, bf16, list(DBRX_PROMPTS),
+                   distinct=True, ref_parts=2)
+    _show("flash_attn", name, r)
+    fns["flash_attn " + name] = r["call"]
+    fns["SDPA (boolean mask) " + name] = r["library_call"]
+    routes["flash_attn " + name] = tma_route(128)
+    name = f"cmdr_1cr'_chunk_P4_C512_T4608_H{H}_K{K}_hd{hd}"
+    r = flash_chunk_case(name, gen, 4, 4608, H, K, hd, 512, bf16,
+                         slots=[0, 1, 2, 3], start=[3584, 2048, 512, 0],
+                         lengths=[512] * 4, measure=True, distinct=True)
+    _show("flash_attn", name, r)
+    fns["flash_attn " + name] = r["call"]
+    fns["SDPA (boolean mask) " + name] = r["library_call"]
+    routes["flash_attn " + name] = tma_route(128)
+    flash_g_sweep(fns, routes)
     device_window(fns, routes=routes)
+
+
+def flash_g_sweep(fns: dict, routes: dict) -> None:
+    """Flash's tensor-core kernel over ``FLASH_G_SWEEP`` at head_dim 64,
+    128 and 256 (B 2, S ``FLASH_G_SWEEP_S``, lens (S, 77), 2 kv heads up
+    to G 48, 1 past it), then at G's that leave pad rows: an empty row
+    (lens 0), a window, a live softcap (q x16), non-causal, chunks at
+    offsets off the tile, and a kv row outside the cache (0 for that row
+    alone). Each is held against the plain version (2e-2), with every head
+    of a group distinct, and added to ``fns`` with the route its window
+    must name in ``routes``: ``flash_fwd_kernel_tma<hd, ...>``, and for
+    bf16 at head_dim 32, G 6, the CUDA-core ``flash_fwd_kernel``. One
+    window checks them all: late in a process the profiler has returned
+    empty traces (2 of 35 one-case traces on an H100)."""
+    gen = torch.Generator(device=DEV).manual_seed(35)
+    bf16 = torch.bfloat16
+    S = FLASH_G_SWEEP_S
+
+    def add(name, call, route):
+        fns["flash_attn " + name] = call
+        routes["flash_attn " + name] = route
+    worst = 0.0
+    for G in FLASH_G_SWEEP:
+        K = 2 if G <= 48 else 1
+        for hd in (64, 128, 256):
+            name = f"sweep_G{G}_hd{hd}_B2_S{S}_K{K}"
+            r = flash_case(name, gen, 2, S, G * K, K, hd, bf16, [S, 77],
+                           distinct=True)
+            worst = max(worst, r["max_abs_err"])
+            add(name, r["call"], tma_route(hd))
+    print(f"flash_attn: G sweep {list(FLASH_G_SWEEP)} x hd (64, 128, 256), "
+          f"worst max abs err {worst:.3e}", flush=True)
+    for name, (Sq, G, K, hd, lens, kw) in {
+            "G6_hd128_lens0": (S, 6, 2, 128, [0, 97], {}),
+            "G12_hd64_window50": (300, 12, 2, 64, [300, 211],
+                                  {"window": 50}),
+            "G5_hd256_softcap30_q16": (S, 5, 2, 256, None,
+                                       {"softcap": 30.0}),
+            "G24_hd128_noncausal": (77, 24, 2, 128, [77, 40],
+                                    {"causal": False}),
+    }.items():
+        r = flash_case(name, gen, 2, Sq, G * K, K, hd, bf16, lens,
+                       q_scale=SOFTCAP_Q_SCALE if "softcap" in kw else 1.0,
+                       distinct=True, **kw)
+        _show("flash_attn", name, r)
+        add(name, r["call"], tma_route(hd))
+    for name, (Bk, T, G, K, hd, C, slots, start, lengths) in {
+            "chunk_G6_hd128_off_tile_C100_T500": (
+                3, 500, 6, 2, 128, 100, [2, 0], [337, 61], [100, 77]),
+            "chunk_G12_hd256_off_tile_C64_T300": (
+                2, 300, 12, 1, 256, 64, [1, 0], [201, 65], [64, 50]),
+    }.items():
+        r = flash_chunk_case(name, gen, Bk, T, G * K, K, hd, C, bf16, slots,
+                             start, lengths, measure=True, distinct=True)
+        _show("flash_attn", name, r)
+        add(name, r["call"], tma_route(hd))
+    call, = flash_bad_row(gen, cases=((bf16, 128, 6),))
+    add("bad_kv_row_G6_hd128", call, tma_route(128))
+    name = f"G6_hd32_B2_S{S}_cuda_cores"
+    r = flash_case(name, gen, 2, S, 12, 2, 32, bf16, [S, 77], distinct=True)
+    _show("flash_attn", name, r)
+    add(name, r["call"], ("flash_fwd_kernel<__nv_bfloat16, 32>",
+                          "flash_fwd_kernel_tma"))
 
 
 def reduce_dbrx(dtype: str, factor: float = 1.25):
@@ -4832,7 +4973,9 @@ def phase_check_dbrx() -> None:
     the K/V caches likewise). In bf16 the host takes the card's routes
     (``_routes``), and the share of tokens whose own top-k differs between
     the two is held to ``MOE_ROUTE_FLIPS``: a route is a discrete choice,
-    and one moved by bf16 rounding changes whole experts' outputs. Then
+    and one moved by bf16 rounding changes whole experts' outputs; the
+    bf16 config's flash (G 6, head_dim 64) must run the tensor-core
+    kernel (``flash_fwd_kernel_tma<64, ...>``) in mode full. Then
     engines on the card: graphed == eager
     tokens (monolithic and chunked) at each config; at factor 16 chunked
     (8, 16) == monolithic tokens, a prefix hit == a cold engine, snapshot
@@ -4882,6 +5025,12 @@ def phase_check_dbrx() -> None:
             if flips > MOE_ROUTE_FLIPS:
                 raise AssertionError(f"{label}: {flips} of the tokens "
                                      f"routed otherwise on the host")
+            # G 6 at head_dim 64: flash's tensor-core kernel
+            batch = {"tokens": toks.to(DEV)}
+            with torch.inference_mode():
+                require_flash_kernel(label, lambda: model_mod.forward(
+                    card, cfg, batch, mode="full", caches=None), tma=True,
+                    hd=64)
         held = [_hold_hidden(f"{label} {what}", g, w, dt)
                 for what, g, w in zip(("full", "prefill", "decode"), got,
                                       want)]

@@ -27,10 +27,15 @@
 // TPU wrapper pads to its block grid instead).
 //
 // Two kernels, chosen up front by shape in `dispatch_hd`:
-//   - bf16 at hd 64, 128 and 256, G dividing 128, 16-byte aligned tensors (the
-//     serving path): `flash_fwd_kernel_tma`, on the tensor cores. 128 rows per block,
-//     three warpgroups. Warpgroup 0 is the producer: one thread loads the Q tile once
-//     and streams K/V tiles of KEYS keys (128; 64 at hd 256) through a 2-stage ring,
+//   - bf16 at hd 64, 128 and 256, any G up to 128, 16-byte aligned tensors (the
+//     serving path): `flash_fwd_kernel_tma`, on the tensor cores. 128 rows per block:
+//     P = 128/G (rounded down) whole query positions of the G heads, R = P*G real
+//     rows. Where G does not divide 128, rows R..127 are padding: zeroed, never
+//     stored, given the tile's last real position (so no mask or key range widens),
+//     and they cost their share of the products: 2/128 at G 6 (dbrx-132b), 8/128 at
+//     G 12 (command-r-plus), 63/128 at G 65 (the worst). Three warpgroups.
+//     Warpgroup 0 is the producer: one thread loads the Q tile (R rows) once and
+//     streams K/V tiles of KEYS keys (128; 64 at hd 256) through a 2-stage ring,
 //     all by TMA into 128B-swizzled shared memory (hd = 128 or 256 as two or four
 //     64-column boxes), each stage completing on its "full" mbarrier and freed on its
 //     "empty" one. Warpgroups 1 and 2 own 64 rows each: S = Q K^T by
@@ -53,8 +58,8 @@
 //     sums (a product of two bf16 values is exact in f32). P is rounded to bf16 for the
 //     P V product, where the TPU kernel keeps it in f32: a relative error up to 2^-9
 //     per weight, inside the bf16 tolerance of 2e-2. The row sum l adds the f32 P.
-//   - f32 at any hd, and bf16 at hd 16 and 32, a G the TMA kernel does not take or a
-//     tensor not on 16 bytes:
+//   - f32 at any hd, and bf16 at hd 16 and 32, G above 128 or a tensor not on 16
+//     bytes:
 //     `flash_fwd_kernel` on the CUDA cores. 64 rows per block, 4 warps; Q and a
 //     32-key K/V tile in shared memory as f32 (rows padded by one float), thread
 //     (ty, tx) owns rows ty*4..+3 and output columns tx + 8*c, scores reduced across
@@ -71,9 +76,12 @@
 // bounds the kernel. A prefill chunk is the same: at deepseek-7b's chunk call (4 rows
 // of 128 queries at offsets 384, 128, 0, 256) the bytes bound it at 7.89 us, and each
 // of its 128 blocks walks 1 to 4 key tiles in series (23 us on an H100 80GB HBM3 at
-// 700 W, PERF.md). Left for later: overlapping one tile's softmax with the next
-// tile's products (two tiles in flight per warpgroup) and splitting long rows' key
-// range across blocks.
+// 700 W, PERF.md). A long prefill is bound by its operations: dbrx-132b's (B 4,
+// S = T = 4096, lens (4096, 3900, 2100, 300), 48 heads over 8 kv heads, G 6) needs
+// 605 us of bf16 tensor-core time for the (query, key) pairs its mask keeps; its
+// tiles of 126 real rows do 128/126 of that work. Left for later: overlapping one
+// tile's softmax with the next tile's products (two tiles in flight per warpgroup)
+// and splitting long rows' key range across blocks.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -299,6 +307,7 @@ constexpr int kFaRows = 128;        // flattened rows per block: 2 consumer warp
 constexpr int kFaStages = 2;
 constexpr int kFaThreads = 384;     // producer + 2 consumer warpgroups
 constexpr int kBox = 128 * 128;     // one 64-column bf16 box of the 128 Q rows, bytes
+                                    // (the stride between boxes: R rows are loaded)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // keys per K/V tile: 128, and 64 at hd 256, where the Q tile (64 KB) and two stages
@@ -347,8 +356,11 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
   uint64_t* qbar = empty + kFaStages;
 
   const int G = H / K;
+  // a tile is P whole query positions of all G heads: R = P * G real rows of the
+  // block's 128; rows R..127 are padding (none where G divides 128)
+  const int P = kFaRows / G, R = P * G;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int r0 = (gridDim.z - 1 - blockIdx.z) * kFaRows;  // last row tiles (most keys) first
+  const int r0 = (gridDim.z - 1 - blockIdx.z) * R;  // last row tiles (most keys) first
   const int n_rows = S * G;
   // absolute positions: the row's query offset shifts the causal frontier, the
   // window and the tile range; the Q tile itself is loaded at its local row q_lo
@@ -357,7 +369,7 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
   const int len_b = min(lens[b], T_);
   const int q_lo = r0 / G;
   const int q_first = qoff + q_lo;
-  const int q_last = qoff + (min(r0 + kFaRows, n_rows) - 1) / G;
+  const int q_last = qoff + (min(r0 + R, n_rows) - 1) / G;  // the last real row's
   int k_end = len_b;
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
@@ -373,12 +385,23 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
     hopper::mbar_init(qbar, 1);
     hopper::mbar_fence_init();
   }
+  // TMA writes rows 0..R-1 of the Q tile alone; the pad rows are zeroed so that the
+  // products never read stale shared memory (their scores stay finite), and fenced
+  // for the async proxy that wgmma reads through
+  if (R < kFaRows) {
+    constexpr int CHUNKS = 128 / 16;  // 16-byte chunks of a 128-byte row
+    const int pad = (kFaRows - R) * CHUNKS;
+    for (int i = threadIdx.x; i < HALVES * pad; i += kFaThreads)
+      *reinterpret_cast<uint4*>(sQ + (i / pad) * kBox + R * 128 + (i % pad) * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    hopper::fence_proxy_async();
+  }
   __syncthreads();
 
   if (wg == 0) {  // producer
     hopper::setmaxnreg_dec<40>();
     if (tid == 0 && n_kv > 0) {
-      hopper::mbar_arrive_expect_tx(qbar, Q_BYTES);
+      hopper::mbar_arrive_expect_tx(qbar, HALVES * R * 128);  // the box's own bytes
       for (int hf = 0; hf < HALVES; ++hf)
         hopper::tma_load_5d(sQ + hf * kBox, &qmap, qbar, hf * 64, 0, h, q_lo, b);
       for (int i = 0; i < n_kv; ++i) {
@@ -399,7 +422,8 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
   const int c = wg - 1;
   const int warp = tid / 32, lane = tid % 32, t = lane % 4;
   const int ra = c * 64 + warp * 16 + lane / 4;
-  const int qpos[2] = {qoff + (r0 + ra) / G, qoff + (r0 + ra + 8) / G};
+  // a pad row takes the position of the tile's last real row: it widens no mask
+  const int qpos[2] = {qoff + (r0 + min(ra, R - 1)) / G, qoff + (r0 + min(ra + 8, R - 1)) / G};
   const float qk_scale = scale * kLog2e;      // scores in the log2 domain
 
   float acc[HD / 2];
@@ -528,7 +552,7 @@ flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap qmap,
   for (int idx = tid; idx < 64 * (HD / 8); idx += 128) {
     const int row = c * 64 + idx / (HD / 8), cc = idx % (HD / 8);
     const int r = r0 + row;
-    if (r >= n_rows) continue;
+    if (row >= R || r >= n_rows) continue;  // a pad row's r is the next tile's first row
     const int sq = r / G, g = r % G, hf = cc / 8, chunk = cc % 8;
     const uint4 v = *reinterpret_cast<const uint4*>(sQ + hf * kBox + row * 128 +
                                                     ((chunk ^ (row % 8)) * 16));
@@ -553,12 +577,14 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, const int* l
   const int G = H / K;
   const uint64_t e2 = sizeof(__nv_bfloat16);
   CUtensorMap qmap, kmap, vmap;
-  // q as (B, S, K, G, hd): a box is G heads x 128/G positions = 128 flattened rows
+  // q as (B, S, K, G, hd): a box is G heads x P = 128/G (rounded down) positions,
+  // P * G flattened rows; positions past S fill with zeros
+  const int P = kFaRows / G;
   cudaError_t e = hopper::make_map<5>(
       &qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q,
       {(uint64_t)HD, (uint64_t)G, (uint64_t)K, (uint64_t)S, (uint64_t)B},
       {HD * e2, (uint64_t)G * HD * e2, (uint64_t)H * HD * e2, (uint64_t)S * H * HD * e2},
-      {64u, (uint32_t)G, 1u, (uint32_t)(kFaRows / G), 1u});
+      {64u, (uint32_t)G, 1u, (uint32_t)P, 1u});
   if (e != cudaSuccess) return e;
   const void* kv[2] = {k, v};
   CUtensorMap* maps[2] = {&kmap, &vmap};
@@ -571,7 +597,7 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, const int* l
                             {64u, 1u, (uint32_t)fa_keys<HD>(), 1u});
     if (e != cudaSuccess) return e;
   }
-  dim3 grid(K, B, (S * G + kFaRows - 1) / kFaRows);
+  dim3 grid(K, B, (S + P - 1) / P);
   const float scale = (float)(1.0 / std::sqrt((double)HD));  // hd ** -0.5
   flash_fwd_kernel_tma<HD, OFFSETS><<<grid, kFaThreads, smem, stream>>>(
       qmap, kmap, vmap, lens, q_off, kv_rows, (__nv_bfloat16*)o, Bk, S, T_, H, K, causal,
@@ -579,12 +605,11 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, const int* l
   return cudaGetLastError();
 }
 
-// the TMA kernel takes bf16 at hd 64, 128 and 256 when G divides its 128-row tile
-// and every tensor starts on 16 bytes
+// the TMA kernel takes bf16 at hd 64, 128 and 256 for G up to its 128-row tile when
+// every tensor starts on 16 bytes
 bool takes_tma(int hd, int G, const void* q, const void* k, const void* v, const void* o) {
   const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
-  return (hd == 64 || hd == 128 || hd == 256) && G <= kFaRows && kFaRows % G == 0 &&
-         any % 16 == 0;
+  return (hd == 64 || hd == 128 || hd == 256) && G <= kFaRows && any % 16 == 0;
 }
 
 template <int HD>

@@ -3,7 +3,8 @@
 - The flash kernel's plain version at a per-row query offset (``q_off``)
   and cache row (``kv_rows``), held against the JAX package's jnp chunk
   attention (``repro/models/attention.py:366-387``) and its flash oracle
-  on the equivalent monolithic rows; 2e-3 in f32, 2e-2 in bf16.
+  on the equivalent monolithic rows (at G 6 and 12 its Pallas kernel in
+  interpret mode too); 2e-3 in f32, 2e-2 in bf16.
 - ``chunk_prefill_step`` against JAX ``model.chunk_prefill_step`` on the
   same weights (carried across by ``repro_torch.convert``): hidden states
   of the real chunk tokens within 2e-3 (f32 math on both sides); the fp
@@ -29,6 +30,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduce_for_smoke as jax_reduce
 from repro.core.metrics import token_agreement
+from repro.kernels.flash_attn.ops import flash_attn as jax_flash_attn
 from repro.kernels.flash_attn.ref import flash_attention_ref as jax_flash_ref
 from repro.models import attention as jax_attn
 from repro.models import model as jax_model
@@ -56,7 +58,8 @@ def _int8_kv(cfg):
 # name -> (cache rows Bk, T, K, G, hd, C, slots, start, lengths, window,
 # dtype): offsets off the 32- and 128-key tiles, a short last chunk, a
 # padded row (lengths 0, repeating the first slot), a group smaller than
-# the cache, G 1/4/8, a window
+# the cache, G 1/4/8, a window; G 6 and 12 (which leave pad rows in the
+# card kernel's 128-row tile) at offsets off its 21- and 10-position tiles
 CHUNK_CASES = {
     "off_tile_C40_T200": (3, 200, 2, 2, 32, 40, [2, 0], [100, 37], [40, 40],
                           0, "f32"),
@@ -70,7 +73,13 @@ CHUNK_CASES = {
                  "f32"),
     "bf16_G4_hd128": (2, 256, 2, 4, 128, 32, [1, 0], [129, 200], [32, 9],
                       0, "bf16"),
+    "bf16_G6_hd128_off_tile": (2, 200, 1, 6, 128, 40, [1, 0], [131, 45],
+                               [40, 23], 0, "bf16"),
+    "G12_hd64_off_tile": (3, 180, 1, 12, 64, 30, [2, 0], [97, 150],
+                          [30, 17], 0, "f32"),
 }
+# the G's that leave pad rows, also against the JAX Pallas kernel
+PALLAS_CHUNK_CASES = ("bf16_G6_hd128_off_tile", "G12_hd64_off_tile")
 
 
 def _chunk_inputs(name):
@@ -131,6 +140,26 @@ def test_flash_plain_at_offsets_matches_jax_chunk_attention(name):
         jnp.asarray(v[slots])))
     real = np.arange(C)[None, :] < lengths[:, None]
     np.testing.assert_allclose(got[real], want[real], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", PALLAS_CHUNK_CASES)
+def test_flash_plain_at_offsets_matches_pallas_kernel(name):
+    """Each row's chunk against the JAX package's Pallas flash kernel in
+    interpret mode, every row's queries at their absolute positions of one
+    zero-padded query batch over the rows' own cache rows."""
+    q, k, v, t, slots, start, lengths, window, tol = _chunk_inputs(name)
+    P, C = q.shape[:2]
+    got = _port_chunk(t, slots, start, lengths, window)
+    qfull = np.zeros((P, start.max() + C) + q.shape[2:], np.float32)
+    for j in range(P):
+        qfull[j, start[j]:start[j] + C] = q[j]
+    want = np.asarray(jax_flash_attn(
+        jnp.asarray(qfull), jnp.asarray(k[slots]), jnp.asarray(v[slots]),
+        jnp.asarray(start + lengths, jnp.int32), window=window, bq=32,
+        bk=32, interpret=True))
+    for j in range(P):
+        np.testing.assert_allclose(got[j], want[j, start[j]:start[j] + C],
+                                   rtol=tol, atol=tol)
 
 
 def test_flash_plain_defaults_are_offset_zero_and_own_rows():

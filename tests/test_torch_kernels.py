@@ -55,9 +55,10 @@ def _close(got: torch.Tensor, want, tol: float):
                                rtol=tol, atol=tol)
 
 
-# the nine cases of repro/kernels/flash_attn/ops.py, gemma-2b's hd 256 and
-# XLM-R's encoder: (B, S, H, K, hd, dtype, lens, kwargs), ``lens`` a
-# fraction of S for every row, or each row's length
+# the nine cases of repro/kernels/flash_attn/ops.py, gemma-2b's hd 256,
+# XLM-R's encoder, and G's that leave pad rows in the card kernel's
+# 128-row tile: (B, S, H, K, hd, dtype, lens, kwargs), ``lens`` a fraction
+# of S for every row, or each row's length
 FLASH_CASES = {
     "mha_64": (2, 64, 4, 4, 32, "f32", None, {}),
     "gqa_128": (2, 128, 8, 2, 64, "f32", None, {}),
@@ -81,6 +82,12 @@ FLASH_CASES = {
                                  {"causal": False}),
     "xlmr_noncausal_hd64_bf16": (3, 64, 4, 4, 64, "bf16", (64, 1, 33),
                                  {"causal": False}),
+    # dbrx-132b's G 6 at head_dim 128 (21 positions a tile) and
+    # command-r-plus's G 12 (10 positions), ragged lens
+    "gqa_G6_hd128": (2, 48, 12, 2, 128, "f32", (48, 29), {}),
+    "gqa_G6_hd128_bf16": (2, 48, 12, 2, 128, "bf16", (48, 29), {}),
+    "gqa_G12_window_softcap": (2, 64, 24, 2, 64, "f32", (64, 41),
+                               {"window": 20, "softcap": 30.0}),
 }
 
 
