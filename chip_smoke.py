@@ -100,6 +100,19 @@ result line):
              bf16 at hd 32, G 6 on the CUDA-core ``flash_fwd_kernel``),
              each against its plain version, then their device window,
              which must name each case's kernel.
+2a'. cmdr-kimi-kernels — then, in a process of its own as well
+             (``--cmdr-kimi-kernels``): command-r-plus-104b's two decode
+             kernels at B 4, S 4608, G 12 (96 heads over 8 of 128) and
+             w8a8 at its projections (K 12288 -> 12288, 1024, 33792;
+             33792 -> 12288) at M 4 and 16384; kimi-k2-1t-a32b's flash
+             prefill (B 4, S = T = 4096, 64 heads over 8 of 128, G 8) and
+             chunk call (4 x 512 in place over a 4 x 4608 cache) on
+             ``flash_fwd_kernel_tma<128, ...>``, its decode kernels at G
+             8 and w8a8 at its attention projections (K 7168 -> 8192,
+             1024; 8192 -> 7168) at M 4 and 16384; each against its plain
+             version and timed beside SDPA or ``torch._int_mm`` and its
+             bound, then their device window, which must name each flash
+             and w8a8 case's kernel.
 2b. profile-mamba2 — after it, in a process of its
              own (``--profile-mamba2``: the same window taken in this
              process after the kernel phase lost a marker kernel every
@@ -406,13 +419,50 @@ result line):
              serve-dbrx: 4 slots, max_len 4608, buckets to 4096, graphed
              and warmed on the same requests, 8 prompts (4096, 3900, 2100,
              300 and 4 of 17-200) x 32 tokens: tok/s, TTFT, the decode
-             stage's p50, the peak memory, and each layer's share of
-             entries dropped in a 4 x 4096 prefill of the long prompts
+             stage's p50, the peak memory, a 4 x 4096 prefill's device
+             time and the step's bound (``serve_bounds``), and each
+             layer's share of entries dropped in a 4 x 4096 prefill of
+             the long prompts
              (the model run outside the engine); its eager twin (tokens
              identical); chunk 512 (agreement printed); w8a8 + int8 KV
              (the attention projections alone are sites: 4, 32 int8
              weights; the experts stay bf16), agreement printed, and
              check-dbrx-w8a8-layers.
+             check-cmdr, check-cmdr-layers, serve-cmdr, serve-eager-cmdr,
+             serve-cmdr-chunked, build-cmdr-w8a8, serve-cmdr-w8a8,
+             check-cmdr-w8a8-layers — after dbrx-132b's:
+             command-r-plus-104b (global attention at G 12, LayerNorm
+             with a scale and a bias, SwiGLU, a tied 256000-row
+             embedding, theta 75000). check-cmdr: ``reduce_cmdr`` (2
+             layers keeping G 12: f32 12 heads over 1 of 16; bf16 24 over
+             2 of 64, whose mode 'full' must run
+             ``flash_fwd_kernel_tma<64, ...>``), the LayerNorms' scales
+             and biases drawn, through 6d's checks (``check_reduced``).
+             Then its first 16 of 64 layers at full width (28.31 B
+             random bf16 parameters from seed 0, 56.6 GB, the norms
+             drawn): check-cmdr-layers holds its first 2 blocks against a
+             plain formulation written here (LayerNorm by its formula,
+             the projections, RoPE, attention per kv head, SwiGLU), the
+             worst real token within ``CMDR_LAYERS_TOL`` of what a layer
+             adds, and the LayerNorm bias dropped, query heads grouped h
+             mod 8 and RoPE at theta 10000 each past it. serve-cmdr and
+             its twins as serve-dbrx's (the same requests and engine
+             settings), with a 4 x 4096 prefill call's device time and
+             the step's bound (``serve_bounds``); then w8a8 + int8 KV
+             built as gemma2-27b's (``layers_reference`` first, then the
+             build at budget 1.0 with ``release_fp=True``): 7 int8
+             weights a layer, 112, agreement printed, its layers check.
+             check-kimi, check-kimi-layers, serve-kimi, serve-eager-kimi,
+             serve-kimi-chunked, serve-kimi-w8a8, check-kimi-w8a8-layers
+             — then kimi-k2-1t-a32b (global attention at G 8, 384
+             experts top-8 padded to 512): dbrx's phases (``phase_moe``)
+             on ``reduce_kimi`` (f32: 4 experts top-2 padded to 512;
+             bf16: 16 heads over 2 of 64, 12 experts top-8 padded to 16)
+             and on its first layer of 61 at full width (25.03 B
+             parameters, 50.1 GB, 45.1 of them the 512 experts):
+             check-kimi-layers on that one layer, over the padded experts
+             (none may receive an entry), serve-kimi with its bounds, 4
+             int8 weights in its w8a8 build.
 6d. check-gemma2 — gemma2-27b cut to
              4 layers (local, global, local, global) of d_model 256, head_dim
              128, G 2, window 64, both softcaps (``reduce_gemma2``), in f32
@@ -493,6 +543,8 @@ serve, the bf16 gemma-2b serves, the bf16 qwen2-vl serves,
 serve-whisper's timed batch, the two graphed recurrentgemma serves and the
 two bf16 gemma2 serves for bf16 decode, serve-w8a8, serve-gemma2b-w8a8,
 serve-qwen2vl-w8a8 and the two w8a8 gemma2 serves for the int8 kernels,
+the graphed, chunked and w8a8 serves of dbrx-132b, command-r-plus-104b and
+kimi-k2-1t-a32b for the attention kernels and w8a8,
 serve-dlrm, or
 check-dlrm for the fp32 and int4 SLS kernels, and every fleet phase; each
 phase zeroes the counters just before it and reads them just after); the
@@ -546,6 +598,7 @@ from repro_torch.kernels.w8a8.ops import w8a8_matmul  # noqa: E402
 from repro_torch.kernels.w8a8.ref import w8a8_ref  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import blocks as blk_mod  # noqa: E402
+from repro_torch.models import common as common_mod  # noqa: E402
 from repro_torch.models import dlrm as dlrm_mod  # noqa: E402
 from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
@@ -3005,21 +3058,23 @@ def _host_mem_available() -> float:
     return float("nan")
 
 
-def build_gemma2_w8a8(cfg, params) -> QuantizedParams:
-    """The §V build step on the card with ``release_fp=True`` (each int8
-    site's fp weights moved to the host once it is quantized: the bf16
-    model and its int8 form would need ~75 GiB together). Prints its time,
-    decisions, the card's peak memory during it beside the card's total,
-    and the bytes it moved to the host; no leaf of the quantized model may
-    be off the card."""
-    label = "build-gemma2-w8a8"
+def build_released_w8a8(label: str, cfg, params,
+                        budget: float = 0.05) -> QuantizedParams:
+    """The §V build step on the card at ``budget`` with ``release_fp=True``
+    (each int8 site's fp weights moved to the host once it is quantized:
+    gemma2-27b's bf16 model and its int8 form would need ~75 GiB together,
+    command-r-plus's 16 layers ~76 GiB). Prints its time, decisions, the
+    card's peak memory during it beside the card's total, and the bytes it
+    moved to the host; no leaf of the quantized model may be off the
+    card."""
     _free_card()
     avail = _host_mem_available()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    quant = build_quantized_params(cfg, params, release_fp=True)
+    quant = build_quantized_params(cfg, params, budget=budget,
+                                   release_fp=True)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -3033,7 +3088,7 @@ def build_gemma2_w8a8(cfg, params) -> QuantizedParams:
     print(f"{label}: build step {build_s:.1f} s: {quant.quantized_sites} "
           f"sites int8, {quant.fallback_sites} fall back to bf16 "
           f"(calibration disagreement {quant.result.metric_delta:.4f}, "
-          f"budget 0.05, {quant.result.iterations} fall-backs); "
+          f"budget {budget}, {quant.result.iterations} fall-backs); "
           f"{quant.schemes}", flush=True)
     print(f"{label}: card memory {before / 2**30:.2f} GiB allocated before "
           f"the build, peak {peak / 2**30:.2f} GiB during it, "
@@ -3154,7 +3209,7 @@ def phase_check_gemma2(kw=None):
 
 
 def check_reduced(label: str, arch: str, make, kw=None,
-                  below_window=None) -> None:
+                  below_window=None, draw=None) -> None:
     """``make(dtype)`` in f32 and bf16, each fp and w8a8 + int8 KV (one
     build step on the host, copied to the card), prompts of 40-200 tokens:
     card vs host greedy agreement >= 0.95; chunked (8, 16) vs monolithic
@@ -3165,12 +3220,16 @@ def check_reduced(label: str, arch: str, make, kw=None,
     96-token shared prompt identical to a cold engine, and snapshot ->
     restore bit for bit over fp and int8 caches; with ``below_window`` (a
     max_len below the window and its buckets), over a 30-token prefix of
-    engines of that max_len too (the rings clamped, positional)."""
+    engines of that max_len too (the rings clamped, positional). ``draw``
+    (params -> None) sets the host weights' leaves that init leaves at
+    zero before anything is copied or built."""
     kw = kw or dict(batch_slots=3, max_len=256,
                     prefill_buckets=(64, 128, 256))
     for dtype in ("float32", "bfloat16"):
         small = make(dtype)
         host = model_mod.init_params(small, seed=0, device="cpu")
+        if draw is not None:
+            draw(host)
         card = copy.deepcopy(host).to(DEV)
         small_q = _int8_kv(small)
         qp = build_quantized_params(small_q, host)
@@ -3299,7 +3358,7 @@ def phase_serve_gemma_2b(cfg, params, label: str = "serve-gemma2b",
 def phase_serve_padded(cfg, params, label: str, engine_kw: dict, trace,
                        ref_label: str, layers_label: str, profile_pos,
                        mono_outputs=None, keep_engine: bool = False,
-                       hold: bool = True, **kw):
+                       hold: bool = True, layers_ref=None, **kw):
     """Full-width serving of an arch with padded heads (bf16; or, with
     ``precision="w8a8"`` in ``kw``, w8a8 with an int8 KV cache), graphed
     and warmed on the same requests ``trace()``, so every stage key is
@@ -3309,8 +3368,10 @@ def phase_serve_padded(cfg, params, label: str, engine_kw: dict, trace,
     decode with bf16 decode not at all. A w8a8 serve's greedy agreement
     with the bf16 serve's (``ref_label``) ``mono_outputs`` must reach 0.90
     (the reference's w8a8 guardrail; printed, not held, without
-    ``hold``), and its layers check (``layers_label``) follow; a chunked
-    one's agreement is printed. The
+    ``hold``), and its layers check (``layers_label``) follow, against
+    ``layers_ref`` where given (``layers_reference`` taken before a build
+    that released the bf16 weights), else against one taken here from
+    ``params``; a chunked one's agreement is printed. The
     monolithic serves' graphed decode stage is then profiled at rows from
     ``profile_pos``. Returns (launches, outputs, the engine if
     ``keep_engine`` else None)."""
@@ -3326,7 +3387,9 @@ def phase_serve_padded(cfg, params, label: str, engine_kw: dict, trace,
         torch.cuda.synchronize()
         q = eng.quant
         n_int8 = sum(isinstance(m, QuantDense) for m in q.params.modules())
-        print(f"{label}: build step {time.perf_counter() - t0:.1f} s: "
+        built = ("the build made before the engine" if "quantized_params"
+                 in kw else f"build step {time.perf_counter() - t0:.1f} s")
+        print(f"{label}: {built}: "
               f"{q.quantized_sites} sites int8 ({n_int8} int8 weights over "
               f"{cfg.num_layers} layers), {q.fallback_sites} fall back "
               f"to bf16 (calibration disagreement "
@@ -3354,7 +3417,7 @@ def phase_serve_padded(cfg, params, label: str, engine_kw: dict, trace,
             raise AssertionError(f"{label}: agreement with the bf16 serve "
                                  f"{agree} < 0.90")
     if quant:
-        check_w8a8_layers(layers_label, layers_reference(
+        check_w8a8_layers(layers_label, layers_ref or layers_reference(
             base_cfg, params, (512, 300, 77, 1), 1024), cfg,
             eng.quant.params)
     if not kw.get("prefill_chunk"):
@@ -4681,9 +4744,10 @@ def phase_mamba2() -> None:
 
 # ---- dbrx-132b --------------------------------------------------------------
 
-# the served cut: the first 8 of dbrx-132b's 40 layers at full width (27.31
-# B parameters, 54.6 GB in bf16; all 40 take ~264 GB, past one card)
-DBRX_LAYERS = 8
+# the served cut (the launcher's ``CARD_CUTS``): the first 8 of dbrx-132b's
+# 40 layers at full width (27.31 B parameters, 54.6 GB in bf16; all 40
+# take ~264 GB, past one card)
+DBRX_LAYERS = serve_launcher.CARD_CUTS["dbrx-132b"][1]
 # 4 slots of 4608 positions (the 8 layers' K/V, 0.60 GB); the bucket
 # ladder reaches the longest prompt
 DBRX_KW = dict(batch_slots=4, max_len=4608,
@@ -4707,7 +4771,7 @@ MOE_LAYERS_TOL = 0.02
 # between the card and the host (bf16 rounding moves near-tied routes)
 MOE_ROUTE_FLIPS = 0.02
 MOE_FAULTS = {"renorm": "top-k weights not renormalised",
-              "capacity": "capacity ignored",
+              "capacity": "capacity x4 (T at most)",
               "lcfs": "drops last come, first served",
               "act": "act(u)*g in place of act(g)*u"}
 
@@ -4722,6 +4786,41 @@ CMDR_HEADS = (96, 8, 128)
 # tile's 128 // G positions wherever a tile holds more than one
 FLASH_G_SWEEP = (3, 5, 6, 7, 12, 24, 48, 96, 128)
 FLASH_G_SWEEP_S = 131
+
+
+def _w8a8_rows(fns: dict, routes: dict, gen, prefix: str, projections,
+               rows) -> None:
+    """w8a8 at ``projections`` (K, N) for each (M, row) of ``rows``, each
+    held bit for bit against its plain version and timed beside
+    ``torch._int_mm``; M <= 16 must run the split-K kernel, more the TMA
+    one."""
+    for M, row in rows:
+        for K, N in projections:
+            name = f"{prefix}_{row}_M{M}_K{K}_N{N}"
+            r = w8a8_case(name, gen, M, K, N)
+            _show("w8a8_matmul", name, r)
+            fns["w8a8_matmul " + name] = r["call"]
+            fns["torch._int_mm + scales " + name] = r["library_call"]
+            routes["w8a8_matmul " + name] = (
+                "w8a8_splitk_kernel" if M <= 16 else "w8a8_kernel_tma",
+                "w8a8_kernel<")
+
+
+def _decode_rows(fns: dict, gen, prefix: str, heads, row: str) -> None:
+    """Both decode kernels at B 4, S 4608, pos ``DBRX_DECODE_POS`` over
+    ``heads`` (H, K, hd) in bf16: rows 2``row`` (beside SDPA) and
+    3``row``."""
+    H, K, hd = heads
+    case = (4, H, K, hd, 4608, list(DBRX_DECODE_POS), torch.bfloat16)
+    name = f"{prefix}_2{row}_B4_S4608_H{H}_K{K}_hd{hd}"
+    r = decode_case(name, gen, *case)
+    _show("decode_attn", name, r)
+    fns["decode_attn " + name] = r["call"]
+    fns["SDPA " + name] = r["library_call"]
+    name = f"{prefix}_3{row}_B4_S4608_H{H}_K{K}_hd{hd}"
+    r = decode_int8_case(name, gen, *case)
+    _show("decode_attn_int8", name, r)
+    fns["decode_attn_int8 " + name] = r["call"]
 
 
 def dbrx_kernel_cases() -> None:
@@ -4759,26 +4858,9 @@ def dbrx_kernel_cases() -> None:
     fns["flash_attn " + name] = r["call"]
     fns["SDPA (boolean mask) " + name] = r["library_call"]
     routes["flash_attn " + name] = tma_route(128)
-    case = (4, 48, 8, 128, 4608, list(DBRX_DECODE_POS), bf16)
-    name = "dbrx_2e_B4_S4608_H48_K8_hd128"
-    r = decode_case(name, gen, *case)
-    _show("decode_attn", name, r)
-    fns["decode_attn " + name] = r["call"]
-    fns["SDPA " + name] = r["library_call"]
-    name = "dbrx_3e_B4_S4608_H48_K8_hd128"
-    r = decode_int8_case(name, gen, *case)
-    _show("decode_attn_int8", name, r)
-    fns["decode_attn_int8 " + name] = r["call"]
-    for M, row in ((4, "4e"), (16384, "4e'")):
-        for K, N in DBRX_PROJECTIONS:
-            name = f"dbrx_{row}_M{M}_K{K}_N{N}"
-            r = w8a8_case(name, gen, M, K, N)
-            _show("w8a8_matmul", name, r)
-            fns["w8a8_matmul " + name] = r["call"]
-            fns["torch._int_mm + scales " + name] = r["library_call"]
-            routes["w8a8_matmul " + name] = (
-                "w8a8_splitk_kernel" if M <= 16 else "w8a8_kernel_tma",
-                "w8a8_kernel<")
+    _decode_rows(fns, gen, "dbrx", (48, 8, 128), "e")
+    _w8a8_rows(fns, routes, gen, "dbrx", DBRX_PROJECTIONS,
+               rows=((4, "4e"), (16384, "4e'")))
     H, K, hd = CMDR_HEADS
     name = f"cmdr_1cr_B4_S4096_H{H}_K{K}_hd{hd}"
     # the plain version over two halves of the kv heads: its whole f32
@@ -4881,16 +4963,17 @@ def reduce_dbrx(dtype: str, factor: float = 1.25):
         small.moe, capacity_factor=factor))
 
 
-def draw_norms(params, seed: int) -> None:
-    """Draw every norm's scale in place (about 0, from a seeded generator
-    on the parameters' device): at init they are 0, where a port that
-    dropped one agrees with one that keeps it. The router is drawn at init
-    (normal, nonzero)."""
+def draw_norms(params, seed: int, leaves=("scale",)) -> None:
+    """Draw every leaf named in ``leaves`` (by default the norms' scales;
+    a LayerNorm's ``bias`` too where asked) in place, N(0, 0.3^2) from a
+    seeded generator on the parameters' device: at init they are 0, where
+    a port that dropped one agrees with one that keeps it. The router is
+    drawn at init (normal, nonzero)."""
     dev = model_mod.model_device(params)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         for name, t in params.named_parameters():
-            if name.rsplit(".", 1)[-1] == "scale":
+            if name.rsplit(".", 1)[-1] in leaves:
                 t.copy_((0.3 * torch.randn(t.shape, generator=gen,
                                            device=dev)).to(t.dtype))
 
@@ -4963,9 +5046,9 @@ def drop_shares(params, cfg, toks, valid) -> list:
     return [d / n for d, n in seen]
 
 
-def phase_check_dbrx() -> None:
-    """check-dbrx on ``reduce_dbrx`` in f32 at capacity factors 1.25 (some
-    entries dropped, asserted) and 16 (none), and in bf16 at 1.25, the
+def check_moe(tag: str, reduce) -> None:
+    """``tag`` on ``reduce(dtype, factor)`` in f32 at capacity factors 1.25
+    (some entries dropped, asserted) and 16 (none), and in bf16 at 1.25, the
     norms drawn (``draw_norms``): modes full and prefill over right-padded
     rows (f32: 64, 45, 17 and 1 tokens in a bucket of 64; bf16: 600, 300,
     77 and 1 in a bucket of 768), then 4 decode steps, card against host
@@ -4974,7 +5057,7 @@ def phase_check_dbrx() -> None:
     (``_routes``), and the share of tokens whose own top-k differs between
     the two is held to ``MOE_ROUTE_FLIPS``: a route is a discrete choice,
     and one moved by bf16 rounding changes whole experts' outputs; the
-    bf16 config's flash (G 6, head_dim 64) must run the tensor-core
+    bf16 config's flash (head_dim 64) must run the tensor-core
     kernel (``flash_fwd_kernel_tma<64, ...>``) in mode full. Then
     engines on the card: graphed == eager
     tokens (monolithic and chunked) at each config; at factor 16 chunked
@@ -4986,7 +5069,7 @@ def phase_check_dbrx() -> None:
             ("float32", 1.25, (64, 45, 17, 1), 64),
             ("float32", 16.0, (64, 45, 17, 1), 64),
             ("bfloat16", 1.25, (600, 300, 77, 1), 768)):
-        cfg = reduce_dbrx(dtype, factor)
+        cfg = reduce(dtype, factor)
         dt = dtype_of(dtype)
         host = model_mod.init_params(cfg, seed=1, device="cpu")
         draw_norms(host, seed=2)
@@ -4999,7 +5082,7 @@ def phase_check_dbrx() -> None:
         steps = [torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
                                dtype=torch.int32) for _ in range(4)]
         args = (toks, valid, steps, bucket + 8)
-        label = f"check-dbrx[{dtype}, capacity factor {factor}]"
+        label = f"{tag}[{dtype}, capacity factor {factor}]"
         with _routes() as card_routes:
             got = _model_hidden(card, cfg, *args)
         routes = ""
@@ -5025,7 +5108,7 @@ def phase_check_dbrx() -> None:
             if flips > MOE_ROUTE_FLIPS:
                 raise AssertionError(f"{label}: {flips} of the tokens "
                                      f"routed otherwise on the host")
-            # G 6 at head_dim 64: flash's tensor-core kernel
+            # head_dim 64: flash's tensor-core kernel
             batch = {"tokens": toks.to(DEV)}
             with torch.inference_mode():
                 require_flash_kernel(label, lambda: model_mod.forward(
@@ -5038,9 +5121,11 @@ def phase_check_dbrx() -> None:
             [c[n] for c in got[3] for n in ("k", "v")]).float(), torch.stack(
             [c[n] for c in want[3] for n in ("k", "v")]).float(), dt)
         shares = drop_shares(card, cfg, toks.to(DEV), valid.to(DEV))
+        padded = (f" (padded to {cfg.moe.padded_experts})"
+                  if cfg.moe.padded_experts > cfg.moe.num_experts else "")
         print(f"{label}: {cfg.num_layers} layers of d_model {cfg.d_model}, "
               f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
-              f"{cfg.head_dim}, {cfg.moe.num_experts} experts top-"
+              f"{cfg.head_dim}, {cfg.moe.num_experts} experts{padded} top-"
               f"{cfg.moe.top_k} of {cfg.moe.d_expert}; rows of {list(lens)} "
               f"tokens in a bucket of {bucket}, card vs host: full "
               f"{held[0]}, prefill {held[1]}, 4 decode steps {held[2]}, "
@@ -5089,11 +5174,12 @@ def phase_check_dbrx() -> None:
 def _dense_moe(p, h: torch.Tensor, cfg):
     """check-dbrx-layers' own mixture of experts over h (T,d), written
     apart from ``models/moe.py``: the router's softmax over h in f32, each
-    token's top k, their weights renormalised; then per expert the tokens
-    that chose it in token order, the first C = max(ceil(T k / E * factor),
-    min(4, T k)) of them kept, each through the expert's SwiGLU FFN in the
-    weights' dtype, weighted, summed per token in f32. Returns (out (T,d)
-    in h's dtype, entries dropped)."""
+    token's top k, their weights renormalised; then per expert, padded
+    ones included, the tokens that chose it in token order, the first C =
+    max(ceil(T k / E * factor), min(4, T k)) of them kept (E the real
+    experts), each through the expert's SwiGLU FFN in the weights' dtype,
+    weighted, summed per token in f32. Returns (out (T,d) in h's dtype,
+    entries dropped, entries a padded expert received)."""
     m = cfg.moe
     T = h.shape[0]
     C = max(math.ceil(T * m.top_k * m.capacity_factor / m.num_experts),
@@ -5102,15 +5188,23 @@ def _dense_moe(p, h: torch.Tensor, cfg):
     w, idx = torch.topk(probs, m.top_k, dim=-1)
     w = w / w.sum(dim=-1, keepdim=True)
     out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
-    kept = 0
-    for e in range(m.num_experts):
+    kept = padded = 0
+    for e in range(m.padded_experts):
         tok, j = (idx == e).nonzero(as_tuple=True)      # in token order
+        if e >= m.num_experts:
+            padded += tok.numel()
         tok, j = tok[:C], j[:C]
         kept += tok.numel()
         x = h[tok]
         y = (F.silu(x @ p.wg[e]) * (x @ p.wu[e])) @ p.wd[e]
         out.index_add_(0, tok, (y * w[tok, j].to(y.dtype)[:, None]).float())
-    return out.to(h.dtype), T * m.top_k - kept
+    return out.to(h.dtype), T * m.top_k - kept, padded
+
+
+# the capacity fault: capacities this many times the real one, the whole
+# call's T at most (dbrx's layers check: T, so nothing drops); T itself
+# would need kimi-k2's 512 experts' buffers at 4096 rows each (~30 GB)
+CAPACITY_FAULT_X = 4
 
 
 def _moe_fault(name: str) -> dict:
@@ -5130,8 +5224,10 @@ def _moe_fault(name: str) -> dict:
     def swapped(xin, wg, wu, wd, cfg):
         return torch.bmm(F.silu(torch.bmm(xin, wu)) * torch.bmm(xin, wg), wd)
 
+    capacity = moe_mod._capacity
     return {"renorm": {"_route": unnormalised},
-            "capacity": {"_capacity": lambda T, cfg: T},
+            "capacity": {"_capacity": lambda T, cfg: min(
+                T, CAPACITY_FAULT_X * capacity(T, cfg))},
             "lcfs": {"_dispatch_indices": last_first},
             "act": {"_expert_ffn": swapped}}[name]
 
@@ -5145,8 +5241,10 @@ def check_moe_layers(label: str, cfg, params, lens=DBRX_LAYERS_LENS,
     same dtype; the next layer's input is the dense side's output. The
     metric is per token: ||block - dense|| / ||dense - x|| at the real
     tokens, its worst over the layers held to ``MOE_LAYERS_TOL``. The
-    share of entries dropped is printed; each of ``MOE_FAULTS``, planted
-    in ``models/moe.py``, must land past the bound."""
+    share of entries dropped is printed, and no padded expert may receive
+    one; each of ``MOE_FAULTS``, planted in ``models/moe.py``, must land
+    past the bound (the capacity fault dropping fewer entries than the
+    real capacity drops)."""
     if cfg.post_attn_norm or cfg.activation != "silu" or not cfg.glu:
         raise ValueError(f"{label}: a SwiGLU MoE block without post-norms")
     B, S = len(lens), max(lens)
@@ -5156,7 +5254,7 @@ def check_moe_layers(label: str, cfg, params, lens=DBRX_LAYERS_LENS,
     valid = torch.arange(S, device=DEV)[None, :] \
         < torch.tensor(lens, device=DEV)[:, None]
     positions = torch.arange(S, device=DEV).expand(B, S)
-    worst, dropped = 0.0, 0
+    worst, dropped, padded, wider = 0.0, 0, 0, 0
     faults = dict.fromkeys(MOE_FAULTS, 0.0)
     with torch.inference_mode():
         x = vocab_mod.embed_lookup(params.embed, toks, cfg)
@@ -5165,7 +5263,7 @@ def check_moe_layers(label: str, cfg, params, lens=DBRX_LAYERS_LENS,
                 layer.attn, layer.pre_norm(x, cfg.norm_eps), cfg, positions,
                 valid, kind=layer.kind)
             mid = x + y
-            out, n = _dense_moe(layer.moe, layer.pre_mlp_norm(
+            out, n, n_pad = _dense_moe(layer.moe, layer.pre_mlp_norm(
                 mid, cfg.norm_eps).reshape(B * S, -1), cfg)
             dense = mid + out.view(B, S, -1)
             added = (dense - x).float().norm(dim=-1)[valid]
@@ -5179,19 +5277,25 @@ def check_moe_layers(label: str, cfg, params, lens=DBRX_LAYERS_LENS,
                     else e.max().item()
             worst = max(worst, err())
             for name in MOE_FAULTS:
-                with _patched(moe_mod, _moe_fault(name)):
+                with _patched(moe_mod, _moe_fault(name)), \
+                        _counting_drops() as seen:
                     faults[name] = max(faults[name], err())
+                if name == "capacity":
+                    wider += sum(d for d, _ in seen)
             dropped += n
+            padded += n_pad
             x = dense
     entries = layers * B * S * cfg.moe.top_k
     print(f"{label}: the first {layers} layers at d_model {cfg.d_model}, "
-          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
+          f"{cfg.moe.num_experts} experts (weights for "
+          f"{cfg.moe.padded_experts}) top-{cfg.moe.top_k} of "
           f"{cfg.moe.d_expert}, capacity factor {cfg.moe.capacity_factor}, "
           f"in {cfg.param_dtype}, rows of {list(lens)} tokens: the block vs "
           f"the dense formulation, worst token {worst:.4f} of what the "
           f"layer adds (tol {MOE_LAYERS_TOL}); entries dropped "
           f"{100 * dropped / entries:.2f}% ({dropped} of {entries}, pads "
-          f"included); planted faults: " + "; ".join(
+          f"included), {padded} to a padded expert, {wider} at "
+          f"{CAPACITY_FAULT_X}x the capacity; planted faults: " + "; ".join(
               f"{MOE_FAULTS[k]} {v:.4f}" for k, v in faults.items()),
           flush=True)
     if not worst <= MOE_LAYERS_TOL:
@@ -5200,6 +5304,13 @@ def check_moe_layers(label: str, cfg, params, lens=DBRX_LAYERS_LENS,
     if not dropped:
         raise AssertionError(f"{label}: nothing dropped, so the drops are "
                              f"not checked")
+    if padded:
+        raise AssertionError(f"{label}: {padded} entries routed to a padded "
+                             f"expert")
+    if not wider < dropped:
+        raise AssertionError(f"{label}: {wider} entries dropped at "
+                             f"{CAPACITY_FAULT_X}x the capacity, {dropped} at "
+                             f"the capacity: the fault changes no drop")
     for name, e in faults.items():
         if not e > MOE_LAYERS_TOL:
             raise AssertionError(f"{label}: the planted fault "
@@ -5207,17 +5318,24 @@ def check_moe_layers(label: str, cfg, params, lens=DBRX_LAYERS_LENS,
                                  f"bound ({e} <= {MOE_LAYERS_TOL})")
 
 
-def init_dbrx():
-    """dbrx-132b's first ``DBRX_LAYERS`` layers at full width (d_model
-    6144, 48 heads over 8 kv heads of 128, 16 experts top-4 of 10752,
-    untied vocab 100352; random bf16 weights from seed 0)."""
-    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=DBRX_LAYERS)
+def init_cut(arch: str, layers: int):
+    """``arch``'s first ``layers`` layers at full width (random bf16
+    weights from seed 0): dbrx-132b's d_model 6144, 48 heads over 8 kv
+    heads of 128, 16 experts top-4 of 10752, untied vocab 100352;
+    command-r-plus-104b's d_model 12288, 96 heads over 8 of 128, SwiGLU
+    33792, LayerNorm, tied vocab 256000; kimi-k2-1t-a32b's d_model 7168,
+    64 heads over 8 of 128, 384 experts (512 with the padded ones) top-8
+    of 2048, untied vocab 163840."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
     t0 = time.perf_counter()
     params = model_mod.init_params(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
-    print(f"init: dbrx-132b full width, {cfg.num_layers} of 40 layers, "
-          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
-          f"params, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, in "
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"init: {arch} full width, {cfg.num_layers} of {full.num_layers} "
+          f"layers, {sum(p.numel() for p in params.parameters()) / 1e9:.3f} "
+          f"B params ({nbytes / 1e9:.2f} GB), "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return cfg, params
 
@@ -5244,41 +5362,53 @@ def _long_prompts(cfg, reqs):
 
 
 def phase_dbrx() -> dict:
-    """check-dbrx, then dbrx-132b's first 8 layers at full width
-    (``init_dbrx``): check-dbrx-layers on its first 2, serve-dbrx (graphed,
-    ``dbrx_requests`` warmed on the same requests; tok/s, TTFT, the decode
-    stage's p50, the peak memory; the share of entries dropped in a 4 x
-    4096 prefill of the trace's long prompts, from a run of the model
-    outside the engine), serve-eager-dbrx (tokens identical),
-    serve-dbrx-chunked (512; agreement printed), serve-dbrx-w8a8 with an
-    int8 KV cache (every attention projection int8, 32 weights, the
-    experts bf16; agreement printed) and its layers check. Frees the weights; returns
-    the launches of the graphed bf16, chunked and w8a8 serves."""
-    phase_check_dbrx()
-    cfg, params = init_dbrx()
-    check_moe_layers("check-dbrx-layers", cfg, params)
+    """dbrx-132b's phases: ``phase_moe`` on its first ``DBRX_LAYERS``
+    layers."""
+    return phase_moe("dbrx", "dbrx-132b", DBRX_LAYERS, reduce_dbrx)
+
+
+def phase_moe(tag: str, arch: str, layers: int, reduce) -> dict:
+    """check-``tag`` (``check_moe`` on ``reduce``), then ``arch``'s first
+    ``layers`` layers at full width (``init_cut``): check-``tag``-layers
+    on its first 2 (or its one), serve-``tag`` (graphed, ``dbrx_requests``
+    warmed on the same requests; tok/s, TTFT, the decode stage's p50, the
+    peak memory; a prefill's and a step's device time beside their bounds,
+    ``serve_bounds``; the share of entries dropped in
+    a 4 x 4096 prefill of the trace's long prompts, from a run of the
+    model outside the engine), serve-eager-``tag`` (tokens identical),
+    serve-``tag``-chunked (512; agreement printed), serve-``tag``-w8a8
+    with an int8 KV cache (every attention projection int8, 4 weights a
+    layer, the experts bf16; agreement printed) and its layers check.
+    Frees the weights; returns the launches of the graphed bf16, chunked
+    and w8a8 serves."""
+    check_moe(f"check-{tag}", reduce)
+    cfg, params = init_cut(arch, layers)
+    check_moe_layers(f"check-{tag}-layers", cfg, params,
+                     layers=min(2, layers))
     _free_card()
+    label = f"serve-{tag}"
     trace = lambda: dbrx_requests(cfg.vocab_size)
-    serve = dict(engine_kw=DBRX_KW, trace=trace, ref_label="serve-dbrx",
-                 layers_label="check-dbrx-w8a8-layers",
+    serve = dict(engine_kw=DBRX_KW, trace=trace, ref_label=label,
+                 layers_label=f"check-{tag}-w8a8-layers",
                  profile_pos=DBRX_DECODE_POS, hold=False)
     launches, outputs, eng = phase_serve_padded(
-        cfg, params, "serve-dbrx", keep_engine=True, **serve)
-    decode_step_p50("serve-dbrx", eng, DBRX_DECODE_POS)
+        cfg, params, label, keep_engine=True, **serve)
+    decode_step_p50(label, eng, DBRX_DECODE_POS)
+    serve_bounds(label, cfg, params)
     shares = drop_shares(params, cfg, *_long_prompts(cfg, trace()))
-    print(f"serve-dbrx: entries dropped in a {len(DBRX_PROMPTS)} x "
+    print(f"{label}: entries dropped in a {len(DBRX_PROMPTS)} x "
           f"{max(DBRX_PROMPTS)} prefill of the trace's long prompts (lens "
           f"{list(DBRX_PROMPTS)}, capacity factor "
           f"{cfg.moe.capacity_factor}), by layer: "
           f"{[round(100 * s, 2) for s in shares]}% (mean "
           f"{100 * sum(shares) / len(shares):.2f}%)", flush=True)
-    phase_serve_eager("serve-eager-dbrx", eng, launches, outputs, cfg,
+    phase_serve_eager(f"serve-eager-{tag}", eng, launches, outputs, cfg,
                       params, engine_kw=DBRX_KW, trace=trace,
                       decode_pos=DBRX_DECODE_POS, identical=True)
     del eng
     _free_card()
     chunked, _, _ = phase_serve_padded(
-        cfg, params, "serve-dbrx-chunked", mono_outputs=outputs,
+        cfg, params, f"serve-{tag}-chunked", mono_outputs=outputs,
         prefill_chunk=512, **serve)
     _free_card()
     # on seed-0 weights the calibration's greedy argmax is noise (near-flat
@@ -5286,19 +5416,19 @@ def phase_dbrx() -> dict:
     # every site fell back (a chip run: 0 of 4 int8). The build quantizes
     # every site, and check-dbrx-w8a8-layers holds the layers instead
     quant, _, eng = phase_serve_padded(
-        cfg, params, "serve-dbrx-w8a8", mono_outputs=outputs,
+        cfg, params, f"serve-{tag}-w8a8", mono_outputs=outputs,
         precision="w8a8", quant_budget=1.0, keep_engine=True, **serve)
     n_int8 = sum(isinstance(m, QuantDense)
                  for m in eng.quant.params.modules())
     moe_int8 = [n for n, m in eng.quant.params.named_modules()
                 if isinstance(m, QuantDense) and ".moe." in f".{n}."]
     if n_int8 != 4 * cfg.num_layers or moe_int8:
-        raise AssertionError(f"serve-dbrx-w8a8: {n_int8} int8 weights, "
+        raise AssertionError(f"serve-{tag}-w8a8: {n_int8} int8 weights, "
                              f"{len(moe_int8)} of them the experts'; want "
                              f"the 4 attention projections of each layer")
     del eng, params
     _free_card()
-    print(f"freed dbrx-132b: {torch.cuda.memory_allocated() / 2**30:.2f} "
+    print(f"freed {arch}: {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB still allocated", flush=True)
     return {k: launches[k] + chunked[k] + quant[k]
             for k in ("flash_attn", "decode_attn", "w8a8_matmul",
@@ -5309,20 +5439,29 @@ MOE_SPANS = (moe_mod.MOE_SPAN, moe_mod.ROUTE_SPAN, moe_mod.DISPATCH_SPAN,
              moe_mod.EXPERTS_SPAN, moe_mod.COMBINE_SPAN)
 
 
-def _dbrx_flops(cfg, params, B: int, T: int, pairs: int) -> dict:
+def _lm_flops(cfg, params, B: int, T: int, pairs: int) -> dict:
     """The products of one call of ``T`` tokens in ``B`` rows over ``pairs``
-    (query, key) pairs, as the port computes them: the experts over their
-    whole capacity buffers (E x C slots a layer), the attention
-    projections and the router over every token of the call, attention
-    over the pairs, and the greedy head at one token a row."""
-    m, d, L = cfg.moe, cfg.d_model, cfg.num_layers
-    C = moe_mod._capacity(T, cfg)
-    attn = params.layers[0].attn
-    proj = sum(getattr(attn, w).numel() for w in ("wq", "wk", "wv", "wo"))
-    return {"experts": 2.0 * 3 * m.padded_experts * C * d * m.d_expert * L,
-            "projections": 2.0 * T * (proj + d * m.num_experts) * L,
-            "attention": 4.0 * pairs * cfg.num_heads * cfg.head_dim * L,
-            "head": 2.0 * B * params.lm_head.numel()}
+    (query, key) pairs, as the port computes them: a MoE model's experts
+    over their whole capacity buffers (Ep x C slots a layer, the padded
+    experts' too), the attention projections and the router or the dense
+    MLP over every token of the call, attention over the pairs, and the
+    greedy head at one token a row."""
+    d, L = cfg.d_model, cfg.num_layers
+    layer = params.layers[0]
+    proj = sum(getattr(layer.attn, w).numel()
+               for w in ("wq", "wk", "wv", "wo"))
+    flops = {}
+    if cfg.moe is not None:
+        m = cfg.moe
+        C = moe_mod._capacity(T, cfg)
+        flops["experts"] = 2.0 * 3 * m.padded_experts * C * d * m.d_expert * L
+        proj += d * m.num_experts
+    else:
+        proj += sum(t.numel() for t in layer.mlp.parameters())
+    flops.update(projections=2.0 * T * proj * L,
+                 attention=4.0 * pairs * cfg.num_heads * cfg.head_dim * L,
+                 head=2.0 * B * model_mod.head_table(params, cfg).numel())
+    return flops
 
 
 def profile_dbrx() -> None:
@@ -5337,7 +5476,7 @@ def profile_dbrx() -> None:
     buffers) at 989 TFLOP/s, the step's bytes (every weight, since each
     expert runs over its capacity buffer, and the K/V its rows read) at
     3.35 TB/s."""
-    cfg, params = init_dbrx()
+    cfg, params = init_cut("dbrx-132b", DBRX_LAYERS)
     label = "profile-dbrx"
     lens = DBRX_PROMPTS
     B, S = len(lens), max(lens)
@@ -5388,13 +5527,13 @@ def profile_dbrx() -> None:
                    if "flash_fwd_kernel" in e.name) / 1e3
     if not flash_ms:
         raise AssertionError(f"{label}: no flash kernel in the prefill")
-    flops = _dbrx_flops(cfg, params, B, B * S,
-                        sum(n * (n + 1) // 2 for n in lens))
+    flops = _lm_flops(cfg, params, B, B * S,
+                      sum(n * (n + 1) // 2 for n in lens))
     wbytes = sum(t.numel() * t.element_size() for t in params.parameters())
     pre_bound, pre_by = bound(sum(flops.values()), wbytes, torch.bfloat16)
     kv_bytes = sum(2 * (p + 1) * cfg.num_kv_heads * cfg.head_dim * 2
                    for p in DBRX_DECODE_POS) * cfg.num_layers
-    step_flops = sum(_dbrx_flops(cfg, params, B, B, sum(
+    step_flops = sum(_lm_flops(cfg, params, B, B, sum(
         p + 1 for p in DBRX_DECODE_POS)).values())
     step_bound, step_by = bound(step_flops, wbytes + kv_bytes,
                                 torch.bfloat16)
@@ -5419,6 +5558,408 @@ def profile_dbrx() -> None:
           f"the window", flush=True)
     del eng, caches, params
     _free_card()
+
+
+# ---- command-r-plus-104b and kimi-k2-1t-a32b ---------------------------------
+
+# the served cuts (the launcher's ``CARD_CUTS``): command-r-plus-104b's first
+# 16 of 64 layers at full width (28.31 B parameters with the tied
+# 256000-row embedding, 56.6 GB in bf16; all 64 take ~208 GB),
+# kimi-k2-1t-a32b's first 1 of 61 (25.03 B, 50.1 GB: its 512 experts' 45.1
+# GB, the embedding and the head; every layer holds its padded experts, as
+# the reference's does; all 61 take ~2.8 TB)
+CMDR_LAYERS = serve_launcher.CARD_CUTS["command-r-plus-104b"][1]
+KIMI_LAYERS = serve_launcher.CARD_CUTS["kimi-k2-1t-a32b"][1]
+# command-r-plus's projections (K, N): wq and wo (12288 -> 96 x 128 =
+# 12288, and back), wk and wv (-> 8 x 128), gate and up (-> 33792), down
+# (33792 -> 12288)
+CMDR_PROJECTIONS = ((12288, 12288), (12288, 1024), (12288, 33792),
+                    (33792, 12288))
+# kimi-k2's attention (64 query heads over 8 kv heads, G 8, head_dim 128)
+# and its projections: wq (7168 -> 64 x 128), wk and wv (-> 8 x 128), wo
+# (8192 -> 7168); the experts are not w8a8 sites
+KIMI_HEADS = (64, 8, 128)
+KIMI_PROJECTIONS = ((7168, 8192), (7168, 1024), (8192, 7168))
+# check-cmdr-layers: the worst real token's ||block - plain|| / ||plain -
+# x|| over each layer (fixed before the first chip run), and the faults
+# planted in the port's block that must land past it
+CMDR_LAYERS_TOL = 0.02
+CMDR_FAULTS = {"bias": "LayerNorm bias dropped",
+               "groups": "query head h on kv head h mod K, not h // G",
+               "theta": "RoPE at theta 10000"}
+CMDR_LEAVES = ("scale", "bias")         # the LayerNorm leaves drawn
+
+
+def cmdr_kimi_kernel_cases() -> None:
+    """The kernels at command-r-plus-104b's and kimi-k2-1t-a32b's served
+    shapes (bf16, head_dim 128), each held against its plain version and
+    timed beside its library call and its bound: command-r-plus's two
+    decode kernels at G 12 (2cr, 3cr; its flash rows 1cr and 1cr' run in
+    ``dbrx_kernel_cases``) and w8a8 at its projections
+    (``CMDR_PROJECTIONS``) at M 4 (4cr, split-K) and 16384 (4cr', TMA);
+    kimi-k2's flash prefill of a 4096 bucket with lens ``DBRX_PROMPTS``
+    (1km) and its chunk call, 4 x 512 in place over a 4 x 4608 cache at
+    offsets 3584, 2048, 512, 0 (1km'), both on ``flash_fwd_kernel_tma<128,
+    ...>`` with their heads held distinct, its decode kernels at G 8 (2km,
+    3km) and w8a8 at ``KIMI_PROJECTIONS`` (4km, 4km'). Then one profiler
+    window of their device times, which must name the kernel each flash
+    and w8a8 case ran. Their inputs come from a generator of their own."""
+    gen = torch.Generator(device=DEV).manual_seed(36)
+    bf16 = torch.bfloat16
+    fns, routes = {}, {}
+    _decode_rows(fns, gen, "cmdr", CMDR_HEADS, "cr")
+    _w8a8_rows(fns, routes, gen, "cmdr", CMDR_PROJECTIONS,
+               rows=((4, "4cr"), (16384, "4cr'")))
+    H, K, hd = KIMI_HEADS
+    name = f"kimi_1km_B4_S4096_H{H}_K{K}_hd{hd}"
+    # the plain version over two halves of the kv heads, as 1cr's
+    r = flash_case(name, gen, 4, 4096, H, K, hd, bf16, list(DBRX_PROMPTS),
+                   distinct=True, ref_parts=2)
+    _show("flash_attn", name, r)
+    fns["flash_attn " + name] = r["call"]
+    fns["SDPA (boolean mask) " + name] = r["library_call"]
+    routes["flash_attn " + name] = tma_route(hd)
+    name = f"kimi_1km'_chunk_P4_C512_T4608_H{H}_K{K}_hd{hd}"
+    r = flash_chunk_case(name, gen, 4, 4608, H, K, hd, 512, bf16,
+                         slots=[0, 1, 2, 3], start=[3584, 2048, 512, 0],
+                         lengths=[512] * 4, measure=True, distinct=True)
+    _show("flash_attn", name, r)
+    fns["flash_attn " + name] = r["call"]
+    fns["SDPA (boolean mask) " + name] = r["library_call"]
+    routes["flash_attn " + name] = tma_route(hd)
+    _decode_rows(fns, gen, "kimi", KIMI_HEADS, "km")
+    _w8a8_rows(fns, routes, gen, "kimi", KIMI_PROJECTIONS,
+               rows=((4, "4km"), (16384, "4km'")))
+    device_window(fns, routes=routes)
+
+
+def reduce_cmdr(dtype: str):
+    """check-cmdr's configs, 2 layers keeping command-r-plus's G 12, which
+    ``reduce_for_smoke`` drops (4 heads over 4): in f32 d_model 64, 12
+    heads over 1 kv head of 16; in bf16 d_model 256, 24 heads over 2 kv
+    heads of 64 (flash's tensor-core kernel at head_dim 64) and d_ff 512.
+    LayerNorm, SwiGLU, the tied embedding and theta 75000 as at full
+    width; vocab 256."""
+    small = reduce_for_smoke(get_config("command-r-plus-104b"))
+    if dtype == "float32":
+        return dataclasses.replace(small, num_heads=12, num_kv_heads=1)
+    return dataclasses.replace(small, d_model=256, num_heads=24,
+                               num_kv_heads=2, head_dim=64, d_ff=512,
+                               param_dtype=dtype, activation_dtype=dtype)
+
+
+def phase_check_cmdr() -> None:
+    """check-cmdr: ``check_reduced`` on ``reduce_cmdr`` (f32 and bf16, each
+    fp and w8a8 + int8 KV), the LayerNorms' scales and biases drawn
+    (``draw_norms``); then the bf16 cut's mode 'full' must run flash's
+    tensor-core kernel at head_dim 64 (``flash_fwd_kernel_tma<64,
+    ...>``)."""
+    label = "check-cmdr"
+    check_reduced(label, "reduced command-r-plus-104b", reduce_cmdr,
+                  draw=lambda p: draw_norms(p, seed=2, leaves=CMDR_LEAVES))
+    cfg = reduce_cmdr("bfloat16")
+    params = model_mod.init_params(cfg, seed=0, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 300),
+                                     generator=gen, device=DEV,
+                                     dtype=torch.int32)}
+    with torch.inference_mode():
+        require_flash_kernel(f"{label}[bfloat16]", lambda: model_mod.forward(
+            params, cfg, batch, mode="full", caches=None), tma=True, hd=64)
+    del params
+    _free_card()
+
+
+def _layer_norm_plain(x: torch.Tensor, norm, eps: float) -> torch.Tensor:
+    """LayerNorm by its formula, in f32: (x - mean) / sqrt(var + eps) * (1
+    + scale) + bias, back in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).pow(2).mean(-1, keepdim=True)
+    y = (xf - mu) / torch.sqrt(var + eps)
+    return (y * (1.0 + norm.scale.float()) + norm.bias.float()).to(x.dtype)
+
+
+def _plain_block(layer, x: torch.Tensor, cfg, positions, valid):
+    """check-cmdr-layers' own global block over x (B,S,d), written apart
+    from ``models/``: LayerNorm by its formula; q, k, v as products with
+    the weights; RoPE at ``cfg.rope_theta`` (split halves, f32 angles);
+    causal attention of each query head h over kv head h // G at the
+    valid keys, an explicit product per kv head in f32 (softmax in f32);
+    ``wo``; the residual; LayerNorm; SwiGLU; the residual. Products in the
+    weights' dtype."""
+    B, S, d = x.shape
+    a = layer.attn
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // K
+    h = _layer_norm_plain(x, layer.pre_norm, cfg.norm_eps)
+    q = (h @ a.wq.reshape(d, -1)).view(B, S, H, hd)
+    k = (h @ a.wk.reshape(d, -1)).view(B, S, K, hd)
+    v = (h @ a.wv.reshape(d, -1)).view(B, S, K, hd)
+    half = hd // 2
+    freq = cfg.rope_theta ** (-torch.arange(half, dtype=torch.float32,
+                                            device=x.device) / half)
+    ang = positions[..., None].float() * freq            # (B,S,half)
+    cos, sin = ang.cos()[:, :, None], ang.sin()[:, :, None]
+
+    def rope(t):
+        t1, t2 = t.float()[..., :half], t.float()[..., half:]
+        return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin],
+                         dim=-1).to(t.dtype)
+
+    q, k = rope(q), rope(k)
+    lens = valid.sum(-1)
+    qpos = torch.arange(S, device=x.device)
+    keep = (qpos[None, :, None] >= qpos[None, None, :]) \
+        & (qpos[None, None, :] < lens[:, None, None])    # (B,S,T)
+    o = torch.empty(B, S, H, hd, dtype=torch.float32, device=x.device)
+    for kv in range(K):
+        qk = q[:, :, kv * G:(kv + 1) * G].float()        # (B,S,G,hd)
+        s = torch.einsum("bsgd,btd->bgst", qk, k[:, :, kv].float()) \
+            * hd ** -0.5
+        s = s.masked_fill(~keep[:, None], float("-inf"))
+        p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+        o[:, :, kv * G:(kv + 1) * G] = torch.einsum(
+            "bgst,btd->bsgd", p, v[:, :, kv].float())
+    y = o.to(x.dtype).reshape(B, S, H * hd) @ a.wo.reshape(H * hd, d)
+    mid = x + y
+    h = _layer_norm_plain(mid, layer.pre_mlp_norm, cfg.norm_eps)
+    m = layer.mlp
+    return mid + (F.silu(h @ m.w_gate) * (h @ m.w_up)) @ m.w_down
+
+
+def _cmdr_fault(name: str, cfg):
+    """(the attributes of ``attention`` or ``common`` to patch, or None,
+    the config the block runs with) that plant fault ``name`` of
+    ``CMDR_FAULTS`` in the port's block."""
+    if name == "theta":
+        return None, None, dataclasses.replace(cfg, rope_theta=10_000.0)
+    if name == "bias":
+        real = common_mod.layer_norm
+        return common_mod, {"layer_norm": lambda x, scale, bias, eps: real(
+            x, scale, torch.zeros_like(bias), eps)}, cfg
+    real = attn_mod.flash_attn
+
+    def regrouped(q, k, v, *args, **kw):
+        # query head h placed in group h mod K, so the kernel reads kv
+        # head h mod K for it; its output taken back from there
+        H, K = q.shape[2], k.shape[2]
+        h = torch.arange(H, device=q.device)
+        place = (h % K) * (H // K) + h // K
+        qp = torch.empty_like(q)
+        qp[:, :, place] = q
+        return real(qp, k, v, *args, **kw)[:, :, place]
+    return attn_mod, {"flash_attn": regrouped}, cfg
+
+
+def check_cmdr_layers(label: str, cfg, params, lens=DBRX_LAYERS_LENS,
+                      layers: int = 2) -> None:
+    """The first ``layers`` blocks of ``params`` (global attention at G 12,
+    LayerNorm, SwiGLU), each on the same input x on both sides: the port's
+    block (``blocks.apply_block``, mode 'full', so flash's tensor-core
+    kernel at G 12 on the card, over right-padded rows of ``lens`` tokens)
+    against ``_plain_block``, in the same dtype; the next layer's input is
+    the plain side's output. The metric is per token: ||block - plain|| /
+    ||plain - x|| at the real tokens, its worst over the layers held to
+    ``CMDR_LAYERS_TOL``. Each of ``CMDR_FAULTS``, planted in the port's
+    block, must land past the bound."""
+    if cfg.norm_type != "layernorm" or cfg.moe is not None \
+            or cfg.post_attn_norm or not cfg.glu or cfg.activation != "silu":
+        raise ValueError(f"{label}: a LayerNorm SwiGLU block without "
+                         f"post-norms")
+    B, S = len(lens), max(lens)
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    valid = torch.arange(S, device=DEV)[None, :] \
+        < torch.tensor(lens, device=DEV)[:, None]
+    positions = torch.arange(S, device=DEV).expand(B, S)
+    worst = 0.0
+    faults = dict.fromkeys(CMDR_FAULTS, 0.0)
+    with torch.inference_mode():
+        x = vocab_mod.embed_lookup(params.embed, toks, cfg)
+        for layer in params.layers[:layers]:
+            plain = _plain_block(layer, x, cfg, positions, valid)
+            added = (plain - x).float().norm(dim=-1)[valid]
+
+            def err(run_cfg=cfg) -> float:
+                got = blk_mod.apply_block(layer, x, run_cfg, mode="full",
+                                          cache=None, positions=positions,
+                                          kv_valid=valid)
+                e = (got - plain).float().norm(dim=-1)[valid] / added
+                return float("inf") if not torch.isfinite(e).all() \
+                    else e.max().item()
+            worst = max(worst, err())
+            for name in CMDR_FAULTS:
+                mod, attrs, run_cfg = _cmdr_fault(name, cfg)
+                with (_patched(mod, attrs) if mod is not None
+                      else contextlib.nullcontext()):
+                    faults[name] = max(faults[name], err(run_cfg))
+            x = plain
+    print(f"{label}: the first {layers} layers at d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} of "
+          f"{cfg.head_dim} (G {cfg.num_heads // cfg.num_kv_heads}), "
+          f"LayerNorm, in {cfg.param_dtype}, rows of {list(lens)} tokens: "
+          f"the block vs the plain formulation, worst token {worst:.4f} of "
+          f"what the layer adds (tol {CMDR_LAYERS_TOL}); planted faults: "
+          + "; ".join(f"{CMDR_FAULTS[k]} {v:.4f}" for k, v in faults.items()),
+          flush=True)
+    if not worst <= CMDR_LAYERS_TOL:
+        raise AssertionError(f"{label}: worst token {worst} > "
+                             f"{CMDR_LAYERS_TOL}")
+    for name, e in faults.items():
+        if not e > CMDR_LAYERS_TOL:
+            raise AssertionError(f"{label}: the planted fault "
+                                 f"'{CMDR_FAULTS[name]}' stays within the "
+                                 f"bound ({e} <= {CMDR_LAYERS_TOL})")
+
+
+def serve_bounds(label: str, cfg, params, lens=DBRX_PROMPTS,
+                 pos=DBRX_DECODE_POS) -> None:
+    """A 4 x 4096 prefill call (lens ``lens``) through the model layer,
+    eagerly, into caches of ``DBRX_KW``'s max_len: its device time, start
+    to end on the device by CUDA events after a warm-up call, beside its
+    bound (``_lm_flops`` at 989 TFLOP/s, the weights at 3.35 TB/s); and
+    the bound of a decode step at ``pos`` (every weight and the K/V its
+    rows read at 3.35 TB/s), which the graphed step's device time
+    (``profile_decode_stage``) stands beside."""
+    B, S = len(lens), max(lens)
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    lens_t = torch.tensor(lens, device=DEV)
+    valid = torch.arange(S, device=DEV)[None, :] < lens_t[:, None]
+    caches = model_mod.init_caches(cfg, B, DBRX_KW["max_len"], DEV)
+
+    @torch.inference_mode()
+    def prefill():
+        x, _ = model_mod.forward(params, cfg, {"tokens": toks},
+                                 mode="prefill", caches=caches,
+                                 kv_valid=valid)
+        return model_mod.greedy_next(
+            params, cfg, x[torch.arange(B, device=DEV), lens_t - 1])
+
+    prefill()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    prefill()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    flops = _lm_flops(cfg, params, B, B * S,
+                      sum(n * (n + 1) // 2 for n in lens))
+    wbytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    pre_bound, pre_by = bound(sum(flops.values()), wbytes, torch.bfloat16)
+    kv_bytes = sum(2 * (p + 1) * cfg.num_kv_heads * cfg.head_dim * 2
+                   for p in pos) * cfg.num_layers
+    step_flops = sum(_lm_flops(cfg, params, B, B,
+                               sum(p + 1 for p in pos)).values())
+    step_bound, step_by = bound(step_flops, wbytes + kv_bytes,
+                                torch.bfloat16)
+    print(f"{label}: eager prefill {B}x{S} (lens {list(lens)}): device "
+          f"{ms:.3f} ms start to end (CUDA events; bound {pre_bound:.3f} ms "
+          f"by {pre_by}: " + ", ".join(f"{k} {v / 1e12:.3f}"
+                                       for k, v in flops.items())
+          + f" TFLOP; {ms / pre_bound:.2f}x); a decode step of {B} rows at "
+          f"pos {list(pos)}: bound {step_bound:.4f} ms by {step_by} "
+          f"({wbytes / 1e9:.3f} GB of weights, {kv_bytes / 1e9:.3f} GB of "
+          f"K/V read)", flush=True)
+    del caches
+    _free_card()
+
+
+def phase_cmdr() -> dict:
+    """check-cmdr, then command-r-plus-104b's first ``CMDR_LAYERS`` layers
+    at full width (``init_cut``), its LayerNorms' scales and biases drawn:
+    check-cmdr-layers on its first 2, serve-cmdr (graphed, ``dbrx_requests``
+    warmed on the same requests; tok/s, TTFT, the decode stage's p50, the
+    peak memory; a prefill's and a step's device time beside their bounds,
+    ``serve_bounds``), serve-eager-cmdr (tokens identical),
+    serve-cmdr-chunked (512; agreement printed), then w8a8 with an int8 KV
+    cache: the layers check's bf16 side on the whole bf16 model, the build
+    at budget 1.0 with ``release_fp=True`` (build-cmdr-w8a8: the bf16
+    model and its int8 form would not fit together), serve-cmdr-w8a8 (7
+    int8 weights a layer; agreement printed) and check-cmdr-w8a8-layers.
+    Frees the weights; returns the launches of the graphed bf16, chunked
+    and w8a8 serves."""
+    phase_check_cmdr()
+    cfg, params = init_cut("command-r-plus-104b", CMDR_LAYERS)
+    draw_norms(params, seed=2, leaves=CMDR_LEAVES)
+    check_cmdr_layers("check-cmdr-layers", cfg, params)
+    _free_card()
+    label = "serve-cmdr"
+    trace = lambda: dbrx_requests(cfg.vocab_size)
+    serve = dict(engine_kw=DBRX_KW, trace=trace, ref_label=label,
+                 layers_label="check-cmdr-w8a8-layers",
+                 profile_pos=DBRX_DECODE_POS, hold=False)
+    launches, outputs, eng = phase_serve_padded(
+        cfg, params, label, keep_engine=True, **serve)
+    decode_step_p50(label, eng, DBRX_DECODE_POS)
+    serve_bounds(label, cfg, params)
+    phase_serve_eager("serve-eager-cmdr", eng, launches, outputs, cfg,
+                      params, engine_kw=DBRX_KW, trace=trace,
+                      decode_pos=DBRX_DECODE_POS, identical=True)
+    del eng
+    _free_card()
+    chunked, _, _ = phase_serve_padded(
+        cfg, params, "serve-cmdr-chunked", mono_outputs=outputs,
+        prefill_chunk=512, **serve)
+    _free_card()
+    ref = layers_reference(cfg, params, (512, 300, 77, 1), 1024)
+    # on seed-0 weights the calibration's greedy argmax is noise (near-flat
+    # logits): build every site, as serve-dbrx-w8a8 does; the layers check
+    # holds the layers
+    quant = build_released_w8a8("build-cmdr-w8a8", _int8_kv(cfg), params,
+                                budget=1.0)
+    quant_l, _, eng = phase_serve_padded(
+        cfg, params, "serve-cmdr-w8a8", mono_outputs=outputs,
+        precision="w8a8", quantized_params=quant, keep_engine=True,
+        layers_ref=ref, **serve)
+    n_int8 = sum(isinstance(m, QuantDense)
+                 for m in eng.quant.params.modules())
+    if n_int8 != 7 * cfg.num_layers:
+        raise AssertionError(f"serve-cmdr-w8a8: {n_int8} int8 weights; want "
+                             f"the 7 projections of each of "
+                             f"{cfg.num_layers} layers")
+    del eng, quant, params, ref
+    _free_card()
+    print(f"freed command-r-plus-104b: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+          f"allocated", flush=True)
+    return {k: launches[k] + chunked[k] + quant_l[k]
+            for k in ("flash_attn", "decode_attn", "w8a8_matmul",
+                      "decode_attn_int8")}
+
+
+def reduce_kimi(dtype: str, factor: float = 1.25):
+    """check-kimi's configs at capacity factor ``factor``, each with expert
+    weights padded past the router's experts: in f32 ``reduce_for_smoke``
+    (2 layers of d_model 64, 4 heads over 4 kv heads of 16, 4 experts
+    top-2 of d_expert 32, padded to 512); in bf16 2 layers of d_model 256,
+    16 heads over 2 kv heads of 64 (kimi-k2's G 8), 12 experts top-8 of
+    d_expert 256, padded to 16 (kimi-k2's 3 real experts in 4). Over 48
+    experts top-8 a chip run saw 2.7% of the tokens routed otherwise on
+    the host than on the card, past ``MOE_ROUTE_FLIPS``: with more
+    experts the 8th and 9th routes lie closer together."""
+    cfg = get_config("kimi-k2-1t-a32b")
+    small = reduce_for_smoke(cfg)
+    if dtype != "float32":
+        small = dataclasses.replace(
+            small, d_model=256, num_heads=16, num_kv_heads=2, head_dim=64,
+            moe=dataclasses.replace(cfg.moe, num_experts=12, d_expert=256,
+                                    num_padded_experts=16),
+            param_dtype=dtype, activation_dtype=dtype)
+    return dataclasses.replace(small, moe=dataclasses.replace(
+        small.moe, capacity_factor=factor))
+
+
+def phase_kimi() -> dict:
+    """kimi-k2-1t-a32b's phases: ``phase_moe`` on its first
+    ``KIMI_LAYERS`` layer (check-kimi, check-kimi-layers, serve-kimi with
+    its bounds, serve-eager-kimi, serve-kimi-chunked, serve-kimi-w8a8,
+    check-kimi-w8a8-layers)."""
+    return phase_moe("kimi", "kimi-k2-1t-a32b", KIMI_LAYERS, reduce_kimi)
 
 
 # ---- XLM-R ----------------------------------------------------------------
@@ -6954,6 +7495,7 @@ def phase_fleet_dlrm(cfg, asn, params, batches, outs) -> int:
 # four tries, and the kernel phase's main window lost one of its 2160 in 3
 # of 3 tries once the G 6 cases' window ran before it here
 CHILD_PHASES = {"--dbrx-kernels": dbrx_kernel_cases,
+                "--cmdr-kimi-kernels": cmdr_kimi_kernel_cases,
                 "--profile-mamba2": profile_mamba2,
                 "--profile-dbrx": profile_dbrx}
 
@@ -7054,8 +7596,9 @@ def main():
     for k, n in phase_recurrentgemma().items():
         launches[k] += n
     phase_mamba2()
-    for k, n in phase_dbrx().items():
-        launches[k] += n
+    for phase in (phase_dbrx, phase_cmdr, phase_kimi):
+        for k, n in phase().items():
+            launches[k] += n
     phase_check_gemma2()
     g2cfg = get_config("gemma2-27b")
     t0 = time.perf_counter()
@@ -7076,7 +7619,7 @@ def main():
     g2ref = layers_reference(g2cfg, g2, GEMMA2_LAYERS_LENS,
                              GEMMA2_KW["max_len"])
     g2qcfg = _int8_kv(g2cfg)
-    g2q = build_gemma2_w8a8(g2qcfg, g2)
+    g2q = build_released_w8a8("build-gemma2-w8a8", g2qcfg, g2)
     launches_gq, _ = phase_serve_gemma2_w8a8(g2qcfg, g2, g2q, g2_outputs)
     _free_card()
     check_w8a8_layers("check-gemma2-layers", g2ref, g2qcfg, g2q.params)

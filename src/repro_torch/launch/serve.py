@@ -10,13 +10,17 @@ length, on no CUDA kernel: its path has no attention and, with
 ``--precision w8a8``, zero int8 sites; or ``--arch dbrx-132b``, global
 attention at G 6 whose MLP half is a mixture of 16 experts, top 4, with
 capacity drops, and whose w8a8 build quantizes the attention projections
-alone) — continuous-batching LM serving
+alone; or ``--arch command-r-plus-104b``, global attention at G 12 with
+LayerNorm; or ``--arch kimi-k2-1t-a32b``, global attention at G 8 whose
+MLP half is a mixture of 384 experts, top 8, padded to 512) —
+continuous-batching LM serving
 with bucketed batched prefill on the card (``--device cpu`` runs the
 plain versions of the kernels on the host). ``--smoke`` (the default) serves the reduced
 config; ``--full-config`` the published widths, refused before anything
 is allocated when the weights alone pass the card's memory (dbrx-132b's
-~264 GB: ``chip_smoke.py``'s serve-dbrx serves 8 of its 40 layers at
-full width instead). The request trace is the
+~264 GB, command-r-plus-104b's ~208 GB, kimi-k2-1t-a32b's ~2.8 TB: the
+message names the ``chip_smoke.py`` phase that serves a cut of the arch's
+layers at full width instead, ``CARD_CUTS``). The request trace is the
 JAX launcher's: the same seeded generator, lengths and priorities.
 ``--arch dlrm`` serves the 4-stage DLRM pipeline on a row-wise int8 slab
 (batches of 64 from ``dlrm_batches``, a full-trace warm-up first);
@@ -99,6 +103,11 @@ from repro_torch.serving.router import ReplicaRouter
 # one H100's memory: the card a ``--full-config`` model must fit when the
 # launcher serves on the host (on the card, the card's own)
 CARD_BYTES = 80e9
+# the archs whose weights pass one card: the chip_smoke.py phase that
+# serves the first layers of each at full width instead, and how many
+CARD_CUTS = {"dbrx-132b": ("serve-dbrx", 8),
+             "command-r-plus-104b": ("serve-cmdr", 16),
+             "kimi-k2-1t-a32b": ("serve-kimi", 1)}
 
 # the JAX launcher's greedy-token-agreement guardrail for w8a8 serving
 QUANT_AGREEMENT_THRESHOLD = 0.90
@@ -203,12 +212,16 @@ def refuse_oversize(cfg, device) -> None:
     card = (torch.cuda.get_device_properties(device).total_memory
             if device.type == "cuda" else CARD_BYTES)
     if nbytes > card:
+        cut = ""
+        if cfg.name in CARD_CUTS:
+            phase, layers = CARD_CUTS[cfg.name]
+            cut = (f" (chip_smoke.py's {phase} phase serves {cfg.name}'s "
+                   f"first {layers} of {cfg.num_layers} layers at full width "
+                   f"on one card)")
         raise SystemExit(
             f"--full-config {cfg.name}: its {cfg.num_layers} layers' "
             f"weights take {nbytes / 1e9:.1f} GB in {cfg.param_dtype}, past "
-            f"the card's {card / 1e9:.1f} GB (chip_smoke.py's serve-dbrx "
-            f"phase serves dbrx-132b's first 8 layers at full width on one "
-            f"card)")
+            f"the card's {card / 1e9:.1f} GB{cut}")
 
 
 def serve_lm(args):

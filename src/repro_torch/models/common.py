@@ -35,8 +35,10 @@ def mk_param(shape: Sequence[int], dtype: torch.dtype, device,
         data = torch.ones(shape, dtype=dtype, device=device)
     elif init == "normal":
         std = scale / math.sqrt(max(shape[0], 1))
-        data = (torch.randn(shape, generator=gen, dtype=torch.float32,
-                            device=device) * std).to(dtype)
+        # scaled in place: one f32 transient a leaf (kimi-k2's 512 experts
+        # make 30 GB leaves), the values those of ``randn(...) * std``
+        data = torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=device).mul_(std).to(dtype)
     else:
         raise ValueError(init)
     return nn.Parameter(data, requires_grad=False)

@@ -80,9 +80,7 @@ def _configs(arch="dbrx-132b", factor=1.25, **kw):
     fields to change) replaced on both."""
     moe = kw.pop("moe", {})
     jc = jax_reduce(jax_get_config(arch))
-    c = reduce_for_smoke(get_config(arch)) if arch == "dbrx-132b" else \
-        dataclasses.replace(reduce_for_smoke(get_config("dbrx-132b")),
-                            name=jc.name, rope_theta=jc.rope_theta)
+    c = reduce_for_smoke(get_config(arch))
     jm = dataclasses.replace(jc.moe, capacity_factor=factor, **moe)
     jc = dataclasses.replace(jc, moe=jm, **kw)
     c = dataclasses.replace(c, moe=MoEConfig(**dataclasses.asdict(jm)), **kw)

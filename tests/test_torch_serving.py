@@ -283,7 +283,8 @@ def test_quantization_workflow_decides_like_the_original(budget):
 @pytest.mark.parametrize("arch", ["deepseek-7b", "gemma2-27b", "gemma-2b",
                                   "recurrentgemma-9b", "xlmr-paper",
                                   "qwen2-vl-7b", "mamba2-130m",
-                                  "dbrx-132b"])
+                                  "dbrx-132b", "command-r-plus-104b",
+                                  "kimi-k2-1t-a32b"])
 def test_config_copy_equals_the_original(arch):
     """Each config the port registers is the JAX package's, field for
     field, at full width and through ``reduce_for_smoke``."""
