@@ -393,6 +393,29 @@ result line):
              32768) and chunked at 2048: the state's bytes equal
              serve-mamba2's, the long prompt's TTFT and the decode p50
              printed.
+             check-train, train-mamba2, train-gemma2b — then the trainer
+             (``launch/train.py``: f32, Adam, no kernel on its path, every
+             launch counter 0). check-train: one ``reduce_for_smoke``
+             config per block kind (deepseek-7b, gemma2-27b,
+             recurrentgemma-9b, mamba2-130m, dbrx-132b, whisper-medium,
+             qwen2-vl-7b), zero leaves drawn and logits scaled x20, the
+             same weights and 3 batches on the card and on the host: step
+             1's loss and every gradient within 2e-3 relative + 1e-5, the
+             losses of steps 2-3 within 1e-3 relative; attention through
+             the flash kernel past its grad guard and the z-term dropped
+             each past them; flash on CUDA inputs that require grad must
+             raise. train-mamba2: the launcher's ``setup`` and ``train`` at
+             full width, 40 steps of 8 x 128 tokens at lr 1e-3 (the
+             default 3e-3 makes the loss rise at this width), a checkpoint
+             at step 20; every loss finite, the mean of the last 5 at least
+             ``TRAIN_MAMBA2_MARGIN`` below the first, the checkpoint holding
+             every parameter; then ``--resume`` in a child process
+             (``--train-resume``): the saved bits restored, steps 20-39 run,
+             finite. train-gemma2b: full width (16 heads, 8 padding), 8 x
+             64 tokens in 2 microbatches, 10 steps, then one more step
+             whose own batch must fall ``TRAIN_GEMMA2B_DESCENT``; the
+             device time a step beside a rough bound, the peak, and the
+             padded heads' ``wo`` rows (trained, as the reference's).
              check-dbrx, check-dbrx-layers, serve-dbrx,
              serve-eager-dbrx, serve-dbrx-chunked, serve-dbrx-w8a8 — after
              mamba2-130m's: dbrx-132b (global attention at G 6 whose MLP
@@ -547,7 +570,9 @@ the graphed, chunked and w8a8 serves of dbrx-132b, command-r-plus-104b and
 kimi-k2-1t-a32b for the attention kernels and w8a8,
 serve-dlrm, or
 check-dlrm for the fp32 and int4 SLS kernels, and every fleet phase; each
-phase zeroes the counters just before it and reads them just after); the
+phase zeroes the counters just before it and reads them just after).
+Before it, a JSON line ``{"train": [...]}``: per train phase its steps,
+the median device time a step, the first and last loss and the peak. The
 last line is ``{"ok": true, "device": {...}}``. Needs one CUDA device and
 the repository's ``src/`` beside this file; imports nothing of JAX.
 """
@@ -562,8 +587,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -581,7 +608,9 @@ from repro_torch.core.metrics import token_agreement  # noqa: E402
 from repro_torch.configs.xlmr_paper import SEQ_BUCKETS  # noqa: E402
 from repro_torch.core.bucketing import (  # noqa: E402
     length_sorted_batches, pad_ragged_to_bucket)
+from repro_torch.data.pipeline import stage  # noqa: E402
 from repro_torch.data.synthetic import dlrm_batches  # noqa: E402
+from repro_torch.data.synthetic import lm_token_batches  # noqa: E402
 from repro_torch.data.synthetic import xlmr_sentences  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
@@ -609,6 +638,7 @@ from repro_torch.core.quantization import QuantDense  # noqa: E402
 from repro_torch.models.quantize import (  # noqa: E402
     QuantizedParams, build_quantized_params)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.serving.dlrm_engine import DLRMEngine  # noqa: E402
 from repro_torch.serving.dlrm_engine import (  # noqa: E402
     make_replicas as dlrm_make_replicas)
@@ -621,6 +651,9 @@ from repro_torch.serving.engine import (  # noqa: E402
 from repro_torch.serving.perf_model import PerfModel  # noqa: E402
 from repro_torch.serving.router import ReplicaRouter  # noqa: E402
 from repro_torch.sharding import vocab as vocab_mod  # noqa: E402
+from repro_torch.training.optimizer import (  # noqa: E402
+    OptConfig, init_opt_state)
+from repro_torch.training.train_step import make_train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
@@ -4742,6 +4775,393 @@ def phase_mamba2() -> None:
           f"GiB still allocated", flush=True)
 
 
+# ---- training ---------------------------------------------------------------
+
+# train-mamba2: the launcher at its default arch, at the published widths,
+# at lr 1e-3: at the launcher's default 3e-3 the full-width loss rises
+# (10.8457 -> 11.1228 over 40 steps on the H100, where 1e-3 falls to
+# 10.5996 and 3e-4 to 10.6530: scripts/torch_train_lr.py)
+TRAIN_MAMBA2_ARGV = ["--arch", "mamba2-130m", "--full-config", "--steps",
+                     "40", "--batch", "8", "--seq", "128", "--lr", "1e-3",
+                     "--ckpt-every", "20", "--log-every", "1",
+                     "--device", DEV]
+TRAIN_MAMBA2_CKPT = 20
+# the mean of its last 5 losses must sit this many nats below its first,
+# fixed before the first run (scripts/torch_train_lr.py on the host at
+# d_model 128, 2 layers and the full 50280-token vocabulary: 0.4169)
+TRAIN_MAMBA2_MARGIN = 0.1
+# train-gemma2b: examples/train_lm.py's settings (the default lr 3e-3), no
+# checkpoint
+TRAIN_GEMMA2B_ARGV = ["--arch", "gemma-2b", "--full-config", "--steps",
+                      "10", "--batch", "8", "--seq", "64", "--accum", "2",
+                      "--ckpt-every", "1000", "--log-every", "1",
+                      "--device", DEV]
+# ... its loss falls where it can in 10 steps: one more step's own batch
+# must lose this many nats from the step's update, fixed before the first
+# run. The streamed loss cannot: every batch of a 256000-token vocabulary
+# is new tokens (it stays within 0.01 of 12.48 at lr 3e-4 and rises 0.20
+# at 3e-3, where a step's own batch falls 1.94: scripts/torch_train_lr.py)
+TRAIN_GEMMA2B_DESCENT = 0.1
+# the child process that resumes train-mamba2 from its checkpoint
+TRAIN_RESUME = "--train-resume"
+# check-train: one reduced f32 config per block kind, the card against the
+# host; step 1's loss and gradients within the port's f32 tolerance (2e-3
+# relative + 1e-5), the losses of steps 2-3 within 1e-3 relative, fixed
+# before the first run
+CHECK_TRAIN_ARCHS = ("deepseek-7b", "gemma2-27b", "recurrentgemma-9b",
+                     "mamba2-130m", "dbrx-132b", "whisper-medium",
+                     "qwen2-vl-7b")
+TRAIN_RTOL, TRAIN_ATOL, TRAIN_STEPS_RTOL = 2e-3, 1e-5, 1e-3
+# the final norm's multiplier in check-train: logits of ~10 standard
+# deviations, where the z-term moves the loss and the head's gradients by
+# more than the tolerance (at init's small logits it moves them ~1e-3)
+TRAIN_LOGIT_SCALE = 20.0
+TRAIN_FAULTS = ("attention through the kernel", "z-term dropped")
+
+
+def _train_args(argv, ckpt_dir: str, resume: bool = False):
+    return train_launcher._parser().parse_args(
+        argv + ["--ckpt-dir", ckpt_dir] + (["--resume"] if resume else []))
+
+
+def _train_summary(label: str, recs: list) -> dict:
+    """The train line's entry of a run: steps, the median device time a
+    step past the first, first and last loss, the peak."""
+    later = [r["device_ms"] for r in recs[1:]] or [recs[0]["device_ms"]]
+    return {"phase": label, "steps": len(recs),
+            "ms_per_step": float(np.median(later)),
+            "first_loss": recs[0]["loss"], "last_loss": recs[-1]["loss"],
+            "peak_gib": max(r["peak_gib"] for r in recs)}
+
+
+def _finite_losses(label: str, recs: list) -> None:
+    bad = [(r["step"], r["loss"], r["grad_norm"]) for r in recs
+           if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]))]
+    if bad:
+        raise AssertionError(f"{label}: non-finite steps {bad}")
+
+
+def _saved_leaves(ckpt_dir: str, step: int) -> dict:
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(path, "index.json")) as f:
+        index = json.load(f)["leaves"]
+    return {k: np.load(os.path.join(path, m["file"])) for k, m in index.items()}
+
+
+def phase_train_mamba2() -> list:
+    """train-mamba2: the launcher's loop (``setup``, then ``train``) on
+    full-width mamba2-130m in f32, 40 steps of 8 x 128 tokens, a
+    checkpoint at step 20; then ``--resume`` in a child process, which
+    must restore the saved bits and reach step 39. No kernel launches."""
+    ckpt_dir = tempfile.mkdtemp(prefix="train_mamba2_")
+    try:
+        _zero_launches()
+        args = _train_args(TRAIN_MAMBA2_ARGV, ckpt_dir)
+        tr = train_launcher.setup(args)
+        n = sum(p.numel() for p in tr.model.parameters())
+        print(f"train-mamba2: {n / 1e6:.2f} M f32 params, "
+              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB with Adam's "
+              f"state; {card_line()}", flush=True)
+        recs = train_launcher.train(tr, args)
+        _require_no_launch("train-mamba2", _launch_counts())
+        _finite_losses("train-mamba2", recs)
+        summary = _train_summary("train-mamba2", recs)
+        losses = [r["loss"] for r in recs]
+        tail = float(np.mean(losses[-5:]))
+        print(f"train-mamba2: loss {losses[0]:.4f} -> mean of the last 5 "
+              f"{tail:.4f} (must fall {TRAIN_MAMBA2_MARGIN}); "
+              f"{summary['ms_per_step']:.3f} ms a step on the device, peak "
+              f"{summary['peak_gib']:.2f} GiB", flush=True)
+        if tail > losses[0] - TRAIN_MAMBA2_MARGIN:
+            raise AssertionError(f"train-mamba2: loss did not fall: "
+                                 f"{losses[0]:.4f} -> {tail:.4f}")
+        if tr.mgr.all_steps() != [TRAIN_MAMBA2_CKPT]:
+            raise AssertionError(f"train-mamba2: checkpoints "
+                                 f"{tr.mgr.all_steps()}")
+        saved = _saved_leaves(ckpt_dir, TRAIN_MAMBA2_CKPT)
+        if set(saved) != set(tr.model.state_dict()):
+            raise AssertionError("train-mamba2: the checkpoint's leaves are "
+                                 "not the model's parameters")
+        print(f"train-mamba2: step {TRAIN_MAMBA2_CKPT}'s checkpoint holds "
+              f"all {len(saved)} parameters", flush=True)
+        del tr
+        _free_card()
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              TRAIN_RESUME, ckpt_dir], capture_output=True,
+                             text=True, timeout=600)
+        print(out.stdout, end="", flush=True)
+        if out.returncode:
+            raise AssertionError(f"train-mamba2 resume exited "
+                                 f"{out.returncode}: {out.stderr[-3000:]}")
+        resumed = json.loads(out.stdout.strip().splitlines()[-1])["resume"]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return [summary, resumed]
+
+
+def train_resume(ckpt_dir: str) -> None:
+    """The child of train-mamba2: ``--resume`` through the launcher's
+    ``setup``, every restored parameter equal to its saved ``.npy`` bits,
+    then ``train`` from step 20 (which runs again, as in the reference) to
+    39, every loss finite and no kernel launched. Its last line is the
+    train line's entry."""
+    args = _train_args(TRAIN_MAMBA2_ARGV, ckpt_dir, resume=True)
+    tr = train_launcher.setup(args)
+    if tr.start != TRAIN_MAMBA2_CKPT:
+        raise AssertionError(f"resumed from step {tr.start}")
+    saved = _saved_leaves(ckpt_dir, tr.start)
+    state = tr.model.state_dict()
+    for k, arr in saved.items():
+        got = state[k].cpu().numpy()
+        if got.dtype != arr.dtype or not np.array_equal(
+                got.view(np.uint8), arr.view(np.uint8)):
+            raise AssertionError(f"resume: {k} differs from its saved bits")
+    print(f"train-mamba2 resume: all {len(saved)} parameters equal the "
+          f"saved bits", flush=True)
+    recs = train_launcher.train(tr, args)
+    _require_no_launch("train-mamba2 resume", _launch_counts())
+    _finite_losses("train-mamba2 resume", recs)
+    steps = [r["step"] for r in recs]
+    if steps != list(range(TRAIN_MAMBA2_CKPT, args.steps)):
+        raise AssertionError(f"resume ran steps {steps}")
+    print(json.dumps({"resume": _train_summary("train-mamba2-resume",
+                                               recs)}), flush=True)
+
+
+def _padded_wo_rows(model, cfg) -> float:
+    """The largest |w| of the padded heads' ``wo`` rows over the layers."""
+    return max(layer.attn.wo[cfg.num_heads:].abs().max().item()
+               for layer in model.layers)
+
+
+def phase_train_gemma2b() -> dict:
+    """train-gemma2b: full-width gemma-2b in f32 (16 heads, 8 of them
+    padding) through the launcher's loop with ``examples/train_lm.py``'s
+    settings (8 x 64 tokens, 2 microbatches), 10 steps, no checkpoint;
+    then one more step on a new batch, whose own loss must fall by
+    ``TRAIN_GEMMA2B_DESCENT``. Prints the measured step beside a rough
+    bound (6 x params x tokens f32 operations at 67 TFLOP/s, and Adam's
+    bytes: parameters, gradients and both moments read, three written) and
+    whether the padded heads' ``wo`` rows are still zero (the reference
+    masks no gradient of theirs)."""
+    ckpt_dir = tempfile.mkdtemp(prefix="train_gemma2b_")
+    try:
+        _zero_launches()
+        args = _train_args(TRAIN_GEMMA2B_ARGV, ckpt_dir)
+        tr = train_launcher.setup(args)
+        n = sum(p.numel() for p in tr.model.parameters())
+        print(f"train-gemma2b: {n / 1e9:.3f} B f32 params, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB with Adam's "
+              f"state; {card_line()}", flush=True)
+        wo0 = _padded_wo_rows(tr.model, tr.cfg)
+        recs = train_launcher.train(tr, args)
+        _finite_losses("train-gemma2b", recs)
+        data = lm_token_batches(tr.cfg.vocab_size, args.batch, args.seq,
+                                seed=train_launcher.DATA_SEED)
+        for _ in range(args.steps):
+            next(data)
+        batch = stage(next(data), DEV)
+        with torch.no_grad():
+            before = model_mod.loss_fn(tr.model, tr.cfg, batch)[0].item()
+        step = make_train_step(tr.cfg, tr.opt_cfg, accum_steps=args.accum,
+                               remat=False)
+        tr.opt_state, _ = step(tr.model, tr.opt_state, batch)
+        with torch.no_grad():
+            after = model_mod.loss_fn(tr.model, tr.cfg, batch)[0].item()
+        _require_no_launch("train-gemma2b", _launch_counts())
+        summary = _train_summary("train-gemma2b", recs)
+        tokens = args.batch * args.seq
+        bound_ms = (6 * n * tokens / PEAK_FLOPS[torch.float32]
+                    + 7 * 4 * n / HBM_BYTES_PER_S) * 1e3
+        wo = _padded_wo_rows(tr.model, tr.cfg)
+        print(f"train-gemma2b: streamed loss {recs[0]['loss']:.4f} -> "
+              f"{recs[-1]['loss']:.4f}; a new batch's own step "
+              f"{before:.4f} -> {after:.4f} (must fall "
+              f"{TRAIN_GEMMA2B_DESCENT}); {summary['ms_per_step']:.3f} ms a "
+              f"step on the device against a rough {bound_ms:.1f} ms "
+              f"bound; peak {summary['peak_gib']:.2f} GiB; the padded "
+              f"heads' wo rows: max |w| {wo0:.3e} at init, {wo:.3e} now "
+              f"({'still zero' if wo == 0 else 'trained, as the reference'})",
+              flush=True)
+        if before - after < TRAIN_GEMMA2B_DESCENT:
+            raise AssertionError(f"train-gemma2b: a step's own loss fell "
+                                 f"{before - after:.4f}")
+        summary.update(bound_ms=bound_ms, own_step=[before, after])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del tr
+    _free_card()
+    return summary
+
+
+def _check_train_model(cfg, device):
+    """check-train's weights: seed 0, every all-zero leaf drawn N(0, 0.1),
+    the final norm scaled by ``TRAIN_LOGIT_SCALE``; gradients on."""
+    model = model_mod.init_params(cfg, 0, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+        model.final_norm.scale.fill_(TRAIN_LOGIT_SCALE - 1.0)
+    return model.to(device).requires_grad_(True)
+
+
+def _train_batch(cfg, rng, B: int = 4, S: int = 16) -> dict:
+    """Tokens, or (qwen2-vl) embeddings at distinct (t, h, w) positions,
+    and labels; whisper's stub frames; numpy."""
+    b = {"labels": rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)}
+    if cfg.encdec is not None:
+        b["enc_embeds"] = (rng.standard_normal((B, 24, cfg.d_model))
+                           * 0.1).astype(np.float32)
+    if cfg.input_kind == "embeddings" and cfg.encdec is None:
+        b["embeds"] = (rng.standard_normal((B, S, cfg.d_model))
+                       * 0.1).astype(np.float32)
+        t = np.arange(S)
+        b["positions"] = np.stack([np.broadcast_to(p, (B, S)) for p in
+                                   (t // 4, t % 4 + 3, (t * 7) % 5 + 1)]
+                                  ).astype(np.int32)
+    else:
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    return b
+
+
+def _loss_and_grads(model, cfg, batch, device):
+    tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    loss, _ = model_mod.loss_fn(model, cfg, tb)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.item(), {n: (torch.zeros_like(p) if g is None else g).cpu()
+                         for n, p, g in zip(names, params, grads)}
+
+
+def _train_run(cfg, device, batches, fault=None):
+    """(step 1's loss, its gradients, the losses of 3 Adam steps) of
+    check-train's model on ``device``, under ``fault``."""
+    model = _check_train_model(cfg, device)
+    opt_cfg = OptConfig(name="adam", lr=1e-3)
+    with _train_fault(fault):
+        loss, grads = _loss_and_grads(model, cfg, batches[0], device)
+        step = make_train_step(cfg, opt_cfg, accum_steps=1, remat=False)
+        state = init_opt_state(dict(model.named_parameters()), opt_cfg)
+        losses = []
+        for b in batches:
+            state, m = step(model, state, b)
+            losses.append(m["loss"].item())
+    return loss, grads, losses
+
+
+def _attention_through_kernel(p, x, cfg, positions, kv_valid=None, *, kind,
+                              causal=True):
+    """A fault: the training attention through the flash kernel, past its
+    grad guard (under ``no_grad``), so q, k and v get no gradient."""
+    q, k, v = attn_mod._project_qkv(p, x, cfg, positions)
+    lens = None if kv_valid is None else kv_valid.sum(-1).to(torch.int32)
+    with torch.no_grad():
+        o = flash_attn(q.contiguous(), k.contiguous(), v.contiguous(), lens,
+                       causal=causal,
+                       window=cfg.window_size if kind == attn_mod.ATTN_LOCAL
+                       else 0,
+                       softcap=cfg.attn_logit_softcap or 0.0)
+    return attn_mod._out_proj(p, o)
+
+
+_LM_HEAD_LOSS = vocab_mod.lm_head_loss
+
+
+def _lm_loss_without_z(x, table, labels, cfg, mask=None):
+    """A fault: the loss's z-term dropped."""
+    loss, z = _LM_HEAD_LOSS(x, table, labels, cfg, mask)
+    return loss, torch.zeros_like(z)
+
+
+def _train_fault(fault):
+    if fault == TRAIN_FAULTS[0]:
+        return _patched(attn_mod, {"dense_attention":
+                                   _attention_through_kernel})
+    if fault == TRAIN_FAULTS[1]:
+        return _patched(vocab_mod, {"lm_head_loss": _lm_loss_without_z})
+    return contextlib.nullcontext()
+
+
+def _train_errors(host, card) -> tuple:
+    """(step 1's loss and gradients: the worst error in units of its bound,
+    2e-3 relative + 1e-5; the worst relative loss error of steps 2-3)."""
+    (lh, gh, sh), (lc, gc, sc) = host, card
+    worst = abs(lc - lh) / (TRAIN_RTOL * abs(lh) + TRAIN_ATOL)
+    for k, g in gh.items():
+        err = (gc[k] - g).abs() / (TRAIN_RTOL * g.abs() + TRAIN_ATOL)
+        worst = max(worst, err.max().item())
+    steps = max(abs(c - h) / abs(h) for c, h in zip(sc[1:], sh[1:]))
+    return worst, steps
+
+
+def phase_check_train() -> dict:
+    """check-train: for one reduced f32 config per block kind, the same
+    weights and 3 batches through ``loss_fn`` and 3 Adam steps on the card
+    and on the host; step 1's loss and every gradient within 2e-3 relative
+    + 1e-5, the losses of steps 2-3 within 1e-3 relative. Each planted
+    fault (``TRAIN_FAULTS``, on deepseek-7b) must land past those bounds.
+    A direct flash call on CUDA inputs that require grad must raise. No
+    kernel launches on the honest runs."""
+    t0 = time.perf_counter()
+    _zero_launches()
+    rows = []
+    for arch in CHECK_TRAIN_ARCHS:
+        cfg = reduce_for_smoke(get_config(arch))
+        rng = np.random.default_rng(5)
+        batches = [_train_batch(cfg, rng) for _ in range(3)]
+        host = _train_run(cfg, "cpu", batches)
+        card = _train_run(cfg, DEV, batches)
+        worst, steps = _train_errors(host, card)
+        rows.append((arch, host[2], worst, steps))
+        print(f"check-train {arch}: losses {[round(l, 4) for l in card[2]]} "
+              f"(host {[round(l, 4) for l in host[2]]}); step 1 "
+              f"{worst:.3f} of its bound, steps 2-3 {steps:.2e} relative",
+              flush=True)
+        if worst > 1 or steps > TRAIN_STEPS_RTOL:
+            raise AssertionError(f"check-train {arch}: card vs host past "
+                                 f"the bounds ({worst:.3f}, {steps:.2e})")
+    _require_no_launch("check-train", _launch_counts())
+    cfg = reduce_for_smoke(get_config("deepseek-7b"))
+    rng = np.random.default_rng(5)
+    batches = [_train_batch(cfg, rng) for _ in range(3)]
+    host = _train_run(cfg, "cpu", batches)
+    faults = {}
+    for fault in TRAIN_FAULTS:
+        worst, steps = _train_errors(host, _train_run(cfg, DEV, batches,
+                                                      fault))
+        faults[fault] = worst
+        print(f"check-train fault '{fault}': step 1 {worst:.3f} of its "
+              f"bound, steps 2-3 {steps:.2e}", flush=True)
+        if worst <= 1 and steps <= TRAIN_STEPS_RTOL:
+            raise AssertionError(f"check-train: the fault '{fault}' held "
+                                 f"within the bounds")
+    q, k, v = (torch.randn(1, 8, 2, 16, device=DEV, requires_grad=True)
+               for _ in range(3))
+    try:
+        flash_attn(q, k, v)
+    except ValueError as e:
+        print(f"check-train: flash_attn refuses inputs that require grad: "
+              f"{e}", flush=True)
+    else:
+        raise AssertionError("check-train: flash_attn took inputs that "
+                             "require grad")
+    return {"phase": "check-train", "steps": 3 * len(CHECK_TRAIN_ARCHS),
+            "archs": len(rows), "worst_step1": max(r[2] for r in rows),
+            "worst_steps23": max(r[3] for r in rows), "faults": faults,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_train() -> list:
+    """check-train, train-mamba2 (and its resume), train-gemma2b; returns
+    the train line's entries."""
+    out = [phase_check_train()]
+    out += phase_train_mamba2()
+    out.append(phase_train_gemma2b())
+    return out
+
+
 # ---- dbrx-132b --------------------------------------------------------------
 
 # the served cut (the launcher's ``CARD_CUTS``): the first 8 of dbrx-132b's
@@ -7517,6 +7937,9 @@ def main():
     if len(sys.argv) == 2 and sys.argv[1] in CHILD_PHASES:
         CHILD_PHASES[sys.argv[1]]()
         return
+    if len(sys.argv) == 3 and sys.argv[1] == TRAIN_RESUME:
+        train_resume(sys.argv[2])
+        return
     print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -7596,6 +8019,7 @@ def main():
     for k, n in phase_recurrentgemma().items():
         launches[k] += n
     phase_mamba2()
+    train = phase_train()
     for phase in (phase_dbrx, phase_cmdr, phase_kimi):
         for k, n in phase().items():
             launches[k] += n
@@ -7642,6 +8066,7 @@ def main():
     torch.cuda.empty_cache()
     launches.update({k: n for k, n in phase_check_dlrm().items()
                      if k != "sls_int8"})
+    print(json.dumps({"train": train}))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     line = [dict(name=name, route="cuda", **KERNELS[name],

@@ -61,8 +61,9 @@ def _per_layer(tree: Dict[str, Any], cfg: ModelConfig,
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as numpy (f32 for bf16, which numpy lacks)."""
-    t = t.detach().cpu()
+    """A copy of a tensor as numpy (f32 for bf16, which numpy lacks): a
+    view of a CPU tensor would follow the port's in-place updates."""
+    t = t.detach().to("cpu", copy=True)
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
@@ -144,7 +145,15 @@ def params_to_jax(model: model_mod.Model, cfg: ModelConfig
                   ) -> Dict[str, Any]:
     """The port's model (quantized sites included) -> the JAX package's
     parameter tree as numpy (f32 for bf16 weights)."""
-    flat = {k: _host(v) for k, v in model.state_dict().items()}
+    return state_to_jax(model.state_dict(), cfg)
+
+
+def state_to_jax(state: Dict[str, torch.Tensor], cfg: ModelConfig
+                 ) -> Dict[str, Any]:
+    """Tensors keyed by the port's ``state_dict`` names (a model's, or its
+    gradients by parameter name) -> the JAX package's parameter tree as
+    numpy (f32 for bf16)."""
+    flat = {k: _host(v) for k, v in state.items()}
     tree = _stack_layers([_nest(flat, f"layers.{l}.")
                           for l in range(cfg.num_layers)], cfg)
     tree["final_norm"] = _nest(flat, "final_norm.")

@@ -1,9 +1,11 @@
-"""Synthetic data of the port (numpy copies of ``zipf_indices``,
-``dlrm_batches`` and ``xlmr_sentences`` from ``repro/data/synthetic.py``,
-held to the originals by ``tests/test_torch_serving.py``): DLRM click logs
-(dense features, power-law sparse bags padded to
-``max_lookups_per_table``, and labels) and XLM-R's variable-length
-sentences, from a numpy seed, so both packages see the same data."""
+"""Synthetic data of the port (numpy copies of ``lm_token_batches``,
+``zipf_indices``, ``dlrm_batches`` and ``xlmr_sentences`` from
+``repro/data/synthetic.py``, held to the originals by
+``tests/test_torch_serving.py`` and ``tests/test_torch_checkpoint.py``):
+LM token streams, DLRM click logs (dense features, power-law sparse bags
+padded to ``max_lookups_per_table``, and labels) and XLM-R's
+variable-length sentences, from a numpy seed, so both packages see the
+same data."""
 from __future__ import annotations
 
 from typing import Dict, Iterator
@@ -11,6 +13,23 @@ from typing import Dict, Iterator
 import numpy as np
 
 from repro_torch.configs.dlrm_paper import DLRMConfig
+
+
+def lm_token_batches(vocab: int, batch: int, seq: int, *, seed: int = 0,
+                     structured: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite LM batches. ``structured`` makes tokens learnable (Markov-ish
+    next = (3*tok + noise) % vocab) so training loss visibly decreases."""
+    rng = np.random.default_rng(seed)
+    while True:
+        if structured:
+            toks = np.empty((batch, seq + 1), np.int32)
+            toks[:, 0] = rng.integers(0, vocab, batch)
+            noise = rng.integers(0, 2, (batch, seq))
+            for t in range(seq):
+                toks[:, t + 1] = (3 * toks[:, t] + noise[:, t]) % vocab
+        else:
+            toks = rng.integers(0, vocab, (batch, seq + 1), dtype=np.int32)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def zipf_indices(rng, rows: int, size, alpha: float = 1.1) -> np.ndarray:

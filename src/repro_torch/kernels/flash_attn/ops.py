@@ -2,7 +2,11 @@
 
 ``flash_attn`` checks its inputs, then launches the CUDA kernel for CUDA
 tensors, or runs the plain version (``ref.py``) for CPU tensors. There is no
-fallback: a CUDA input the kernel cannot take raises. ``flash_attn.launches``
+fallback: a CUDA input the kernel cannot take raises. The kernel has no
+backward and writes its output outside autograd, so a CUDA q, k or v that
+requires grad, under grad mode, raises too (training takes
+``models/attention.py::dense_attention``); the plain version on the CPU is
+differentiable and runs as before. ``flash_attn.launches``
 counts kernel launches (plain-version calls do not count),
 ``flash_attn.offset_launches`` those of them given a ``q_off`` (the model's
 chunk path always passes one, so that a chunk stage's launch does not
@@ -82,6 +86,12 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    q_off=q_off, kv_rows=kv_rows)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "flash_attn: the CUDA kernel has no backward, so q, k and v "
+            "that require grad would get no gradient; train through "
+            "models.attention.dense_attention (model.forward mode 'train', "
+            "which model.loss_fn takes), or call this under torch.no_grad()")
     B, S, H, hd = q.shape
     Bk, T, K = k.shape[:3]
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):

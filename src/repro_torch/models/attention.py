@@ -10,7 +10,9 @@ chunks go through the flash kernel, and so do an encoder's non-causal
 attention and a cross-attention's prefill; decode goes through the
 flash-decode kernel (or its int8-cache twin), cross-attention's decode
 too. A projection whose weight the build step quantized (``QuantDense``)
-goes through the w8a8 kernel.
+goes through the w8a8 kernel. Training takes the reference's dense path
+in plain torch instead (``dense_attention``, ``dense_cross_attention``),
+which autograd differentiates; the kernels have no backward.
 
 The KV cache is a dict of preallocated ``k``/``v`` tensors (B, slots, K, hd)
 that prefill and decode update in place. (The JAX package instead returns a
@@ -40,9 +42,15 @@ from repro_torch.core.quantization import dense_w8a8, is_quantized_dense
 from repro_torch.kernels.decode_attn.ops import decode_attn, decode_attn_int8
 from repro_torch.kernels.flash_attn.ops import flash_attn
 from repro_torch.models.common import (apply_mrope, apply_rope, dtype_of,
-                                       mk_param)
+                                       mk_param, softcap)
 
 Cache = Dict[str, torch.Tensor]
+
+# the dense path's mask value, finite so a fully masked softmax row (and
+# its gradient) stays NaN-free, and its query-block size for long
+# sequences: the reference's ``NEG_INF`` and ``PREFILL_Q_CHUNK``
+NEG_INF = -2.3819763e38
+PREFILL_Q_CHUNK = 4096
 
 
 class Attention(nn.Module):
@@ -244,6 +252,86 @@ def cross_attention(p: Attention, x: torch.Tensor, cross_k: torch.Tensor,
     o = flash_attn(q, cross_k, cross_v, lens, causal=False,
                    softcap=_softcap(cfg))
     return _out_proj(p, o)
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """q (B,S,H,hd), k (B,T,K,hd) -> scores (B,K,G,S,T) in q's dtype,
+    scaled by hd^-0.5, then softcapped."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    s = torch.einsum("bskgd,btkd->bkgst", q.reshape(B, S, K, H // K, hd), k)
+    return softcap(s * hd ** -0.5, cfg.attn_logit_softcap)
+
+
+def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs (B,K,G,S,T) f32, v (B,T,K,hd) -> (B,S,H,hd)."""
+    B, K, G, S, T = probs.shape
+    o = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+    return o.reshape(B, S, K * G, -1)
+
+
+def _masked_probs(scores: torch.Tensor,
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Softmax in f32 over the keys, the keys ``mask`` leaves out at
+    ``NEG_INF``."""
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    return torch.softmax(scores.float(), dim=-1)
+
+
+def dense_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor,
+                    kv_valid: Optional[torch.Tensor] = None, *, kind: str,
+                    causal: bool = True) -> torch.Tensor:
+    """``full_attention``'s function in plain torch, which autograd
+    differentiates: the reference's dense path (its ``attention_impl``
+    "chunked_jnp", the one its trainer takes; the flash kernel has no
+    backward). The mask is built from the query stream's positions (the
+    t stream for M-RoPE): causal, a local layer's window, and the keys
+    ``kv_valid`` (B,S) marks. Past 2 x ``PREFILL_Q_CHUNK`` queries (a
+    multiple of it), the queries run in blocks of that many, so one
+    block's scores are live at a time. Returns y (B,S,d)."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    S = x.shape[1]
+    qpos = positions if positions.dim() == 2 else positions[0]
+
+    def core(q_blk, qpos_blk):
+        mask = torch.ones((q_blk.shape[0], q_blk.shape[1], S),
+                          dtype=torch.bool, device=x.device)
+        if causal:
+            mask &= qpos_blk[:, :, None] >= qpos[:, None, :]
+        if kind == ATTN_LOCAL:
+            mask &= qpos_blk[:, :, None] - qpos[:, None, :] < cfg.window_size
+        if kv_valid is not None:
+            mask &= kv_valid.bool()[:, None, :]
+        return _gqa_out(_masked_probs(_gqa_scores(q_blk, k, cfg),
+                                      mask[:, None, None]), v)
+
+    if S > 2 * PREFILL_Q_CHUNK and S % PREFILL_Q_CHUNK == 0:
+        o = torch.cat([core(q[:, i:i + PREFILL_Q_CHUNK],
+                            qpos[:, i:i + PREFILL_Q_CHUNK])
+                       for i in range(0, S, PREFILL_Q_CHUNK)], dim=1)
+    else:
+        o = core(q, qpos)
+    return _out_proj(p, o)
+
+
+def dense_cross_attention(p: Attention, x: torch.Tensor,
+                          cross_k: torch.Tensor, cross_v: torch.Tensor,
+                          cfg: ModelConfig,
+                          kv_valid: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """``cross_attention``'s mode 'full' in plain torch, which autograd
+    differentiates (the reference's dense cross-attention): every query of
+    x (B,S,d), its bias and no RoPE, over the frames ``cross_k`` /
+    ``cross_v`` (B,T,K,hd), those past ``kv_valid`` (B,T) masked. Returns
+    y (B,S,d)."""
+    q = _project_q(p, x, cfg, None)
+    mask = None if kv_valid is None \
+        else kv_valid.bool()[:, None, None, None, :]
+    return _out_proj(p, _gqa_out(_masked_probs(_gqa_scores(q, cross_k, cfg),
+                                               mask), cross_v))
 
 
 def _cache_entries(cache: Cache, k: torch.Tensor, v: torch.Tensor):

@@ -7,7 +7,8 @@ between its causal self-attention and its MLP; an ``ssm`` block (Mamba2's)
 is the pre-norm mixer and its residual add alone, with no MLP half. When
 ``cfg.moe`` is set, the MLP half of a block holds ``moe``, a mixture of
 experts (``models/moe.py``), in place of ``mlp``; its load-balance loss is
-not carried through the stack. Every norm is the one ``cfg.norm_type``
+carried through the stack where the caller asks for it (training), as the
+reference's blocks carry it. Every norm is the one ``cfg.norm_type``
 names (RMSNorm, or LayerNorm) — the attention, recurrent, ssm, decoder and
 MoE paths of ``repro/models/blocks.py``."""
 from __future__ import annotations
@@ -97,20 +98,28 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 active: Optional[torch.Tensor] = None,
                 causal: bool = True,
                 cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                cross_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cross_valid: Optional[torch.Tensor] = None,
+                aux: Optional[torch.Tensor] = None):
     """mode 'full': attention (causal, or not for an encoder's
     ``causal=False``; or the recurrence) over x, no cache;
-    mode 'prefill': the same, the layer's state written into cache rows
-    ``rows``; mode 'chunk': one prompt chunk per row against the live
-    cache at the coordinates ``chunk``; mode 'decode': one token per row
-    at ``pos``, the rows ``active`` leaves out keeping their cache. The
+    mode 'train': the same through the attention that autograd
+    differentiates (``attention.dense_attention``, the reference's dense
+    path; the kernels have no backward);
+    mode 'prefill': the same as 'full', the layer's state written into
+    cache rows ``rows``; mode 'chunk': one prompt chunk per row against the
+    live cache at the coordinates ``chunk``; mode 'decode': one token per
+    row at ``pos``, the rows ``active`` leaves out keeping their cache. The
     cache is updated in place. A ``decoder`` layer's self-attention is a
     global layer's; its cross-attention reads the encoder's keys and
-    values ``cross`` (k, v), masked to ``cross_valid`` in modes 'full' and
-    'prefill' (``attention.cross_attention``); it has no chunk mode."""
-    if mode not in ("full", "prefill", "chunk", "decode"):
-        raise ValueError(f"mode must be 'full', 'prefill', 'chunk' or "
-                         f"'decode', got {mode!r}")
+    values ``cross`` (k, v), masked to ``cross_valid`` in modes 'full',
+    'train' and 'prefill' (``attention.cross_attention``, or
+    ``dense_cross_attention`` in 'train'); it has no chunk mode.
+
+    Returns x; given ``aux`` (an f32 scalar), returns (x, aux plus this
+    block's MoE load-balance loss), the reference's carry."""
+    if mode not in ("full", "train", "prefill", "chunk", "decode"):
+        raise ValueError(f"mode must be 'full', 'train', 'prefill', 'chunk' "
+                         f"or 'decode', got {mode!r}")
     kind = p.kind
     if kind == DECODER and mode == "chunk":
         raise ValueError("chunked prefill cannot cross block kind "
@@ -119,9 +128,13 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     akind = ATTN_GLOBAL if kind == DECODER else kind
     h = p.pre_norm(x, cfg.norm_eps)
     if kind == SSM:                         # no post-norm, no MLP half
-        return x + _ssm(p, h, mode, cache, kv_valid, rows, chunk, active)
+        x = x + _ssm(p, h, mode, cache, kv_valid, rows, chunk, active)
+        return x if aux is None else (x, aux)
     if kind == RECURRENT:
         y = _recurrent(p, h, mode, cache, kv_valid, rows, chunk, active)
+    elif mode == "train":
+        y = attn.dense_attention(p.attn, h, cfg, positions, kv_valid,
+                                 kind=akind, causal=causal)
     elif mode == "decode":
         y, _ = attn.decode_attention(p.attn, h, cache, pos, cfg,
                                      active=active, kind=akind)
@@ -138,12 +151,18 @@ def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         y = p.post_norm(y, cfg.norm_eps)
     x = x + y
     if kind == DECODER:
-        x = x + attn.cross_attention(p.xattn, p.xattn_norm(x, cfg.norm_eps),
-                                     cross[0], cross[1], cfg, mode=mode,
-                                     kv_valid=cross_valid)
+        h = p.xattn_norm(x, cfg.norm_eps)
+        x = x + (attn.dense_cross_attention(p.xattn, h, cross[0], cross[1],
+                                            cfg, kv_valid=cross_valid)
+                 if mode == "train" else
+                 attn.cross_attention(p.xattn, h, cross[0], cross[1], cfg,
+                                      mode=mode, kv_valid=cross_valid))
     h = p.pre_mlp_norm(x, cfg.norm_eps)
-    y = moe_mod.moe_apply(p.moe, h, cfg)[0] if cfg.moe is not None \
-        else apply_mlp(p.mlp, h, cfg)
+    if cfg.moe is not None:
+        y, a = moe_mod.moe_apply(p.moe, h, cfg)
+        aux = None if aux is None else aux + a
+    else:
+        y = apply_mlp(p.mlp, h, cfg)
     if cfg.post_attn_norm:
         y = p.post_mlp_norm(y, cfg.norm_eps)
-    return x + y
+    return x + y if aux is None else (x + y, aux)

@@ -15,6 +15,9 @@ scans stacked layer parameters with ``jax.lax.scan``; here the layers are
 an ``nn.ModuleList`` walked by a Python loop, and the caches a list with
 one dict per layer (an enc-dec decoder layer's also holds its cross K/V,
 ``cross_k`` and ``cross_v``, where the reference keeps ``caches["cross"]``).
+Training's ``loss_fn`` runs the same stack in mode 'train': attention in
+plain torch, which autograd differentiates, and the MoE load-balance loss
+carried through the layers.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, RECURRENT,
                                       SSM, ModelConfig)
@@ -143,11 +147,13 @@ def cache_extents(cfg: ModelConfig, caches
 
 
 def encode(params: Model, cfg: ModelConfig, enc_embeds: torch.Tensor,
-           enc_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+           enc_valid: Optional[torch.Tensor] = None,
+           mode: str = "full") -> torch.Tensor:
     """The encoder of an enc-dec model: stub frame embeddings (B,T,d) in
     the activation dtype through its non-causal stack (RoPE at positions
     0..T-1), frames past ``enc_valid`` (B,T), the real frames of
-    right-padded rows, masked as keys; then its final norm. -> (B,T,d)."""
+    right-padded rows, masked as keys; then its final norm. -> (B,T,d).
+    ``mode`` 'train' runs the blocks' differentiable attention."""
     device = model_device(params)
     x = enc_embeds.to(device=device, dtype=dtype_of(cfg.activation_dtype))
     B, T = x.shape[:2]
@@ -155,7 +161,7 @@ def encode(params: Model, cfg: ModelConfig, enc_embeds: torch.Tensor,
     if enc_valid is not None:
         enc_valid = enc_valid.to(device)
     for layer in params.enc_layers:
-        x = blk.apply_block(layer, x, cfg, mode="full", cache=None,
+        x = blk.apply_block(layer, x, cfg, mode=mode, cache=None,
                             positions=positions, kv_valid=enc_valid,
                             causal=False)
     return params.enc_final_norm(x, cfg.norm_eps)
@@ -217,7 +223,8 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             kv_valid: Optional[torch.Tensor] = None,
             cache_rows: Optional[torch.Tensor] = None,
             chunk: Optional[attn_mod.ChunkCoords] = None,
-            active=None) -> Tuple[torch.Tensor, List[attn_mod.Cache]]:
+            active=None, remat: bool = False
+            ) -> Tuple[torch.Tensor, List[attn_mod.Cache]]:
     """Returns (hidden (B,S,d), caches); the caches are updated in place.
     Every shape follows the inputs' shapes (none follows their values), and
     nothing waits on the device, so a serving stage built on it can be
@@ -235,11 +242,19 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     the build step's calibration forward, and the encoder's serving
     mode); ``kv_valid`` (B,S), if given, marks real tokens of right-padded
     rows, and no query attends a padded key.
-    mode 'prefill': the same, right-padded, ``kv_valid`` (B,S) marking real
-    tokens; batch row j's state (K/V, or a recurrent layer's
-    exit state) goes to cache row
-    ``cache_rows[j]`` (default row j); a negative entry marks a padded
-    group row, which writes nothing of its own.
+    mode 'train': as 'full', through what autograd differentiates (each
+    block's attention in plain torch, ``attention.dense_attention``: the
+    kernels have no backward); returns (hidden, aux), aux the summed MoE
+    load-balance loss of the layers (an f32 scalar, 0 without experts), as
+    the reference's forward carries it. ``remat`` recomputes each (decoder)
+    layer in the backward pass (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of its scan unit) instead of keeping its
+    activations.
+    mode 'prefill': the same as 'full', right-padded, ``kv_valid`` (B,S)
+    marking real tokens; batch row j's state (K/V, or a recurrent layer's
+    exit state) goes to cache row ``cache_rows[j]`` (default row j); a
+    negative entry marks a padded group row, which writes nothing of its
+    own.
     mode 'chunk': batch {'tokens' (P,C)}, one prompt chunk per group row at
     the coordinates ``chunk`` (see ``chunk_prefill_step``).
     mode 'decode': batch {'tokens' (B,1)} at per-row positions ``pos``
@@ -259,13 +274,13 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     B, S = x.shape[:2]
     positions = rows = None
     causal = cfg.family != "encoder"
-    if mode in ("full", "prefill"):
+    if mode in ("full", "train", "prefill"):
         positions = batch.get("positions")
         positions = _default_positions(cfg, B, S, device) \
             if positions is None else positions.to(device)
         if kv_valid is not None:
             kv_valid = kv_valid.to(device)
-    if mode == "full":
+    if mode in ("full", "train"):
         caches = [None] * cfg.num_layers
     elif mode == "prefill":
         rows = (torch.arange(B, device=device) if cache_rows is None
@@ -280,6 +295,10 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if cfg.encdec is not None and mode != "chunk":   # the blocks refuse it
         cross, cross_valid = _cross_inputs(params, cfg, batch, mode, caches,
                                            rows)
+    if mode == "train":
+        x, aux = _train_stack(params, cfg, x, positions, kv_valid, causal,
+                              cross, cross_valid, remat)
+        return params.final_norm(x, cfg.norm_eps), aux
     for layer, cache, ckv in zip(params.layers, caches, cross):
         x = blk.apply_block(layer, x, cfg, mode=mode, cache=cache,
                             positions=positions, pos=pos, kv_valid=kv_valid,
@@ -290,12 +309,28 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         (None if mode == "full" else caches)
 
 
+def _train_stack(params: Model, cfg: ModelConfig, x, positions, kv_valid,
+                 causal: bool, cross, cross_valid, remat: bool):
+    """The decoder layers in mode 'train', the MoE aux carried from 0;
+    with ``remat`` each layer is a checkpoint. -> (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer, ckv in zip(params.layers, cross):
+        def run(x, aux, layer=layer, ckv=ckv):
+            return blk.apply_block(layer, x, cfg, mode="train", cache=None,
+                                   positions=positions, kv_valid=kv_valid,
+                                   causal=causal, cross=ckv,
+                                   cross_valid=cross_valid, aux=aux)
+        x, aux = checkpoint(run, x, aux, use_reentrant=False) if remat \
+            else run(x, aux)
+    return x, aux
+
+
 def _cross_inputs(params: Model, cfg: ModelConfig, batch, mode: str, caches,
                   rows):
     """(each decoder layer's cross (k, v), the frame mask) of an enc-dec
-    forward: built from ``batch["enc_embeds"]`` in modes 'full' and
-    'prefill' (and in 'prefill' written into the caches, then read from
-    there), read from the caches in 'decode'."""
+    forward: built from ``batch["enc_embeds"]`` in modes 'full', 'train'
+    and 'prefill' (and in 'prefill' written into the caches, then read
+    from there), read from the caches in 'decode'."""
     if mode == "decode":
         return [(c["cross_k"], c["cross_v"]) for c in caches], None
     if "enc_embeds" not in batch:
@@ -303,8 +338,9 @@ def _cross_inputs(params: Model, cfg: ModelConfig, batch, mode: str, caches,
     valid = batch.get("enc_valid")
     if valid is not None:
         valid = valid.to(model_device(params))
-    cross = build_cross_kv(params, cfg,
-                           encode(params, cfg, batch["enc_embeds"], valid))
+    enc = encode(params, cfg, batch["enc_embeds"], valid, mode="train") \
+        if mode == "train" else encode(params, cfg, batch["enc_embeds"], valid)
+    cross = build_cross_kv(params, cfg, enc)
     if mode == "prefill":
         _write_cross(caches, cross, rows)
         cross = [(c["cross_k"], c["cross_v"]) for c in caches]
@@ -313,6 +349,21 @@ def _cross_inputs(params: Model, cfg: ModelConfig, batch, mode: str, caches,
 
 def head_table(params: Model, cfg: ModelConfig) -> torch.Tensor:
     return params.embed if cfg.tie_embeddings else params.lm_head
+
+
+def loss_fn(params: Model, cfg: ModelConfig, batch, *, remat: bool = False):
+    """Causal-LM loss over ``batch`` ({'tokens' or 'embeds', 'labels'
+    (B,S)[, 'loss_mask', 'positions', 'enc_embeds']}) through mode
+    'train': (total, {'xent', 'z', 'aux'}), total = xent + 1e-4 z + 1e-2
+    aux, the reference's ``loss_fn``."""
+    x, aux = forward(params, cfg, batch, mode="train", caches=None,
+                     remat=remat)
+    mask = batch.get("loss_mask")
+    loss, z = vocab_mod.lm_head_loss(
+        x, head_table(params, cfg), batch["labels"].to(x.device), cfg,
+        None if mask is None else mask.to(x.device))
+    total = loss + 1e-4 * z + 1e-2 * aux
+    return total, {"xent": loss, "z": z, "aux": aux}
 
 
 def prefill(params: Model, cfg: ModelConfig, batch, max_len: int,

@@ -16,8 +16,9 @@ B * S alone, and nothing reads a value on the host (no boolean mask, no
 Capacity depends on the tokens of the call: bucket pads, padded group rows
 and inactive decode rows are routed too, as in the reference, so the drops
 (and the outputs at a capacity factor that drops) depend on the batch's
-composition. The switch load-balance loss comes back beside the output at
-module level; serving carries no aux through the stack.
+composition. The switch load-balance loss comes back beside the output;
+the blocks carry it through the stack where the caller asks for it
+(training's ``loss_fn``), and serving drops it.
 
 This is the reference's path without a mesh (``moe_ref``, ``es == 1``).
 Its expert-parallel branch (``shard_map`` with an all-to-all over the

@@ -111,13 +111,13 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor):
     (prod_{s<=t} a_s, h). log2(S) rounds of the reference's combine
     ``(a, b) <- (a_t a_{t-k}, a_t b_{t-k} + b_t)`` at distances k = 1, 2,
     4, ...; the first k entries of a round combine with the identity and
-    stay as they are."""
+    stay as they are. Each round makes new tensors (no in-place write),
+    so autograd differentiates it."""
     with torch.profiler.record_function(RGLRU_SCAN_SPAN):
-        a, b = a.clone(), b.clone()
         k, S = 1, a.shape[1]
         while k < S:
-            b[:, k:] = a[:, k:] * b[:, :-k] + b[:, k:]
-            a[:, k:] = a[:, k:] * a[:, :-k]
+            b = torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], dim=1)
+            a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
             k *= 2
         return a, b
 

@@ -1,18 +1,21 @@
-"""Failure detection for the port's fleet: copies of ``HostState``,
-``DeadHostBeat`` and ``HeartbeatMonitor`` from
-``repro/runtime/fault_tolerance.py`` (what ``FleetController`` needs of
-it), kept so that the port never imports the JAX package. The reference
-module's training-side hooks (checkpoint-restart, elastic mesh plans,
-hedging, step deadlines) belong to the training slice and are not here.
+"""Failure detection, checkpoint-restart, elastic rescale and straggler
+mitigation for the port: copies of ``repro/runtime/fault_tolerance.py``
+(``HostState``, ``DeadHostBeat`` and ``HeartbeatMonitor``, which the
+fleet's ``FleetController`` uses; ``ElasticPlan``, ``plan_elastic_mesh``,
+``TrainSupervisor``, ``HostFailure``, ``HedgePolicy``,
+``simulate_hedged_latency`` and ``StepDeadline``, the training side's),
+kept so that the port never imports the JAX package.
 
 The detector runs on any clock: the fleet simulator passes its virtual
 ``now``, a live fleet ``time.monotonic``.
 """
 from __future__ import annotations
 
+import statistics
 import time
-from dataclasses import dataclass
-from typing import Callable, List
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Deque, List, Sequence
 
 
 @dataclass
@@ -132,3 +135,135 @@ class HeartbeatMonitor:
         now = self.clock()
         return sum(st.alive and not self._timed_out(st, now)
                    for st in self.hosts.values())
+
+
+@dataclass
+class ElasticPlan:
+    """Re-plan the mesh after losing hosts. Shrinks the data axis to the
+    largest feasible power-of-two slice (model axis is preserved: TP groups
+    must stay intact, so whole TP groups are dropped)."""
+    old_data: int
+    old_model: int
+    new_data: int
+    new_model: int
+
+    @property
+    def changed(self) -> bool:
+        return (self.old_data, self.old_model) != (self.new_data, self.new_model)
+
+
+def plan_elastic_mesh(data: int, model: int, hosts_per_group: int,
+                      failed: Sequence[int]) -> ElasticPlan:
+    """Each data-axis slice maps to ``hosts_per_group`` hosts. A failed host
+    removes its whole slice; the data axis shrinks to the largest power of
+    two <= surviving slices (keeps batch divisibility)."""
+    dead_groups = {h // hosts_per_group for h in failed}
+    surviving = data - len([g for g in dead_groups if g < data])
+    new_data = 1
+    while new_data * 2 <= surviving:
+        new_data *= 2
+    return ElasticPlan(data, model, max(new_data, 1), model)
+
+
+class TrainSupervisor:
+    """Checkpoint-restart loop: run steps, detect (simulated) failures,
+    restore from the latest checkpoint onto the (possibly smaller) mesh.
+
+    ``run_step(step) -> None`` may raise HostFailure; ``save(step)`` /
+    ``restore() -> step`` wrap the CheckpointManager."""
+
+    def __init__(self, run_step, save, restore, *, ckpt_every: int = 10,
+                 max_restarts: int = 8):
+        self.run_step = run_step
+        self.save = save
+        self.restore = restore
+        self.ckpt_every = ckpt_every
+        self.max_restarts = max_restarts
+        self.restarts = 0
+        self.steps_done = 0
+        self.log: List[str] = []
+
+    def run(self, total_steps: int) -> int:
+        step = 0
+        while step < total_steps:
+            try:
+                self.run_step(step)
+                self.steps_done += 1
+                step += 1
+                if step % self.ckpt_every == 0:
+                    self.save(step)
+            except HostFailure as e:
+                self.restarts += 1
+                self.log.append(f"step {step}: {e}; restart #{self.restarts}")
+                if self.restarts > self.max_restarts:
+                    raise RuntimeError("restart budget exhausted") from e
+                step = self.restore()
+        return step
+
+
+class HostFailure(RuntimeError):
+    pass
+
+
+# --------------------------------------------------------------------------
+# Straggler mitigation
+# --------------------------------------------------------------------------
+
+@dataclass
+class HedgePolicy:
+    """Serving-side: hedge a request to a second replica once its latency
+    exceeds the p95 of recent requests (paper: queue+multiple devices; the
+    runtime 'distributes requests to devices as they become available').
+
+    The window is a ``deque(maxlen=window)``: ``observe`` sits on the hot
+    serving path (once per completed request), and a list's ``pop(0)`` is
+    O(window) per call — the deque evicts in O(1)."""
+    history: Deque[float] = field(default_factory=deque)
+    window: int = 256
+    quantile: float = 0.95
+
+    def __post_init__(self):
+        self.history = deque(self.history, maxlen=self.window)
+
+    def observe(self, latency_s: float):
+        self.history.append(latency_s)      # maxlen evicts the oldest
+
+    def hedge_deadline(self) -> float:
+        if len(self.history) < 8:
+            return float("inf")
+        xs = sorted(self.history)
+        return xs[min(int(len(xs) * self.quantile), len(xs) - 1)]
+
+    def should_hedge(self, elapsed_s: float) -> bool:
+        return elapsed_s > self.hedge_deadline()
+
+
+def simulate_hedged_latency(latencies: Sequence[float],
+                            hedge_after: float) -> List[float]:
+    """Latency of hedged execution: min(primary, hedge_after + clone)."""
+    out = []
+    lat = list(latencies)
+    for i, l in enumerate(lat):
+        clone = lat[(i * 7 + 3) % len(lat)]       # deterministic "replica"
+        out.append(min(l, hedge_after + clone) if l > hedge_after else l)
+    return out
+
+
+@dataclass
+class StepDeadline:
+    """Training-side straggler detection: per-step wall-time watchdog. A step
+    exceeding k x median flags the slowest host for replacement (with SPMD
+    collectives one slow host stalls everyone — detect, then evict via the
+    elastic plan)."""
+    k: float = 3.0
+    history: List[float] = field(default_factory=list)
+
+    def observe(self, step_time_s: float) -> bool:
+        self.history.append(step_time_s)
+        if len(self.history) < 5:
+            return False
+        # standard (interpolated) median — taking the upper of the two
+        # middle elements for even windows biased the threshold high, so
+        # a borderline straggler at exactly k x median slipped through
+        med = statistics.median(self.history[-50:])
+        return step_time_s > self.k * med
